@@ -1,0 +1,304 @@
+"""Inference engine: text → waveform on one card (counterpart of the JAX
+package's ``infer.py``, single-utterance path).
+
+The host does the text frontend (cleaners + lexicon/G2P) and pads the
+phoneme IDs to a length bucket.  On the card, the acoustic model predicts
+a mel spectrogram into a buffer sized speculatively from the phoneme
+count, the folded HiFi-GAN vocodes it, and the waveform is wire-encoded.
+The mel length is clamped on the card and reaches the vocoder (and its
+kernels) as a device tensor, so nothing waits for the host between the
+two models; the host reads the mel length once at the end and copies only
+the valid ``mel_len × hop`` samples.
+"""
+
+import collections
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from efficientspeech_tpu_torch.audio.transfer import (
+    FORMATS, decode_host, encode_device)
+from efficientspeech_tpu_torch.config import (
+    HifiGanConfig, ModelConfig, PreprocessConfig)
+from efficientspeech_tpu_torch.device import resolve_device
+from efficientspeech_tpu_torch.models.efficientspeech import EfficientSpeech
+from efficientspeech_tpu_torch.models.hifigan_folded import (
+    fold_hifigan, folded_plan_apply, prepare_for_kernels)
+from efficientspeech_tpu_torch.text.g2p import (
+    get_lexicon_and_g2p, text2phoneme)
+from efficientspeech_tpu_torch.text.symbols import PAD_ID, symbols
+from efficientspeech_tpu_torch.utils.tools import next_bucket
+from efficientspeech_tpu_torch.weights import (
+    init_params, load_jax_params, set_duration_bias)
+
+DEFAULT_PHONEME_BUCKETS = (32, 64, 128, 256, 512)
+# mel bucket = phoneme bucket × this (LJSpeech averages ~6.5 frames per
+# phoneme; 16× leaves ample headroom)
+MEL_EXPANSION = 16
+# the mel buffer is sized speculatively from the phoneme count: 8 frames
+# per phoneme until the tracker has observed the served model's ratio; an
+# undershoot re-runs at the then-known length
+SPEC_EXPANSION = 8
+SPEC_MIN_FRAMES = 512
+# the kernel path engages at this many speculative frames.  The JAX
+# package measured this threshold on a TPU v5e; it has not been
+# re-measured on the card yet.
+KERNEL_MIN_FRAMES = 2048
+VOCODER_MODES = ("folded", "folded_kernel")
+
+
+class Synthesizer:
+    """Holds the model on its device and serves ``tts(text)``."""
+
+    # the speculation tracker is a max over this many recent syntheses, so
+    # one outlier inflates the buffers for at most this many requests
+    OBS_WINDOW = 64
+
+    def __init__(self, cfg: ModelConfig, hifigan_cfg: HifiGanConfig,
+                 model: EfficientSpeech,
+                 preprocess_cfg: Optional[PreprocessConfig] = None,
+                 dtype=torch.bfloat16,
+                 phoneme_buckets=DEFAULT_PHONEME_BUCKETS,
+                 mel_expansion: int = MEL_EXPANSION,
+                 vocoder_mode: str = "folded_kernel",
+                 transfer: str = "int16",
+                 spec_expansion: int = SPEC_EXPANSION,
+                 device=None):
+        """``vocoder_mode``: "folded" runs every vocoder op as a plain
+        matmul; "folded_kernel" runs the 128-wide ops and each stage's MRF
+        in the CUDA kernels from ``KERNEL_MIN_FRAMES`` speculative frames
+        on.  ``transfer``: the PCM wire format ("int16", "mulaw", "f32").
+        ``dtype``: the acoustic model's compute dtype and the vocoder's
+        matmul operand precision."""
+        if vocoder_mode not in VOCODER_MODES:
+            raise ValueError(f"vocoder_mode {vocoder_mode!r} not in "
+                             f"{VOCODER_MODES}")
+        if transfer not in FORMATS:
+            raise ValueError(f"transfer {transfer!r} not in {FORMATS}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.hifigan_cfg = hifigan_cfg
+        self.dtype = dtype
+        self.vocoder_mode = vocoder_mode
+        self.transfer = transfer
+        self.phoneme_buckets = tuple(phoneme_buckets)
+        self.mel_expansion = mel_expansion
+        self.spec_expansion = spec_expansion
+        self.spec_min_frames = SPEC_MIN_FRAMES
+        self.preprocess_cfg = preprocess_cfg or PreprocessConfig()
+        self.lexicon, self.g2p = get_lexicon_and_g2p(self.preprocess_cfg)
+        self.sampling_rate = self.preprocess_cfg.audio.sampling_rate
+        self.hop_length = self.preprocess_cfg.audio.hop_length
+        self._obs_ratio = None
+        self._obs_recent = collections.deque(maxlen=self.OBS_WINDOW)
+
+        model = model.to(self.device).eval()
+        self.acoustic = model.phoneme2mel.to(dtype)
+        with torch.no_grad():
+            arrays, self.fold_meta = fold_hifigan(model.hifigan, dtype)
+            self.folded, self.mrf = prepare_for_kernels(
+                arrays, self.fold_meta, hifigan_cfg)
+
+    # --- frontend ----------------------------------------------------------
+    def phonemize(self, text: str) -> np.ndarray:
+        return text2phoneme(self.lexicon, self.g2p, text, self.preprocess_cfg)
+
+    def _pad_to_bucket(self, seq: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray, int]:
+        n = len(seq)
+        bucket = next_bucket(n, self.phoneme_buckets)
+        n = min(n, bucket)
+        phoneme = np.zeros((1, bucket), dtype=np.int32)
+        phoneme[0, :n] = seq[:n]
+        pad_mask = np.ones((1, bucket), dtype=bool)
+        pad_mask[0, :n] = False
+        return phoneme, pad_mask, bucket
+
+    # --- speculative buffer sizing -------------------------------------------
+    def _observe_ratio(self, mel_len: int, n_phonemes: int):
+        """Track the served model's frames per phoneme as the max over the
+        last ``OBS_WINDOW`` syntheses."""
+        if n_phonemes > 0 and mel_len > 0:
+            self._obs_recent.append(mel_len / n_phonemes)
+            self._obs_ratio = max(self._obs_recent)
+
+    def _spec_levels(self, bucket: int):
+        """{pow2, 1.5·pow2} frame-count ladder up to the bucket's cap."""
+        cap = bucket * self.mel_expansion
+        levels, f = [], self.spec_min_frames
+        while f < cap:
+            levels.append(f)
+            if f * 3 // 2 < cap and f * 3 % 2 == 0 and f >= 1024:
+                levels.append(f * 3 // 2)
+            f *= 2
+        levels.append(cap)
+        return sorted(set(levels))
+
+    def _spec_frames(self, n_phonemes: int, bucket: int,
+                     min_frames: int = 0) -> int:
+        """Speculative mel-frame count: observed ratio × 1.2 once warm
+        (else the static expansion), quantized up to the level ladder;
+        ``min_frames`` forces a floor (the undershoot re-run)."""
+        exp = self.spec_expansion
+        if self._obs_ratio is not None:
+            exp = min(exp, max(4.0, self._obs_ratio * 1.2))
+        need = max(self.spec_min_frames, int(np.ceil(n_phonemes * exp)),
+                   min_frames)
+        for level in self._spec_levels(bucket):
+            if level >= need:
+                return level
+        return bucket * self.mel_expansion
+
+    # --- the device program ----------------------------------------------------
+    @torch.no_grad()
+    def _run(self, phoneme: np.ndarray, frames: int,
+             speaker: Optional[int] = None):
+        """Phoneme IDs → (wire-encoded PCM (1, frames·hop) on the card,
+        unclamped mel_len (1,) on the card, durations)."""
+        ph = torch.from_numpy(phoneme).to(self.device)
+        spk = (None if speaker is None else
+               torch.tensor([speaker], dtype=torch.long, device=self.device))
+        pred = self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
+                             speaker=spk)
+        mel_len = torch.clamp(pred["mel_len"], max=frames)
+        use_kernel = (self.vocoder_mode == "folded_kernel"
+                      and frames >= KERNEL_MIN_FRAMES)
+        wav = folded_plan_apply(self.folded, self.fold_meta, self.hifigan_cfg,
+                                pred["mel"], valid_len=mel_len,
+                                dtype=self.dtype, use_kernel=use_kernel,
+                                fuse_mrf=use_kernel, mrf=self.mrf)
+        return encode_device(wav, self.transfer), pred["mel_len"], \
+            pred["duration"]
+
+    def synthesize_ids(self, seq: np.ndarray, speaker: Optional[int] = None):
+        """Phoneme IDs → (wav float32 numpy, trimmed; mel_len; durations on
+        the card).  If the speculative buffer undershoots the true mel
+        length, the utterance re-runs at a size that holds it."""
+        phoneme, _, bucket = self._pad_to_bucket(seq)
+        n_valid = int(min(len(seq), bucket))
+        spec = self._spec_frames(n_valid, bucket)
+        pcm, mel_len_dev, duration = self._run(phoneme, spec, speaker)
+        mel_len = int(mel_len_dev[0])
+        self._observe_ratio(mel_len, n_valid)
+        if mel_len > spec:
+            full = bucket * self.mel_expansion
+            if spec < full:
+                spec = self._spec_frames(n_valid, bucket,
+                                         min_frames=min(mel_len, full))
+                pcm, mel_len_dev, duration = self._run(phoneme, spec,
+                                                       speaker)
+                mel_len = int(mel_len_dev[0])
+            mel_len = min(mel_len, full)
+        n = mel_len * self.hifigan_cfg.total_upsample
+        wav = decode_host(pcm[0, :n].cpu().numpy(), self.transfer)
+        return wav, mel_len, duration
+
+    def tts_ids_timed(self, seq: np.ndarray, speaker: Optional[int] = None):
+        """Synthesize a phoneme sequence of any length: segments beyond the
+        largest bucket and concatenates the waveforms."""
+        segments = self._segment(seq)
+        if len(segments) == 1:
+            return self.synthesize_ids(segments[0], speaker=speaker)
+        wavs, total_mel, duration = [], 0, None
+        for seg in segments:
+            w, m, duration = self.synthesize_ids(seg, speaker=speaker)
+            wavs.append(w)
+            total_mel += m
+        return np.concatenate(wavs), total_mel, duration
+
+    def _segment(self, seq: np.ndarray, max_len: Optional[int] = None):
+        """Split a phoneme sequence longer than ``max_len`` (default: the
+        largest bucket) at pause ({sp}) boundaries, or hard boundaries as a
+        fallback."""
+        max_bucket = max_len or self.phoneme_buckets[-1]
+        if len(seq) <= max_bucket:
+            return [np.asarray(seq)]
+        sp_id = symbols.index("@sp")
+        segments, start = [], 0
+        while len(seq) - start > max_bucket:
+            window = seq[start: start + max_bucket]
+            cuts = np.where(window == sp_id)[0]
+            cut = int(cuts[-1]) + 1 if len(cuts) else max_bucket
+            segments.append(np.asarray(seq[start: start + cut]))
+            start += cut
+        if start < len(seq):
+            segments.append(np.asarray(seq[start:]))
+        return segments
+
+    def tts(self, text: str, verbose: bool = False,
+            speaker: Optional[int] = None):
+        """Text → (wav, info with stage timings and RTF)."""
+        t0 = time.time()
+        seq = self.phonemize(text)
+        t1 = time.time()
+        wav, mel_len, _ = self.tts_ids_timed(seq, speaker=speaker)
+        t2 = time.time()
+        voice_len = len(wav) / self.sampling_rate
+        elapsed = t2 - t0
+        info = {
+            "phoneme_len": len(seq),
+            "mel_len": mel_len,
+            "voice_secs": voice_len,
+            "frontend_secs": t1 - t0,
+            "model_secs": t2 - t1,
+            "total_secs": elapsed,
+            "rtf": voice_len / elapsed if elapsed > 0 else float("inf"),
+            "model_rtf": voice_len / (t2 - t1) if t2 > t1 else float("inf"),
+        }
+        if verbose:
+            print(f"voice: {voice_len:.2f}s  synth: {elapsed * 1e3:.2f}ms  "
+                  f"RTF: {info['rtf']:.1f}")
+        return wav, info
+
+    def warmup(self, text: str, iters: int = 10) -> int:
+        """Run this text's shapes ``iters`` times; returns its phoneme
+        count."""
+        seq = self.phonemize(text)
+        for _ in range(iters):
+            self.synthesize_ids(seq)
+        return len(seq)
+
+
+def build_synthesizer(preset: str = "tiny",
+                      params=None,
+                      hifigan_cfg: Optional[HifiGanConfig] = None,
+                      hifigan_config: Optional[str] = None,
+                      preprocess_cfg: Optional[PreprocessConfig] = None,
+                      stats: Optional[dict] = None,
+                      dtype=torch.bfloat16,
+                      seed: int = 0,
+                      bench_duration_bias: Optional[float] = None,
+                      transfer: str = "int16",
+                      vocoder_mode: str = "folded_kernel",
+                      model_overrides: Optional[dict] = None,
+                      device=None) -> Synthesizer:
+    """Build a Synthesizer from a JAX-layout parameter tree (``params``,
+    with ``phoneme2mel`` and ``hifigan`` subtrees) or, without one, from a
+    native random init seeded by ``seed``.
+
+    ``hifigan_cfg`` / ``hifigan_config`` (a config.json path) choose the
+    vocoder's shape, default the LJ_V2 widths.  ``bench_duration_bias``
+    sets the duration head's bias (random weights otherwise predict ~0
+    frames).  ``device`` defaults to the card and raises without one."""
+    device = resolve_device(device)
+    overrides = dict(model_overrides or {})
+    if stats is not None:
+        overrides.setdefault("pitch_stats", tuple(stats["pitch"][:2]))
+        overrides.setdefault("energy_stats", tuple(stats["energy"][:2]))
+    cfg = ModelConfig.preset(preset, **overrides)
+    if hifigan_cfg is None:
+        hifigan_cfg = (HifiGanConfig.from_json(hifigan_config)
+                       if hifigan_config else HifiGanConfig())
+    model = EfficientSpeech(cfg, hifigan_cfg)
+    if params is not None:
+        load_jax_params(model, params)
+    else:
+        init_params(model, seed)
+    if bench_duration_bias is not None:
+        set_duration_bias(model, bench_duration_bias)
+    return Synthesizer(cfg, hifigan_cfg, model,
+                       preprocess_cfg=preprocess_cfg, dtype=dtype,
+                       transfer=transfer, vocoder_mode=vocoder_mode,
+                       device=device)

@@ -1,0 +1,152 @@
+"""One vocoder stage's whole MRF block: the CUDA kernel K2
+(``csrc/mrf_block.cu``), its plain PyTorch version, and the spec that
+stacks the stage's folded convs.
+
+For each resblock j (a chain of (conv1, conv2) pairs):
+
+    v = x;  v = mask(conv2(lrelu(mask(conv1(lrelu(v))))) + v)  per pair
+    out = mask(Σ_j v / num_kernels)
+
+with every conv output masked to rows [0, valid).  A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from efficientspeech_tpu_torch.ops.kernels import build
+from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
+    leaky, mask_rows, window)
+
+LRELU_SLOPE = 0.1
+D = 128
+
+# kernel launches since the count was last set to 0
+launches = 0
+
+# chains[j] = [(w, n_win, w_row_offset, b_index), ...] in execution order
+Chains = List[List[Tuple[int, int, int, int]]]
+
+
+def build_mrf_spec(arrays: Dict, widths: Dict, stage: int,
+                   dilation_sizes: Sequence[Sequence[int]]
+                   ) -> Tuple[Chains, torch.Tensor, torch.Tensor, int]:
+    """Stack one stage's folded convs (c1_0, c2_0, c1_1, ... per resblock)
+    into (chains, W_all rows-concatenated, b_all (n_ops, D), H = the
+    largest per-chain sum of window half-widths)."""
+    chains, w_parts, b_parts = [], [], []
+    row_off = 0
+    for j, rd in enumerate(dilation_sizes):
+        chain = []
+        for m in range(len(rd)):
+            for cname in ("c1", "c2"):
+                key = f"rb{stage}_{j}_{cname}_{m}"
+                W, b = arrays[key]
+                w = widths[key]
+                chain.append((w, 2 * w + 1, row_off, len(b_parts)))
+                w_parts.append(W)
+                b_parts.append(b.reshape(1, -1))
+                row_off += W.shape[0]
+        chains.append(chain)
+    H = max(sum(op[0] for op in chain) for chain in chains)
+    return chains, torch.cat(w_parts), torch.cat(b_parts), H
+
+
+def mrf_fused_plain(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
+                    b_all: torch.Tensor, H: int,
+                    valid: Union[int, torch.Tensor], num_kernels: int,
+                    tm: Optional[int] = None,
+                    lrelu_slope: float = LRELU_SLOPE) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, float32 products, op by op
+    over the whole sequence (``H`` and ``tm`` only shape the kernel's
+    tiling)."""
+    W_all = W_all.to(x.dtype).float()
+    b_all = b_all.to(x.dtype).float()
+
+    def conv(src, op):
+        w, n_win, off, bi = op
+        y = window(leaky(src, lrelu_slope), w).float()
+        return y @ W_all[off: off + n_win * src.shape[1]] + b_all[bi]
+
+    x = mask_rows(x, valid)
+    xs = None
+    for chain in chains:
+        v = x
+        for m in range(0, len(chain), 2):
+            t = mask_rows(conv(v, chain[m]), valid).to(x.dtype)
+            v = mask_rows(conv(t, chain[m + 1]) + v.float(),
+                          valid).to(x.dtype)
+        xs = v.float() if xs is None else xs + v.float()
+    return mask_rows(xs * (1.0 / num_kernels), valid).to(x.dtype)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _P],
+                   _I),
+    "mrf_max_rows": ([], _I),
+    "mrf_smem_bytes": ([_I, _I], _I),
+}
+
+
+def tile_rows(H: int, max_rows: int = 192) -> int:
+    """Rows per block.  128 where the tile plus both halos fits the
+    kernel's 12 row blocks (stages 1-3: H = 19/10/7, halo recompute ≤ 30%);
+    64 at stage 0 (H = 33: 128 + 66 rows would not fit), which at 2,048
+    frames also gives 128 blocks, one wave on the card's 132 SMs."""
+    for tm in (128, 64, 32, 16):
+        if tm + 2 * H <= max_rows:
+            return tm
+    raise ValueError(f"MRF halo {H} too wide for the kernel's tile")
+
+
+def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
+              b_all: torch.Tensor, H: int, valid: Union[int, torch.Tensor],
+              num_kernels: int, tm: Optional[int] = None,
+              lrelu_slope: float = LRELU_SLOPE) -> torch.Tensor:
+    """x (T, 128) stage activations → (T, 128) MRF output.  ``chains``,
+    ``W_all``, ``b_all`` and ``H`` from ``build_mrf_spec``; ``valid`` in
+    rows of this stage's grid, at most T (on CUDA a one-element int32
+    tensor on the card).
+
+    On CUDA: x float32, W_all bf16, b_all float32; ``tm`` defaults to
+    ``tile_rows(H)``."""
+    global launches
+    if x.device.type == "cpu":
+        return mrf_fused_plain(x, chains, W_all, b_all, H, valid,
+                               num_kernels, tm, lrelu_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_fused: unsupported device {x.device}")
+    t = x.shape[0]
+    dev = x.device
+    n_ops = sum(len(c) for c in chains)
+    rows = chains[-1][-1][2] + chains[-1][-1][1] * D
+    build.check_tensor("x", x, torch.float32, (t, D), dev)
+    build.check_tensor("W_all", W_all, torch.bfloat16, (rows, D), dev)
+    build.check_tensor("b_all", b_all, torch.float32, (n_ops, D), dev)
+    build.check_valid("mrf_fused", valid, dev)
+    lib = build.load("mrf_block", _SIGNATURES)
+    tm = tile_rows(H, lib.mrf_max_rows()) if tm is None else tm
+    if tm % 16 or tm + 2 * H > lib.mrf_max_rows():
+        raise ValueError(f"mrf_fused: tile {tm} with halo {H} does not fit")
+    if lib.mrf_smem_bytes(tm, H) > 227 * 1024:
+        raise ValueError(f"mrf_fused: tile {tm} with halo {H} needs more "
+                         "shared memory than a block has")
+    spec = [len(chains)]
+    for chain in chains:
+        spec.append(len(chain))
+        for w, _, off, bi in chain:
+            spec += [w, off, bi]
+    spec_arr = (_I * len(spec))(*spec)
+    out = torch.empty((t, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mrf_launch(x.data_ptr(), W_all.data_ptr(),
+                             b_all.data_ptr(), out.data_ptr(),
+                             valid.data_ptr(), t, H, tm, spec_arr,
+                             num_kernels, float(lrelu_slope), stream)
+    build.check(lib, err, "mrf_fused")
+    launches += 1
+    return out

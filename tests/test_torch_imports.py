@@ -1,0 +1,76 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+kernel modules import without a CUDA toolkit, and its entry points refuse
+to fall back to the CPU silently."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "efficientspeech_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+    for p in PKG.rglob("*.py"))
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',",
+        "             'efficientspeech_tpu'):",
+        "    sys.modules[name] = None",
+        f"for mod in {MODULES!r}:",
+        "    importlib.import_module(mod.removesuffix('.__init__'))",
+        "leaked = [m for m in sys.modules if m.startswith(('jax', 'flax'))",
+        "          and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('ok', len(sys.modules))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_jax_import_in_source():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax"
+        r"|efficientspeech_tpu)(\.|\s|$)", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+    assert len(MODULES) > 25
+
+
+def test_kernel_modules_need_no_nvcc():
+    code = "\n".join([
+        "from efficientspeech_tpu_torch.ops.kernels import (",
+        "    build, folded_matmul, mrf_block)",
+        "from efficientspeech_tpu_torch.models import hifigan_folded",
+        "assert all((build.CSRC / f'{n}.cu').is_file()",
+        "           for n in build.SOURCES)",
+        "try:",
+        "    build._nvcc()",
+        "except RuntimeError:",
+        "    print('no nvcc')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(PKG.parent),
+                         env={"PATH": "/nonexistent"})
+    assert out.returncode == 0, out.stderr
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from efficientspeech_tpu_torch.device import resolve_device
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_synthesizer(preset="tiny")
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,105 @@
+"""The port's folded vocoder on its kernel path (plain versions on the
+CPU) against the JAX package's folded vocoder with its Pallas kernels in
+interpret mode, and against the JAX conv generator."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from efficientspeech_tpu.config import HifiGanConfig as JaxHifiGanConfig
+from efficientspeech_tpu.models.hifigan import HifiGanGenerator as JaxGen
+from efficientspeech_tpu.models.hifigan_folded import (
+    fold_hifigan_device, folded_plan_apply as jax_folded_plan_apply)
+from efficientspeech_tpu_torch.config import HifiGanConfig
+from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
+from efficientspeech_tpu_torch.models.hifigan_folded import (
+    fold_hifigan, folded_plan_apply, kernel_op_shapes, make_grid_plan,
+    prepare_for_kernels)
+from efficientspeech_tpu_torch.ops.kernels import folded_matmul, mrf_block
+from efficientspeech_tpu_torch.weights import load_jax_params
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def vocoder():
+    cfg = JaxHifiGanConfig()
+    shapes = jax.eval_shape(lambda: JaxGen(cfg).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 4, 80)))["params"])
+    rng = np.random.default_rng(21)
+
+    def leaf(path, s):
+        if path[-1].key == "bias":
+            return (rng.standard_normal(s.shape) * 0.1).astype(np.float32)
+        bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    gen = HifiGanGenerator(HifiGanConfig())
+    load_jax_params(gen, params)
+    mel = rng.normal(-3, 2, size=(1, 16, 80)).astype(np.float32)
+    return cfg, params, gen, mel
+
+
+@pytest.fixture(scope="module")
+def jax_kernel_path(vocoder):
+    """The JAX folded vocoder with its Pallas kernels (interpret mode) and
+    the JAX conv generator, at valid = 13 of 16 frames."""
+    cfg, params, _, mel = vocoder
+    valid = jnp.asarray([13])
+    j_arrays, j_meta = fold_hifigan_device(params, cfg, dtype=jnp.float32)
+    want = jax_folded_plan_apply(j_arrays, j_meta, cfg, jnp.asarray(mel),
+                                 valid, dtype=jnp.float32, use_pallas=True,
+                                 interpret=True, fuse_mrf=True)
+    ref = JaxGen(cfg).apply({"params": params}, jnp.asarray(mel),
+                            valid_len=valid)
+    return np.asarray(want), np.asarray(ref)
+
+
+def test_grid_plan():
+    _, _, g, rpf = make_grid_plan(HifiGanConfig())
+    assert g == [2, 4, 8, 16] and rpf == [4, 16, 16, 16]
+    ops, mrf = kernel_op_shapes(HifiGanConfig(), 2048)
+    assert [op[:4] for op in ops] == [
+        ("up0", 2048, 128, 512), ("up1", 8192, 128, 512),
+        ("up2", 32768, 128, 128), ("up3", 32768, 128, 128),
+        ("post", 32768, 128, 16)]
+    assert mrf == [(0, 8192), (1, 32768), (2, 32768), (3, 32768)]
+
+
+@pytest.mark.parametrize("prepared", [False, True])
+def test_kernel_path_matches_jax(vocoder, jax_kernel_path, prepared):
+    _, _, gen, mel = vocoder
+    want, ref = jax_kernel_path
+    valid = 13
+    arrays, meta = fold_hifigan(gen, torch.float32)
+    mrf = None
+    if prepared:
+        arrays, mrf = prepare_for_kernels(arrays, meta, gen.cfg)
+    folded_matmul.launches = mrf_block.launches = 0
+    with torch.no_grad():
+        got = folded_plan_apply(arrays, meta, gen.cfg, torch.from_numpy(mel),
+                                torch.tensor([valid]), dtype=torch.float32,
+                                use_kernel=True, fuse_mrf=True, mrf=mrf)
+    assert folded_matmul.launches == mrf_block.launches == 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+def test_plain_path_matches_conv_generator(vocoder):
+    cfg, params, gen, mel = vocoder
+    valid = 11
+    ref = JaxGen(cfg).apply({"params": params}, jnp.asarray(mel),
+                            valid_len=jnp.asarray([valid]))
+    arrays, meta = fold_hifigan(gen, torch.float32)
+    with torch.no_grad():
+        got = folded_plan_apply(arrays, meta, gen.cfg, torch.from_numpy(mel),
+                                torch.tensor([valid]), dtype=torch.float32)
+        conv = gen(torch.from_numpy(mel), torch.tensor([valid]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(conv.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
