@@ -18,11 +18,27 @@ Phases (each prints its lines; any failure exits non-zero):
                "folded_kernel"): one long request (>= 2,048 speculative
                frames, so the kernels engage) and three short ones, with
                launch counts, a check of every waveform, and the long
-               request held against the plain vocoder route.
-The kernel table goes on a JSON line before the last; the last line is
-{"ok": true, "device": {...}}.  With --profile, the slice phase also
-traces the long request with torch.profiler and prints where its device
-time goes and the device's idle share.
+               request held against the plain vocoder route;
+  6. K3      - layer_norm_fused forward and backward at the training shape
+               (131,072 rows of 128, bf16) against the plain version, with
+               F.layer_norm and its autograd backward as the yardstick;
+  7. K4      - decoder_block_fused forward and backward at (128, 1024, 128)
+               bf16 with about 1/6 of the frames masked, the same way;
+  8. train   - the acoustic Trainer (tiny preset, batch 128, 128 phonemes,
+               1,024 frames, bf16, random init from seed 0) on a synthetic
+               preprocessed corpus of 20 batches written from a seed: two
+               epochs (40 steps) with the launches of K3 and K4 counted per
+               step, the median step time inside each epoch (the first
+               reads the corpus from disk, the second from the loader's
+               memory cache) and the cost of the epoch boundary, finite
+               losses, the loss falling over repeated steps on one batch,
+               and the kernel route's loss and gradients held against the
+               plain route's on one batch.
+The kernel table goes on a JSON line before the last (K1/K2 times per
+utterance at 2,048 frames, K3/K4 times per train step: the per-launch
+time × 3 or 4 launches); the last line is {"ok": true, "device": {...}}.  With --profile, the slice and train phases
+also trace a long request and a train step with torch.profiler and print
+where the device time goes and the device's idle share.
 
 Tolerances: both kernels multiply in bf16 with float32 accumulation (the
 TPU's MXU arithmetic) while the plain versions multiply in float32, so
@@ -30,22 +46,37 @@ each kernel is held to its plain version at SNR >= 35 dB (the bar the JAX
 package's own folded-vocoder test sets), and rows at or beyond `valid`
 must be exactly zero.  The end-to-end waveform of the kernel route is held
 to the plain route's (bf16 operands, float32 products) at SNR >= 30 dB.
+K3 and K4 are held to their plain versions (which follow the TPU kernels
+op for op in bf16) at SNR >= 35 dB on every output: y, dx and each weight
+gradient.  A train step of the kernel route is held to the plain route's
+at loss relative difference <= 1e-2 and cosine >= 0.99 for every
+parameter gradient that is not zero: both run bf16 activations that round
+at other places.
 """
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FRAMES = 2048
 KERNEL_SNR_DB = 35.0
 E2E_SNR_DB = 30.0
+# the training shape: tiny preset at train.py's defaults
+TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
+# the corpus holds EPOCH_STEPS batches; the phase trains two epochs and
+# times the steps inside each apart from the one across the boundary
+EPOCH_STEPS, TRAIN_EPOCHS, WARMUP_STEPS = 20, 2, 3
+ROUTE_LOSS_RTOL, ROUTE_GRAD_COS = 1e-2, 0.99
 LONG_TEXT = (
     "The polyphase folded vocoder turns every convolution of the waveform "
     "generator into a dense matrix product over frame rate activations. "
@@ -93,8 +124,11 @@ def time_ms(fn, iters: int):
     return start.elapsed_time(end) / iters, host_ms
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, f32_flops: float = 0.0):
+    """The least time (ms) for the work and what bounds it: bf16
+    tensor-core FLOP plus float32 FLOP outside the tensor cores, each at
+    its peak, against bytes at the memory rate."""
+    t_ops = (flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -302,30 +336,33 @@ def phase_slice(synth, card: str):
     return launches
 
 
-def phase_profile(synth, card: str):
-    """Trace one long request: device time by kernel and the idle share
-    of the request's wall time."""
+def trace(fn, label: str, card: str):
+    """Trace one call of ``fn`` (after one untraced call): device time by
+    kernel and the idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    seq = synth.phonemize(LONG_TEXT)
-    synth.synthesize_ids(seq)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        synth.synthesize_ids(seq)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side entries only: an op's own entry repeats its kernels' time
+    # device-side kernel entries only: an op's own entry repeats its
+    # kernels' time, and a user annotation (the optimizer's step and
+    # zero_grad ranges) spans kernels counted on their own
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     if device_ms == 0:
-        print(f"[profile] no device time in the trace: not measured | {card}")
+        print(f"[profile] {label}: no device time in the trace: not "
+              f"measured | {card}")
         return
     n_kernels = sum(e.count for e in events)
-    print(f"[profile] long request: wall {wall_ms:.2f} ms, device busy "
+    print(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms in {n_kernels} kernels, idle share "
           f"{1 - device_ms / wall_ms:.3f} | {card}")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
@@ -334,12 +371,337 @@ def phase_profile(synth, card: str):
               f"x{e.count:<5d} {e.key[:90]}")
 
 
+def phase_profile(synth, card: str):
+    """Trace one long request."""
+    seq = synth.phonemize(LONG_TEXT)
+    trace(lambda: synth.synthesize_ids(seq), "long request", card)
+
+
+def _snr_check(tag: str, pairs, card: str):
+    """Fail unless every (name, kernel, plain) output is finite and holds
+    its plain version at KERNEL_SNR_DB; returns the worst max-abs error."""
+    worst = 0.0
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{tag} {name}: {got.dtype} {tuple(got.shape)} vs plain "
+                 f"{want.dtype} {tuple(want.shape)}")
+        if not torch.isfinite(got).all():
+            fail(f"{tag} {name}: non-finite output")
+        snr = snr_db(want, got)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        print(f"[{tag}] {name}: SNR {snr:.1f} dB (tol >= {KERNEL_SNR_DB}) "
+              f"max_abs_err {err:.3g} | {card}")
+        if snr < KERNEL_SNR_DB:
+            fail(f"{tag} {name}: SNR {snr:.1f} dB < {KERNEL_SNR_DB} dB")
+    return worst
+
+
+def _row(tag: str, fn, plain, library, flops, f32_flops, nbytes,
+         per_step: int, card: str, iters: int = 20):
+    """Time one direction of a training kernel at its main-path shape and
+    scale to the launches of one train step."""
+    ms, host_ms = time_ms(fn, iters)
+    plain_ms, _ = time_ms(plain, 3)
+    lib_ms = time_ms(library, iters)[0] if library is not None else None
+    b_ms, by = bound(flops, nbytes, f32_flops)
+    print(f"[{tag}] per launch: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+          f"bound_ms {b_ms:.4f} ({by}) | {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP bf16 + {f32_flops / 1e9:.2f} GFLOP f32 "
+          f"| achieved {nbytes / ms / 1e6:.0f} GB/s | wrapper host_ms "
+          f"{host_ms:.4f} | {card}")
+    return dict(ms=ms * per_step, plain_ms=plain_ms * per_step,
+                library_ms=None if lib_ms is None else lib_ms * per_step,
+                bound_ms=b_ms * per_step, bound_by=by)
+
+
+def phase_k3(card: str):
+    """K3 at the training shape: the decoder's frame-rate LayerNorms over
+    128 × 1,024 frames of 128 channels."""
+    import torch.nn.functional as F
+
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+
+    dev = torch.device("cuda")
+    rows, c = TRAIN_BATCH * TRAIN_FRAMES, 128
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
+    s = (torch.randn(c, generator=gen) * 0.5 + 1).to(dev)
+    b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    dy = torch.randn(rows, c, generator=gen).to(dev, torch.bfloat16)
+    err_f = _snr_check("K3 fwd", [("y", k3.layer_norm_fwd(x, s, b),
+                                   k3.layer_norm_fwd_plain(x, s, b))], card)
+    err_b = _snr_check("K3 bwd", zip(
+        ("dx", "dscale", "dbias"), k3.layer_norm_bwd(x, s, dy),
+        k3.layer_norm_bwd_plain(x, s, dy)), card)
+    torch.cuda.synchronize()
+
+    xs = x.clone().requires_grad_()
+    sb, bb = s.to(torch.bfloat16).requires_grad_(), \
+        b.to(torch.bfloat16).requires_grad_()
+    y_lib = F.layer_norm(xs, (c,), sb, bb)
+    elems = rows * c
+    # float32 FLOP per element: forward ~8 (two sums, centre, square,
+    # scale, shift), backward ~14
+    fwd = _row("K3 fwd", lambda: k3.layer_norm_fwd(x, s, b),
+               lambda: k3.layer_norm_fwd_plain(x, s, b),
+               lambda: F.layer_norm(x, (c,), sb.detach(), bb.detach()),
+               0.0, 8.0 * elems, 2 * elems * 2 + 2 * c * 4, 3, card)
+    bwd = _row("K3 bwd", lambda: k3.layer_norm_bwd(x, s, dy),
+               lambda: k3.layer_norm_bwd_plain(x, s, dy),
+               lambda: torch.autograd.grad(y_lib, (xs, sb, bb), dy,
+                                           retain_graph=True),
+               0.0, 14.0 * elems, 3 * elems * 2 + 3 * c * 4, 3, card)
+    return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
+
+
+def phase_k4(card: str):
+    """K4 at the training shape, with per-utterance padded tails that mask
+    about 1/6 of the frames."""
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+
+    dev = torch.device("cuda")
+    b, m, c, k = TRAIN_BATCH, TRAIN_FRAMES, 128, 5
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    f = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd
+                                ).to(dev)
+    x = f(b, m, c).to(torch.bfloat16)
+    lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
+    keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
+    weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1), f(c, c, 1, sd=0.09),
+               f(c, sd=0.1), 1 + f(c, sd=0.2), f(c, sd=0.1)]
+    dy = f(b, m, c).to(torch.bfloat16)
+    print(f"[K4] (B, M, C) ({b}, {m}, {c}), masked frames "
+          f"{1 - float(keep.mean()):.3f} | {card}")
+    err_f = _snr_check("K4 fwd", [(
+        "y", k4.decoder_block_fwd(x, keep, *weights),
+        k4.decoder_block_fwd_plain(x, keep, *weights))], card)
+    grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
+    err_b = _snr_check("K4 bwd", zip(
+        ("dx", "d_dw_w", "d_dw_b", "d_pw_w", "d_pw_b", "d_ln_s", "d_ln_b"),
+        grads, k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)), card)
+    torch.cuda.synchronize()
+    if grads[0][keep == 0].any():
+        fail("K4 bwd: dx is not zero on masked frames")
+
+    elems = b * m * c
+    w_bytes = sum(w.numel() for w in weights) * 4
+    mm = 2.0 * b * m * c * c  # one C x C pointwise product
+    # float32 FLOP per element outside the tensor cores: forward ~22 (mask,
+    # 5 taps, biases, tanh, LayerNorm), backward ~60 (the recomputed
+    # forward, the LayerNorm and tanh gradients, 5-tap dx and tap sums)
+    fwd = _row("K4 fwd", lambda: k4.decoder_block_fwd(x, keep, *weights),
+               lambda: k4.decoder_block_fwd_plain(x, keep, *weights), None,
+               mm, 22.0 * elems, 2 * elems * 2 + b * m * 4 + w_bytes, 4,
+               card)
+    bwd = _row("K4 bwd",
+               lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy),
+               lambda: k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy),
+               None, 3 * mm, 60.0 * elems,
+               3 * elems * 2 + b * m * 4 + 2 * w_bytes, 4, card)
+    return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
+
+
+def write_corpus(root: str, n_train: int = 256, n_val: int = 16,
+                 seed: int = 0):
+    """A synthetic preprocessed corpus in LJSpeechDataset's layout:
+    {mel,pitch,energy,duration}/*.npy, train.txt, val.txt, stats.json.
+    Utterances of 32-128 ARPAbet phones, 1-8 frames each (at most 1,024
+    frames), random mel frames and normalised pitch and energy."""
+    from efficientspeech_tpu_torch.text.cmudict_phones import (
+        ARPABET_SYMBOLS)
+
+    rng = np.random.default_rng(seed)
+    for kind in ("mel", "pitch", "energy", "duration"):
+        os.makedirs(os.path.join(root, kind), exist_ok=True)
+    lines, scalars = [], {"pitch": [], "energy": []}
+    for u in range(n_train + n_val):
+        n_ph = int(rng.integers(32, TRAIN_PHONEMES + 1))
+        duration = rng.integers(1, 9, n_ph).astype(np.int64)
+        arrays = {
+            "duration": duration,
+            "mel": (rng.standard_normal((int(duration.sum()), 80)) - 4.0
+                    ).astype(np.float32),
+            "pitch": rng.standard_normal(n_ph).astype(np.float32),
+            "energy": rng.standard_normal(n_ph).astype(np.float32)}
+        base = f"SYN-{u:05d}"
+        for kind, arr in arrays.items():
+            np.save(os.path.join(root, kind, f"LJSpeech-{kind}-{base}.npy"),
+                    arr)
+        for kind in scalars:
+            scalars[kind].append(arrays[kind])
+        phones = " ".join(rng.choice(ARPABET_SYMBOLS, n_ph))
+        lines.append(f"{base}|LJSpeech|{{{phones}}}|synthetic {u}")
+    with open(os.path.join(root, "val.txt"), "w") as fh:
+        fh.write("\n".join(lines[:n_val]) + "\n")
+    with open(os.path.join(root, "train.txt"), "w") as fh:
+        fh.write("\n".join(lines[n_val:]) + "\n")
+    stats = {}
+    for kind, vals in scalars.items():
+        v = np.concatenate(vals)
+        stats[kind] = [float(v.min()), float(v.max()), float(v.mean()),
+                       float(v.std())]
+    with open(os.path.join(root, "stats.json"), "w") as fh:
+        json.dump(stats, fh)
+
+
+def phase_train(card: str, profile: bool):
+    """The training main path: Trainer.fit for TRAIN_EPOCHS epochs of
+    EPOCH_STEPS steps on the card, kernel launches counted from 0 just
+    before and read just after.  Then the loss on one repeated batch, and
+    the kernel route against the plain route on one batch."""
+    from efficientspeech_tpu_torch.config import (
+        ModelConfig, PreprocessConfig, TrainConfig)
+    from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+    from efficientspeech_tpu_torch.training.loop import (
+        Trainer, batch_to_device)
+    from efficientspeech_tpu_torch.training.step import forward_losses
+
+    counts = lambda: (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+                      k4.launches_bwd)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_corpus(os.path.join(root, "data"),
+                     n_train=EPOCH_STEPS * TRAIN_BATCH)
+        preprocess_cfg = PreprocessConfig(
+            preprocessed_path=os.path.join(root, "data"))
+        stats = preprocess_cfg.load_stats()
+        model_cfg = ModelConfig.preset(
+            "tiny", pitch_stats=tuple(stats["pitch"][:2]),
+            energy_stats=tuple(stats["energy"][:2]),
+            max_phoneme_len=TRAIN_PHONEMES, max_mel_len=TRAIN_FRAMES)
+        train_cfg = TrainConfig(
+            batch_size=TRAIN_BATCH, warmup_epochs=0, seed=0,
+            checkpoint_dir=os.path.join(root, "ckpt"),
+            log_dir=os.path.join(root, "logs"))
+        trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
+                          dtype=torch.bfloat16)
+        dec = trainer.model.decoder
+        print(f"[train] corpus and trainer in "
+              f"{time.perf_counter() - t0:.1f} s: {len(trainer.train_ds)} "
+              f"train + {len(trainer.val_ds)} val utterances, "
+              f"{trainer.steps_per_epoch} steps per epoch, fused norm "
+              f"{dec.fused_norm} block {dec.fused_block} | {card}")
+        if not (dec.fused_norm and dec.fused_block):
+            fail("the trainer on the card did not take the kernel routes")
+        if trainer.steps_per_epoch != EPOCH_STEPS:
+            fail(f"{trainer.steps_per_epoch} steps per epoch, not "
+                 f"{EPOCH_STEPS}")
+        total = EPOCH_STEPS * TRAIN_EPOCHS
+
+        # the main path: launch counts from 0, read right after
+        stamps, per_step = [], []
+        k3.launches_fwd = k3.launches_bwd = 0
+        k4.launches_fwd = k4.launches_bwd = 0
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            per_step.append(counts())
+
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(counts())
+        last = trainer.fit(max_steps=total, on_step=on_step)
+        launches = dict(zip(("k3_fwd", "k3_bwd", "k4_fwd", "k4_bwd"),
+                            counts()))
+        if last != total:
+            fail(f"fit stopped at step {last}, not {total}")
+        # step_ms[i] ends at step i + 1; the gap of step EPOCH_STEPS + 1
+        # also holds the first epoch's end (metric fetch, metrics.jsonl)
+        # and the loader's restart
+        step_ms = np.diff(stamps) * 1e3
+        step_launches = {tuple(b - a for a, b in zip(per_step[i],
+                                                      per_step[i + 1]))
+                         for i in range(len(per_step) - 1)}
+        print(f"[train] {total} steps, batch {TRAIN_BATCH} x "
+              f"{TRAIN_PHONEMES} phonemes x {TRAIN_FRAMES} frames, first "
+              f"step {step_ms[0]:.1f} ms | {card}")
+        inside = {}
+        for epoch, lo in ((0, WARMUP_STEPS), (1, EPOCH_STEPS + 1)):
+            gaps = step_ms[lo:(epoch + 1) * EPOCH_STEPS]
+            inside[epoch] = float(np.median(gaps))
+            print(f"[train] epoch {epoch}, steps {lo + 1}-"
+                  f"{(epoch + 1) * EPOCH_STEPS}: median step "
+                  f"{inside[epoch]:.2f} ms (min {gaps.min():.2f}, max "
+                  f"{gaps.max():.2f}), "
+                  f"{TRAIN_BATCH * TRAIN_FRAMES / inside[epoch] * 1e3:.0f} "
+                  f"frames/s | {card}")
+        boundary = float(step_ms[EPOCH_STEPS])
+        print(f"[train] step {EPOCH_STEPS + 1}, across the epoch boundary: "
+              f"{boundary:.2f} ms, {boundary - inside[1]:.2f} ms over the "
+              f"second epoch's median | {card}")
+        print(f"[train] launches per step (K3 fwd, K3 bwd, K4 fwd, K4 bwd):"
+              f" {sorted(step_launches)}; over the run {launches} | {card}")
+        if step_launches != {(3, 3, 4, 4)}:
+            fail(f"a train step launched {sorted(step_launches)}; expected "
+                 "K3 3 + 3 and K4 4 + 4")
+        logged = [json.loads(line) for line in open(
+            os.path.join(train_cfg.log_dir, "metrics.jsonl"))]
+        losses = [r["loss"] for r in logged if "loss" in r]
+        print(f"[train] epoch losses {[round(v, 4) for v in losses]}, "
+              f"val {[r for r in logged if 'val_loss' in r]} | {card}")
+        if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+            fail(f"epoch losses missing or not finite: {losses}")
+
+        # the loss falls over repeated steps on one batch
+        batch = batch_to_device(next(iter(trainer.train_loader)),
+                                trainer.device)
+        repeat = []
+        for _ in range(8):
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            repeat.append(float(metrics["loss"]))
+        print(f"[train] one batch, 8 steps: loss {repeat[0]:.4f} -> "
+              f"{repeat[-1]:.4f} | {card}")
+        if not np.isfinite(repeat).all() or repeat[-1] >= repeat[0]:
+            fail(f"the loss did not fall on one batch: {repeat}")
+
+        # the kernel route against the plain route on one batch
+        plain = Phoneme2Mel(trainer.model_cfg).to(trainer.device)
+        plain.load_state_dict(trainer.model.state_dict())
+        results = []
+        for model in (trainer.model, plain):
+            for p in model.parameters():
+                p.grad = None
+            loss = forward_losses(model, batch, torch.bfloat16)["loss"]
+            loss.backward()
+            results.append((float(loss.detach()), {
+                n: p.grad for n, p in model.named_parameters()
+                if p.grad is not None}))
+        (loss_k, grads_k), (loss_p, grads_p) = results
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        cos = {}
+        for name, gp in grads_p.items():
+            if not gp.any():
+                continue
+            gk = grads_k[name].double().flatten()
+            gp = gp.double().flatten()
+            cos[name] = float(gk @ gp / (gk.norm() * gp.norm()))
+        worst = min(cos, key=cos.get)
+        print(f"[train] kernel vs plain route, one batch: loss {loss_k:.5f}"
+              f" vs {loss_p:.5f} (rel {rel:.2e}, tol <= {ROUTE_LOSS_RTOL}); "
+              f"gradient cosine min {cos[worst]:.5f} at {worst} over "
+              f"{len(cos)} leaves (tol >= {ROUTE_GRAD_COS}) | {card}")
+        if rel > ROUTE_LOSS_RTOL or cos[worst] < ROUTE_GRAD_COS:
+            fail("the kernel route's train step does not hold the plain "
+                 "route's")
+
+        if profile:
+            trace(lambda: trainer.train_step(trainer.state, batch),
+                  "train step", card)
+        trainer.logger.jsonl.close()
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on one CUDA card.")
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one long request with "
-                             "torch.profiler")
+                        help="also trace one long request and one train "
+                             "step with torch.profiler")
     args = parser.parse_args()
     card = phase_device()
     phase_build(card)
@@ -358,18 +720,33 @@ def main():
     launches = phase_slice(synth, card)
     if args.profile:
         phase_profile(synth, card)
+    del synth
+    torch.cuda.empty_cache()
 
+    k3_fwd, k3_bwd = phase_k3(card)
+    k4_fwd, k4_bwd = phase_k4(card)
+    launches.update(phase_train(card, args.profile))
+
+    csrc = "efficientspeech_tpu_torch/csrc/"
+    pallas = "efficientspeech_tpu/ops/pallas/"
     table = []
-    for name, src, replaces, stats in (
-            ("folded_matmul",
-             "efficientspeech_tpu_torch/csrc/folded_matmul.cu",
-             "efficientspeech_tpu/ops/pallas/folded_matmul.py:231", k1),
-            ("mrf_fused", "efficientspeech_tpu_torch/csrc/mrf_block.cu",
-             "efficientspeech_tpu/ops/pallas/mrf_block.py:176", k2)):
-        if launches[name] == 0:
+    for name, key, src, replaces, stats in (
+            ("folded_matmul", "folded_matmul", csrc + "folded_matmul.cu",
+             pallas + "folded_matmul.py:231", k1),
+            ("mrf_fused", "mrf_fused", csrc + "mrf_block.cu",
+             pallas + "mrf_block.py:176", k2),
+            ("layer_norm_fused fwd", "k3_fwd", csrc + "layer_norm.cu",
+             pallas + "layer_norm.py:67", k3_fwd),
+            ("layer_norm_fused bwd", "k3_bwd", csrc + "layer_norm.cu",
+             pallas + "layer_norm.py:90", k3_bwd),
+            ("decoder_block_fused fwd", "k4_fwd", csrc + "decoder_block.cu",
+             pallas + "decoder_block.py:198", k4_fwd),
+            ("decoder_block_fused bwd", "k4_bwd", csrc + "decoder_block.cu",
+             pallas + "decoder_block.py:237", k4_bwd)):
+        if launches[key] == 0:
             fail(f"{name} was not launched on the main path")
         table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": launches[name],
+                      "replaces": replaces, "launches": launches[key],
                       "max_abs_err": stats["max_abs_err"],
                       "ms": stats["ms"], "plain_ms": stats["plain_ms"],
                       "bound_ms": stats["bound_ms"],

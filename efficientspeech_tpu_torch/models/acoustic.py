@@ -148,7 +148,8 @@ class Encoder(nn.Module):
     def forward(self, phoneme, pad_mask):
         cfg = self.cfg
         *_, lengths, pools = encoder_stage_geometry(cfg, phoneme.shape[1])
-        x = self.embed(phoneme)
+        # the compute dtype is the convs' (see modules.compute_params)
+        x = self.embed(phoneme, self.stage0.merge3x3.weight.dtype)
         features, masks = [], []
         for i in range(cfg.depth):
             stage_mask = pool_pad_mask(pad_mask, pools[i], lengths[i])
@@ -231,7 +232,10 @@ class ScalarEmbedding(nn.Module):
     """Bucketized scalar → embedding for pitch/energy.  The bins are a
     fixed float32 linspace from dataset stats.  They are kept as their
     int32 bit patterns, so that casting the module to bf16 leaves them
-    exact."""
+    exact.  The caller casts the gathered rows, so under
+    ``compute_params`` the table stays float32."""
+
+    takes_f32_params = True
 
     def __init__(self, dim: int, stats):
         super().__init__()
@@ -256,8 +260,13 @@ class ScalarEmbedding(nn.Module):
 
 
 class PhonemeEncoder(nn.Module):
-    """Phonemes → frame-rate fused features + acoustic predictions
-    (inference: predicted pitch/energy/durations)."""
+    """Phonemes → frame-rate fused features + acoustic predictions.
+    Inference embeds the predicted pitch/energy and expands by the rounded
+    predicted durations; training (``train=True``) embeds the targets and
+    expands by ``duration_target``, through the one-hot product."""
+
+    # its own parameter is the speaker table, gathered and then cast
+    takes_f32_params = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -280,7 +289,11 @@ class PhonemeEncoder(nn.Module):
                 self.speaker_embedding.normal_(0.0, 0.5, generator=gen)
 
     def forward(self, phoneme, pad_mask, max_mel_len: int,
-                speaker: Optional[torch.Tensor] = None):
+                speaker: Optional[torch.Tensor] = None,
+                pitch_target: Optional[torch.Tensor] = None,
+                energy_target: Optional[torch.Tensor] = None,
+                duration_target: Optional[torch.Tensor] = None,
+                train: bool = False):
         features, masks = self.encoder(phoneme, pad_mask)
         mask0 = masks[0]                                 # (B, N) True = pad
         fused = self.fuse(features, masks)
@@ -291,23 +304,25 @@ class PhonemeEncoder(nn.Module):
             fused = masked_fill(fused + spk_feat[:, None, :], mask0)
 
         pitch_pred, _ = self.pitch_decoder(fused, mask0)
+        pitch_src = pitch_target if train else pitch_pred[..., 0]
         pitch_feat = masked_fill(
-            self.pitch_embedding(pitch_pred[..., 0]).to(fused.dtype), mask0)
+            self.pitch_embedding(pitch_src).to(fused.dtype), mask0)
         energy_pred, _ = self.energy_decoder(fused, mask0)
+        energy_src = energy_target if train else energy_pred[..., 0]
         energy_feat = masked_fill(
-            self.energy_embedding(energy_pred[..., 0]).to(fused.dtype),
-            mask0)
+            self.energy_embedding(energy_src).to(fused.dtype), mask0)
         duration_pred, duration_feat = self.duration_decoder(fused, mask0)
         duration_feat = masked_fill(duration_feat, mask0)
 
         fused_cat = torch.cat(
             [fused, pitch_feat, energy_feat, duration_feat], dim=-1)
         # round half to even (torch.round), then clamp at 0 and zero pads
-        durations = torch.round(duration_pred[..., 0].float())
+        durations = (duration_target if train
+                     else torch.round(duration_pred[..., 0].float()))
         durations = torch.where(mask0, torch.zeros_like(durations),
                                 durations.clamp_min(0))
         frames, frame_valid, mel_len = length_regulate(
-            fused_cat, durations, max_mel_len)
+            fused_cat, durations, max_mel_len, via_matmul=train)
         return {
             "pitch": pitch_pred,
             "energy": energy_pred,

@@ -13,7 +13,7 @@ the JAX package; convs transpose to torch's (B, C, T) only around
 """
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -98,7 +98,10 @@ class ConvTranspose1d(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim; float32 statistics, eps 1e-5; the
-    output keeps the input's dtype."""
+    output keeps the input's dtype.  Under ``compute_params`` its scale
+    and bias stay float32, as the JAX module keeps them."""
+
+    takes_f32_params = True
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -121,7 +124,12 @@ class LayerNorm(nn.Module):
 
 
 class Embedding(nn.Module):
-    """torch.nn.Embedding with padding_idx=0: row 0 reads as zeros."""
+    """torch.nn.Embedding with padding_idx=0: row 0 reads as zeros.  The
+    gather reads the table as it is and casts to ``dtype``; under
+    ``compute_params`` the table stays float32, so its gradient is summed
+    in float32, as the JAX module's is."""
+
+    takes_f32_params = True
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
@@ -131,8 +139,8 @@ class Embedding(nn.Module):
         with torch.no_grad():
             self.weight.normal_(0.0, 1.0, generator=gen)
 
-    def forward(self, ids):
-        y = self.weight[ids]
+    def forward(self, ids, dtype: torch.dtype):
+        y = self.weight[ids].to(dtype)
         return torch.where((ids != 0)[..., None], y, torch.zeros_like(y))
 
 
@@ -144,6 +152,26 @@ def reset_parameters(module: nn.Module, seed: int):
     for m in module.modules():
         if hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)
+
+
+def compute_params(model: nn.Module, dtype: torch.dtype
+                   ) -> Dict[str, torch.Tensor]:
+    """The parameters a forward in ``dtype`` runs on, for
+    ``torch.func.functional_call``: every float32 master cast to
+    ``dtype``, except those of a module that sets ``takes_f32_params``
+    (LayerNorm, the embedding tables, and the fused decoder block's
+    convs), which pass as they are.  This is the JAX package's per-module
+    casting: Linear and conv kernels cast to the compute dtype, LayerNorm
+    applies float32 scale and bias, embeddings gather from the float32
+    table and cast.  The casts are on the autograd tape, so the masters
+    receive float32 gradients."""
+    out = {}
+    for prefix, module in model.named_modules():
+        keep = getattr(module, "takes_f32_params", False)
+        for name, p in module.named_parameters(recurse=False):
+            key = f"{prefix}.{name}" if prefix else name
+            out[key] = p if keep or p.dtype == dtype else p.to(dtype)
+    return out
 
 
 def gelu_exact(x):

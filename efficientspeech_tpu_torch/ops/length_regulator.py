@@ -5,6 +5,11 @@ phoneme ``j`` with ``cum[j] > f``, i.e. ``searchsorted(cum, f,
 right=True)``.  A gather plus the mask ``f < mel_len`` equals
 repeat_interleave + padding at a fixed (max_mel_len) output shape, so the
 mel length never has to reach the host.
+
+Training in bf16 expands through a one-hot product instead
+(``via_matmul``): each output row selects one feature row, so 1.0 × bf16
+accumulated in float32 is bit-exact with the gather, and the backward is
+a product instead of the gather's scatter-add.
 """
 
 from typing import Tuple
@@ -13,11 +18,13 @@ import torch
 
 
 def length_regulate(features: torch.Tensor, durations: torch.Tensor,
-                    max_mel_len: int
+                    max_mel_len: int, via_matmul: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """features (B, N, C), durations (B, N) non-negative ints (padded
     phonemes carry 0) → (frames (B, M, C) zero beyond mel_len,
-    frame_valid (B, M) bool, mel_len (B,) int32, which may exceed M)."""
+    frame_valid (B, M) bool, mel_len (B,) int32, which may exceed M).
+    ``via_matmul`` takes the one-hot product for bf16 features (other
+    dtypes keep the gather, as the JAX package does)."""
     durations = durations.to(torch.int32)
     cum = torch.cumsum(durations, dim=1, dtype=torch.int32)     # (B, N)
     mel_len = cum[:, -1]
@@ -25,6 +32,15 @@ def length_regulate(features: torch.Tensor, durations: torch.Tensor,
     frame_pos = torch.arange(max_mel_len, dtype=torch.int32,
                              device=features.device)
     frame_valid = frame_pos[None, :] < mel_len[:, None]          # (B, M)
+    if via_matmul and features.dtype == torch.bfloat16:
+        # onehot[b, f, j] = 1 iff cum[b, j-1] <= f < cum[b, j]
+        prev = cum - durations
+        f = frame_pos[None, :, None]
+        onehot = (f < cum[:, None, :]) & (f >= prev[:, None, :])
+        frames = torch.bmm(onehot.to(features.dtype), features)
+        frames = torch.where(frame_valid[:, :, None], frames,
+                             torch.zeros_like(frames))
+        return frames, frame_valid, mel_len
     idx = torch.searchsorted(cum, frame_pos.expand(b, -1).contiguous(),
                              right=True)
     idx = idx.clamp_max(features.shape[1] - 1)

@@ -1,0 +1,84 @@
+"""Acoustic-model training CLI of the PyTorch port (the flags of the JAX
+package's ``train.py``, without its mesh, device-resident-corpus and
+validation-audio ones, ``--wav-path`` and ``--hifigan-checkpoint``, whose
+audio dumps are not ported, and without ``--resume``: training always
+resumes from the latest checkpoint):
+
+    python -m efficientspeech_tpu_torch.train --preset tiny \\
+        --preprocess-config configs/ljspeech.yaml --batch-size 128
+
+It runs on the CUDA card, and raises without one unless given
+``--device cpu``.
+"""
+
+import argparse
+import time
+
+import torch
+
+from efficientspeech_tpu_torch.config import (
+    ModelConfig, PreprocessConfig, TrainConfig, add_arch_args,
+    arch_overrides)
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--preset", default="tiny",
+                        choices=["tiny", "small", "base"])
+    parser.add_argument("--preprocess-config",
+                        default="configs/ljspeech.yaml")
+    parser.add_argument("--batch-size", type=int, default=128)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--weight-decay", type=float, default=1e-5)
+    parser.add_argument("--max-epochs", type=int, default=5000)
+    parser.add_argument("--warmup-epochs", type=int, default=50)
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--precision", default="bf16",
+                        choices=["bf16", "f32"])
+    parser.add_argument("--max-phoneme-len", type=int, default=128)
+    parser.add_argument("--max-mel-len", type=int, default=1024)
+    parser.add_argument("--checkpoint-dir", default="checkpoints",
+                        help="training resumes from the latest checkpoint "
+                             "here whenever there is one")
+    parser.add_argument("--log-dir", default="logs")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None,
+                        help="torch device; default the CUDA card")
+    add_arch_args(parser)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = get_args(argv)
+    from efficientspeech_tpu_torch.device import resolve_device
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    device = resolve_device(args.device)
+    preprocess_cfg = PreprocessConfig.from_yaml(args.preprocess_config)
+    stats = preprocess_cfg.load_stats()
+    model_cfg = ModelConfig.preset(
+        args.preset, pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]),
+        max_phoneme_len=args.max_phoneme_len, max_mel_len=args.max_mel_len,
+        **arch_overrides(args))
+    train_cfg = TrainConfig(
+        lr=args.lr, weight_decay=args.weight_decay,
+        batch_size=args.batch_size, max_epochs=args.max_epochs,
+        warmup_epochs=args.warmup_epochs, precision=args.precision,
+        seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+        log_dir=args.log_dir)
+    trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
+                      dtype=torch.bfloat16 if args.precision == "bf16"
+                      else torch.float32, device=device)
+    print(f"training on {device}: {trainer.steps_per_epoch} steps per epoch")
+    start = time.time()
+    final_step = trainer.fit(max_epochs=args.max_epochs,
+                             max_steps=args.max_steps)
+    elapsed = time.time() - start
+    print(f"Training done at step {final_step}: {elapsed:.2f}s "
+          f"({elapsed / 3600:.2f}h)")
+    return final_step
+
+
+if __name__ == "__main__":
+    main()

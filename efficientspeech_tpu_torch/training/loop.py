@@ -1,0 +1,201 @@
+"""The training loop: epochs over the bucketed loader, train steps on the
+card, epoch-averaged metrics in ``metrics.jsonl``, checkpoints, resume and
+a graceful stop on SIGTERM/SIGINT (counterpart of the JAX package's
+``training/loop.py``).
+
+Not ported yet: the validation audio dumps and quality pass
+(``validate_audio``), the device-resident corpus with scanned steps, and
+meshes.
+"""
+
+import dataclasses
+import json
+import os
+import signal
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from efficientspeech_tpu_torch.config import (
+    ModelConfig, PreprocessConfig, TrainConfig)
+from efficientspeech_tpu_torch.data.dataset import (
+    BucketedLoader, LJSpeechDataset)
+from efficientspeech_tpu_torch.device import resolve_device
+from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
+from efficientspeech_tpu_torch.ops.kernels import decoder_block
+from efficientspeech_tpu_torch.training.checkpoint import (
+    latest_checkpoint, restore_checkpoint, save_checkpoint)
+from efficientspeech_tpu_torch.training.schedule import (
+    warmup_cosine_schedule)
+from efficientspeech_tpu_torch.training.state import create_train_state
+from efficientspeech_tpu_torch.training.step import (
+    make_eval_step, make_train_step)
+from efficientspeech_tpu_torch.weights import init_params
+
+
+class MetricLogger:
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, scalars: Dict[str, float]):
+        self.jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
+        self.jsonl.flush()
+
+
+def batch_to_device(batch: Dict, device: torch.device) -> Dict:
+    """The loader's numpy batch (minus ``text``) as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items() if k != "text"}
+
+
+class Trainer:
+    """``device`` defaults to the card and raises without one.  On the card
+    the mel decoder's LayerNorms run through kernel K3 and its block bodies
+    through K4, and a decoder width or dtype K4 does not cover raises here;
+    on the CPU the decoder takes its plain route (same parameters)."""
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 preprocess_cfg: PreprocessConfig,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        self.train_cfg = train_cfg
+        self.preprocess_cfg = preprocess_cfg
+        self.dtype = dtype
+        self.train_ds = LJSpeechDataset("train.txt", preprocess_cfg)
+        self.val_ds = LJSpeechDataset("val.txt", preprocess_cfg)
+        # a multi-speaker corpus gets a speaker embedding
+        if self.train_ds.n_speakers > model_cfg.n_speakers:
+            model_cfg = dataclasses.replace(
+                model_cfg, n_speakers=self.train_ds.n_speakers)
+        self.model_cfg = model_cfg
+
+        fused = self.device.type == "cuda"
+        self.model = Phoneme2Mel(model_cfg, fused_decoder_norm=fused,
+                                 fused_decoder_block=fused)
+        if fused:
+            decoder_block.check_supported(
+                self.model.decoder.proj_norm.weight.shape[0], dtype)
+        init_params(self.model, train_cfg.seed)
+        self.model.to(self.device)
+
+        self.logger = MetricLogger(train_cfg.log_dir)
+        # every batch at the static (max_phoneme_len, max_mel_len) shape:
+        # the train-mode model expands into a max_mel_len buffer
+        self.train_loader = BucketedLoader(
+            self.train_ds, train_cfg.batch_size, shuffle=True,
+            seed=train_cfg.seed, max_phoneme_len=model_cfg.max_phoneme_len,
+            max_mel_len=model_cfg.max_mel_len, drop_last=True,
+            fixed_shape=True)
+        self.val_loader = BucketedLoader(
+            self.val_ds, train_cfg.batch_size, shuffle=False,
+            max_phoneme_len=model_cfg.max_phoneme_len,
+            max_mel_len=model_cfg.max_mel_len, fixed_shape=True,
+            drop_last=False)
+        self.steps_per_epoch = max(1, len(self.train_loader))
+        self.lr_schedule = warmup_cosine_schedule(
+            train_cfg.lr, train_cfg.warmup_epochs, train_cfg.max_epochs,
+            self.steps_per_epoch)
+        self.state = create_train_state(self.model, train_cfg,
+                                        self.lr_schedule)
+        self.train_step = make_train_step(dtype)
+        self.eval_step = make_eval_step(dtype)
+
+    def maybe_resume(self) -> int:
+        path = latest_checkpoint(self.train_cfg.checkpoint_dir)
+        if path:
+            self.state = restore_checkpoint(path, self.state)
+            print(f"resumed from {path} at step {self.state.step}")
+        return self.state.step
+
+    def evaluate(self) -> Dict[str, float]:
+        """Teacher-forced losses over the validation set, weighted by the
+        number of utterances in each batch."""
+        acc, count = None, 0
+        self.model.eval()
+        for batch in self.val_loader:
+            real_b = len(batch["text"])
+            metrics = self.eval_step(self.model,
+                                     batch_to_device(batch, self.device))
+            metrics = {k: v * real_b for k, v in metrics.items()}
+            acc = metrics if acc is None else {
+                k: acc[k] + metrics[k] for k in acc}
+            count += real_b
+        self.model.train()
+        sums = {k: float(v) for k, v in (acc or {}).items()}
+        return {k.replace("_loss", ""): v / max(count, 1)
+                for k, v in sums.items()}
+
+    def fit(self, max_epochs: Optional[int] = None,
+            checkpoint_every_epochs: int = 10,
+            max_steps: Optional[int] = None,
+            on_step: Optional[Callable[[int, Dict], None]] = None) -> int:
+        """Train until ``max_epochs`` or ``max_steps``; returns the last
+        step.  SIGTERM/SIGINT (caught when fit runs on the main thread)
+        finish the current step, checkpoint and return; a later ``fit``
+        resumes from the checkpoint.  ``on_step(step, metrics)`` runs
+        after every step."""
+        max_epochs = max_epochs or self.train_cfg.max_epochs
+        start_step = self.maybe_resume()
+        t0 = time.time()
+        step = start_step
+        stop = threading.Event()
+        old_handlers = {}
+        if threading.current_thread() is threading.main_thread():
+            def request_stop(signum, _frame):
+                stop.set()
+                print(f"signal {signum}: stopping after this step, "
+                      "checkpointing...")
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, request_stop)
+
+        self.model.train()
+        try:
+            for epoch in range(start_step // self.steps_per_epoch,
+                               max_epochs):
+                # metric sums stay on the card; one fetch per epoch
+                acc, count = None, 0
+                self.train_loader.epoch = epoch  # deterministic resume
+                for batch in self.train_loader:
+                    self.state, metrics = self.train_step(
+                        self.state, batch_to_device(batch, self.device))
+                    step = self.state.step
+                    count += 1
+                    acc = metrics if acc is None else {
+                        k: acc[k] + metrics[k] for k in acc}
+                    if on_step is not None:
+                        on_step(step, metrics)
+                    if (max_steps is not None and step >= max_steps) or \
+                            stop.is_set():
+                        break
+                keys = sorted(acc or {})
+                values = (torch.stack([acc[k] for k in keys]).cpu().tolist()
+                          if keys else [])
+                scalars = {k.replace("_loss", ""): v / max(count, 1)
+                           for k, v in zip(keys, values)}
+                scalars["lr"] = float(self.lr_schedule(step))
+                scalars["epoch"] = epoch
+                scalars["wall_secs"] = time.time() - t0
+                self.logger.log(step, scalars)
+
+                done = ((max_steps is not None and step >= max_steps)
+                        or stop.is_set())
+                if (epoch + 1) % checkpoint_every_epochs == 0 and not done:
+                    save_checkpoint(self.train_cfg.checkpoint_dir,
+                                    self.state)
+                if epoch >= 1 and \
+                        (epoch + 1) % self.train_cfg.val_every_n_epochs == 0:
+                    val = self.evaluate()
+                    self.logger.log(step, {f"val_{k}": v
+                                           for k, v in val.items()})
+                if done:
+                    break
+            save_checkpoint(self.train_cfg.checkpoint_dir, self.state)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+        return step

@@ -84,3 +84,41 @@ def test_scalar_bins_bit_equal_to_jax():
         # the bits survive a cast of the module to bf16
         assert torch.equal(emb.to(torch.bfloat16).bins,
                            torch.from_numpy(want))
+
+
+def test_phoneme2mel_bf16_matches_jax():
+    """The serving acoustic model in bf16: the port casts every parameter
+    to bf16 (LayerNorm scale and bias included), the JAX modules keep
+    LayerNorm's in float32.  Both round activations to bf16 at other
+    places; JAX's own bf16-vs-float32 mel gap at these inputs is about
+    0.03, so the two bf16 mels are held to 0.06 max-abs, and the rounded
+    durations, hence mel_len, must agree."""
+    jcfg = dataclasses.replace(JaxModelConfig.preset("tiny"),
+                               max_phoneme_len=BUCKET, max_mel_len=FRAMES)
+    rng = np.random.default_rng(7)
+    phoneme = np.zeros((2, BUCKET), np.int32)
+    phoneme[0, :14] = rng.integers(1, 140, 14)
+    phoneme[1, :9] = rng.integers(1, 140, 9)
+    pad = phoneme == 0
+    jmodel = JaxP2M(jcfg, dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(phoneme), jnp.asarray(pad),
+        train=False)["params"])
+    params = _random_tree(shapes, seed=3)
+    params["encoder"]["duration_decoder"]["linear"]["bias"] = np.array(
+        [3.3], np.float32)
+    want = jmodel.apply({"params": params}, jnp.asarray(phoneme),
+                        jnp.asarray(pad), train=False)
+
+    model = Phoneme2Mel(ModelConfig.preset("tiny"))
+    load_jax_params(model, params)
+    model.to(torch.bfloat16)
+    with torch.no_grad():
+        got = model(torch.from_numpy(phoneme), torch.from_numpy(pad),
+                    max_mel_len=FRAMES)
+    assert got["mel"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["mel_len"].numpy(),
+                                  np.asarray(want["mel_len"]))
+    err = np.abs(got["mel"].float().numpy()
+                 - np.asarray(want["mel"], np.float32)).max()
+    assert err <= 0.06, err

@@ -14,7 +14,9 @@ from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
 from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, prepare_for_kernels)
 from efficientspeech_tpu_torch.models.modules import reset_parameters
+from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
 from efficientspeech_tpu_torch.ops.kernels import mrf_block
 
 pytestmark = pytest.mark.cuda
@@ -72,3 +74,67 @@ def test_mrf_kernel(card, stage):
     assert snr_db(want, got) >= 35.0
     assert not got[t - 229:].any()
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("rows,c,dtype", [
+    (1001, 128, torch.bfloat16), (517, 256, torch.bfloat16),
+    (300, 128, torch.float32)])
+def test_layer_norm_kernel(card, rows, c, dtype):
+    """K3 forward and backward against the plain version: y, dx, dscale
+    and dbias each at SNR >= 35 dB."""
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    x = (torch.randn(rows, c, generator=g) * 2 + 0.5).to(card, dtype)
+    s = (torch.randn(c, generator=g) * 0.5 + 1).to(card)
+    b = (torch.randn(c, generator=g) * 0.1).to(card)
+    dy = torch.randn(rows, c, generator=g).to(card, dtype)
+    got = [k3.layer_norm_fwd(x, s, b), *k3.layer_norm_bwd(x, s, dy)]
+    want = [k3.layer_norm_fwd_plain(x, s, b),
+            *k3.layer_norm_bwd_plain(x, s, dy)]
+    torch.cuda.synchronize()
+    for name, a, w in zip(("y", "dx", "dscale", "dbias"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert snr_db(w, a) >= 35.0, name
+
+
+@pytest.mark.parametrize("b,m", [(3, 200), (2, 1024)])
+def test_decoder_block_kernel(card, b, m):
+    """K4 forward and backward against the plain version on a keep mask
+    with padded tails: y, dx and the six weight gradients each at
+    SNR >= 35 dB, dx exactly zero on padded frames."""
+    c, k = 128, 5
+    g = torch.Generator(device="cpu").manual_seed(m)
+    f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
+    x = f(b, m, c).to(torch.bfloat16)
+    keep = torch.ones(b, m, device=card)
+    keep[0, m - m // 6:] = 0
+    keep[-1, m // 2:] = 0
+    weights = [f(c, 1, k, s=0.4), f(c, s=0.1), f(c, c, 1, s=0.09),
+               f(c, s=0.1), 1 + f(c, s=0.2), f(c, s=0.1)]
+    dy = f(b, m, c).to(torch.bfloat16)
+    y = k4.decoder_block_fwd(x, keep, *weights)
+    y_plain = k4.decoder_block_fwd_plain(x, keep, *weights)
+    grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
+    grads_plain = k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)
+    torch.cuda.synchronize()
+    assert snr_db(y_plain, y) >= 35.0
+    names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+    for name, a, w in zip(names, grads, grads_plain):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert snr_db(w, a) >= 35.0, name
+    assert not grads[0][keep == 0].any()
+
+
+@pytest.mark.parametrize("c,dtype", [(256, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_decoder_block_kernel_refuses(card, c, dtype):
+    """A decoder the kernel is not built for (the small and base presets'
+    C = 256, or float32) raises on the card instead of taking the plain
+    version."""
+    with pytest.raises(NotImplementedError, match="cannot run on the card"):
+        k4.check_supported(c, dtype)
+    x = torch.zeros(1, 16, c, dtype=dtype, device=card)
+    keep = torch.ones(1, 16, device=card)
+    weights = [torch.zeros(shape, device=card) for shape in
+               ((c, 1, 5), (c,), (c, c, 1), (c,), (c,), (c,))]
+    with pytest.raises(NotImplementedError, match="cannot run on the card"):
+        k4.decoder_block_fused(x, keep, *weights)

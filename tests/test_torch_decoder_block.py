@@ -1,0 +1,150 @@
+"""Kernel K4's plain version (the function the CUDA kernel computes)
+against the JAX package's Pallas ``decoder_block_fused`` in interpret
+mode: the forward and all seven gradients, on the same numpy inputs and a
+random keep mask."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from efficientspeech_tpu.ops.pallas.decoder_block import (
+    decoder_block_fused as jax_decoder_block_fused)
+from efficientspeech_tpu_torch.config import ModelConfig
+from efficientspeech_tpu_torch.models.mel_decoder import MelDecoder
+from efficientspeech_tpu_torch.models.modules import compute_params
+from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+from efficientspeech_tpu_torch.weights import init_params
+
+# batch 3 is not a multiple of the JAX kernel's batch group tg = 2
+B, M, C, K = 3, 40, 128, 5
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+GRAD_NAMES = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+
+
+def _inputs(seed):
+    """JAX-layout weights: dw (K, 1, C), pw (1, C_in, C_out)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return dict(
+        x=f(B, M, C), keep=(rng.random((B, M)) > 0.2).astype(np.float32),
+        dw_w=f(K, 1, C) * 0.4, dw_b=f(C) * 0.1, pw_w=f(1, C, C) * 0.09,
+        pw_b=f(C) * 0.1, ln_s=1 + 0.2 * f(C), ln_b=0.1 * f(C),
+        cot=f(B, M, C))
+
+
+def _torch_weights(a):
+    """The same weights in the port's layouts (the depthwise and
+    pointwise Conv1d and the LayerNorm parameters)."""
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
+    return [t(a["dw_w"].transpose(2, 1, 0)), t(a["dw_b"]),
+            t(a["pw_w"].transpose(2, 1, 0)), t(a["pw_b"]), t(a["ln_s"]),
+            t(a["ln_b"])]
+
+
+def _jax_grads(a, jdt):
+    def loss(x, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b):
+        y = jax_decoder_block_fused(x, jnp.asarray(a["keep"]), dw_w, dw_b,
+                                    pw_w, pw_b, ln_s, ln_b, K, 1e-5, 2, 2,
+                                    True)
+        return jnp.sum(y.astype(jnp.float32) * a["cot"]), y
+
+    args = [jnp.asarray(a["x"], jdt)] + [jnp.asarray(a[k]) for k in (
+        "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")]
+    (_, y), grads = jax.value_and_grad(loss, argnums=tuple(range(7)),
+                                       has_aux=True)(*args)
+    dx, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b = [
+        np.asarray(g, np.float32) for g in grads]
+    # JAX layouts → the port's
+    return np.asarray(y, np.float32), [
+        dx, dw_w.transpose(2, 1, 0), dw_b, pw_w.transpose(2, 1, 0), pw_b,
+        ln_s, ln_b]
+
+
+def _torch_grads(a, tdt):
+    x = torch.from_numpy(a["x"]).to(tdt).requires_grad_()
+    weights = [w.requires_grad_() for w in _torch_weights(a)]
+    y = k4.decoder_block_fused(x, torch.from_numpy(a["keep"]), *weights)
+    (y.float() * torch.from_numpy(a["cot"])).sum().backward()
+    assert x.grad.dtype == tdt
+    assert all(w.grad.dtype == torch.float32 for w in weights)
+    return y.detach().float().numpy(), [
+        g.detach().float().numpy() for g in [x.grad] + [w.grad
+                                                        for w in weights]]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matches_jax_kernel(dtype):
+    jdt, tdt = DTYPES[dtype]
+    a = _inputs(0)
+    y_want, g_want = _jax_grads(a, jdt)
+    y_got, g_got = _torch_grads(a, tdt)
+    if dtype == "f32":
+        # the same float32 arithmetic in another summation order: 1e-5 of
+        # each leaf's largest magnitude, as the JAX package's own test
+        np.testing.assert_allclose(y_got, y_want, rtol=1e-5, atol=1e-5)
+        for name, got, want in zip(GRAD_NAMES, g_got, g_want):
+            scale = np.abs(want).max() + 1e-12
+            np.testing.assert_allclose(got / scale, want / scale, atol=1e-5,
+                                       err_msg=name)
+    else:
+        # bf16: tanh and float32 sums round to other bf16 neighbours in the
+        # two frameworks (one bf16 ulp is 2^-8 relative).  The JAX package
+        # holds its own fused-vs-plain bf16 forward to atol 0.06; the
+        # gradients are held to 2% of each leaf's largest magnitude
+        np.testing.assert_allclose(y_got, y_want, atol=0.06)
+        for name, got, want in zip(GRAD_NAMES, g_got, g_want):
+            scale = np.abs(want).max() + 1e-12
+            np.testing.assert_allclose(got / scale, want / scale, atol=2e-2,
+                                       err_msg=name)
+
+
+def test_padding_is_masked_and_keep_has_no_grad():
+    a = _inputs(1)
+    x = torch.from_numpy(a["x"]).requires_grad_()
+    keep = torch.from_numpy(a["keep"])
+    y = k4.decoder_block_fused(x, keep, *_torch_weights(a))
+    (y * torch.from_numpy(a["cot"])).sum().backward()
+    # the masked input ignores padded frames: dx is zero there
+    assert not x.grad[keep == 0].any()
+    assert x.grad[keep == 1].abs().sum() > 0
+    # changing a padded frame's input does not change the output
+    x2 = x.detach().clone()
+    x2[keep == 0] += 3.0
+    assert torch.equal(k4.decoder_block_fused(x2, keep, *_torch_weights(a)),
+                       y.detach())
+
+
+def test_mel_decoder_kernel_routes_match_plain_route():
+    """The mel decoder through K3 and K4 (their plain versions here) and
+    through its plain modules: the same parameter names, and in float32
+    the same output and gradients; under compute_params the K4 route's
+    convs stay float32."""
+    cfg = ModelConfig.preset("tiny", max_phoneme_len=16, max_mel_len=40)
+    plain = init_params(MelDecoder(cfg), 0)
+    fused = MelDecoder(cfg, fused_norm=True, fused_block=True)
+    fused.load_state_dict(plain.state_dict())
+    assert list(plain.state_dict()) == list(fused.state_dict())
+    rng = np.random.default_rng(2)
+    feats = torch.from_numpy(rng.normal(size=(3, 40, 128)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((3, 40)) < 0.2)
+    outs = []
+    for model in (plain, fused):
+        y = model(feats, mask)
+        (y ** 2).sum().backward()
+        outs.append((y.detach(), {n: p.grad for n, p in
+                                  model.named_parameters()}))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+    for name, g in outs[0][1].items():
+        scale = float(g.abs().max()) + 1e-12
+        torch.testing.assert_close(outs[1][1][name] / scale, g / scale,
+                                   rtol=0, atol=1e-5, msg=name)
+    bf16 = compute_params(fused, torch.bfloat16)
+    assert bf16["block0_conv0_dw.weight"].dtype == torch.float32
+    assert bf16["block0_norm0.weight"].dtype == torch.float32
+    assert bf16["proj_linear.weight"].dtype == torch.bfloat16
+    assert compute_params(plain, torch.bfloat16)[
+        "block0_conv0_dw.weight"].dtype == torch.bfloat16

@@ -49,7 +49,9 @@ def test_no_jax_import_in_source():
 def test_kernel_modules_need_no_nvcc():
     code = "\n".join([
         "from efficientspeech_tpu_torch.ops.kernels import (",
-        "    build, folded_matmul, mrf_block)",
+        "    build, decoder_block, folded_matmul, layer_norm, mrf_block)",
+        "from efficientspeech_tpu_torch.training import loop",
+        "assert set(build.SOURCES) >= {'layer_norm', 'decoder_block'}",
         "from efficientspeech_tpu_torch.models import hifigan_folded",
         "assert all((build.CSRC / f'{n}.cu').is_file()",
         "           for n in build.SOURCES)",
@@ -74,3 +76,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_synthesizer(preset="tiny")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_raises_without_cuda(monkeypatch, tmp_path):
+    """Trainer and the train CLI run on the card, and refuse to start
+    without one unless asked for the CPU."""
+    from efficientspeech_tpu_torch import train
+    from efficientspeech_tpu_torch.config import (
+        ModelConfig, PreprocessConfig, TrainConfig)
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PreprocessConfig(preprocessed_path=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(ModelConfig.preset("tiny"), TrainConfig(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--preprocess-config", str(tmp_path / "none.yaml")])
