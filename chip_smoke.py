@@ -20,23 +20,35 @@ Phases (each prints its lines; any failure exits non-zero):
                launch counts, a check of every waveform, and the long
                request held against the plain vocoder route;
   6. K3      - layer_norm_fused forward and backward at the training shape
-               (131,072 rows of 128, bf16) against the plain version, with
-               F.layer_norm and its autograd backward as the yardstick;
-  7. K4      - decoder_block_fused forward and backward at (128, 1024, 128)
-               bf16 with about 1/6 of the frames masked, the same way;
-  8. train   - the acoustic Trainer (tiny preset, batch 128, 128 phonemes,
-               1,024 frames, bf16, random init from seed 0) on a synthetic
-               preprocessed corpus of 20 batches written from a seed: two
-               epochs (40 steps) with the launches of K3 and K4 counted per
-               step, the median step time inside each epoch (the first
-               reads the corpus from disk, the second from the loader's
-               memory cache) and the cost of the epoch boundary, finite
-               losses, the loss falling over repeated steps on one batch,
-               and the kernel route's loss and gradients held against the
-               plain route's on one batch.
+               (131,072 rows of C, bf16) against the plain version, with
+               F.layer_norm and its autograd backward as the yardstick,
+               for C = 128 (tiny) and C = 256 (small, base);
+  7. K4      - decoder_block_fused forward and backward at (128, 1024, C)
+               bf16 with about 1/6 of the frames masked, the same way, for
+               C = 128 (tiny) and C = 256 (small, base);
+  8. K5      - int8_window_matmul, bf16 input with tile quantisation and
+               int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
+               5 taps, tm 512) against its plain version, with
+               torch._int_mm on the materialised window as the yardstick;
+               then the probe entry point (probes/int8_window.py) once,
+               K5's main path, with its launches counted;
+  9. train   - the acoustic Trainer (batch 128, 128 phonemes, 1,024
+               frames, bf16, random init from seed 0) on a synthetic
+               preprocessed corpus of 20 batches written from a seed, for
+               the tiny preset (C = 128) and then the small preset
+               (C = 256): two epochs (40 steps) each, with the launches of
+               K3 and K4 counted per step (tiny 3 + 3 and 4 + 4, small
+               4 + 4 and 6 + 6), the median step time inside each epoch
+               (the first reads the corpus from disk, the second from the
+               loader's memory cache) and the cost of the epoch boundary,
+               finite losses, the loss falling over repeated steps on one
+               batch, and the kernel route's loss and gradients held
+               against the plain route's on one batch.
 The kernel table goes on a JSON line before the last (K1/K2 times per
 utterance at 2,048 frames, K3/K4 times per train step: the per-launch
-time × 3 or 4 launches); the last line is {"ok": true, "device": {...}}.  With --profile, the slice and train phases
+time × the launches of a step, tiny preset for C = 128 and small for
+C = 256; K5 per call at the probe's shape); the last line is
+{"ok": true, "device": {...}}.  With --profile, the slice and train phases
 also trace a long request and a train step with torch.profiler and print
 where the device time goes and the device's idle share.
 
@@ -48,7 +60,10 @@ must be exactly zero.  The end-to-end waveform of the kernel route is held
 to the plain route's (bf16 operands, float32 products) at SNR >= 30 dB.
 K3 and K4 are held to their plain versions (which follow the TPU kernels
 op for op in bf16) at SNR >= 35 dB on every output: y, dx and each weight
-gradient.  A train step of the kernel route is held to the plain route's
+gradient.  K5's int32 sums are exact in the kernel and its plain version
+alike, so the two are held to 1e-6 of the output's largest magnitude (the
+one float32 multiply by the scale).  A train step of the kernel route is
+held to the plain route's
 at loss relative difference <= 1e-2 and cosine >= 0.99 for every
 parameter gradient that is not zero: both run bf16 activations that round
 at other places.
@@ -57,7 +72,6 @@ at other places.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -65,13 +79,18 @@ import time
 import numpy as np
 import torch
 
+from efficientspeech_tpu_torch.utils.timing import card as card_name
+from efficientspeech_tpu_torch.utils.timing import time_ms
+
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FRAMES = 2048
 KERNEL_SNR_DB = 35.0
 E2E_SNR_DB = 30.0
-# the training shape: tiny preset at train.py's defaults
+K5_REL_ERR = 1e-6
+# the training shape: train.py's defaults
 TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
 # the corpus holds EPOCH_STEPS batches; the phase trains two epochs and
 # times the steps inside each apart from the one across the boundary
@@ -103,32 +122,14 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
     return float(10 * torch.log10(sig / err.clamp_min(1e-30)))
 
 
-def time_ms(fn, iters: int):
-    """(device ms, host ms) per call, after a warm-up.  The card first
-    sleeps while the host queues all the calls, so the CUDA events around
-    them time the device's work and not the host's launch rate; the host
-    clock around the queueing gives the host's cost per call."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters, host_ms
-
-
-def bound(flops: float, nbytes: float, f32_flops: float = 0.0):
-    """The least time (ms) for the work and what bounds it: bf16
-    tensor-core FLOP plus float32 FLOP outside the tensor cores, each at
-    its peak, against bytes at the memory rate."""
-    t_ops = (flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS) * 1e3
+def bound(flops: float, nbytes: float, f32_flops: float = 0.0,
+          int8_ops: float = 0.0):
+    """The least time (ms) for the work and what bounds it: the largest of
+    bf16 tensor-core FLOP, float32 FLOP outside the tensor cores and int8
+    tensor-core operations, each at its peak (the units run side by side),
+    and bytes at the memory rate."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS,
+                int8_ops / PEAK_INT8_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -137,12 +138,7 @@ def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        f"{torch.cuda.get_device_name(0)}, power limit unknown"
+    card = card_name()
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,23 +412,26 @@ def _row(tag: str, fn, plain, library, flops, f32_flops, nbytes,
                 bound_ms=b_ms * per_step, bound_by=by)
 
 
-def phase_k3(card: str):
-    """K3 at the training shape: the decoder's frame-rate LayerNorms over
-    128 × 1,024 frames of 128 channels."""
+def phase_k3(card: str, c: int, per_step: int):
+    """K3 at the training shape of a decoder of width ``c``: its
+    frame-rate LayerNorms over 128 × 1,024 frames; the times scale to
+    ``per_step`` launches a train step."""
     import torch.nn.functional as F
 
     from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
 
     dev = torch.device("cuda")
-    rows, c = TRAIN_BATCH * TRAIN_FRAMES, 128
+    rows = TRAIN_BATCH * TRAIN_FRAMES
+    tag = f"K3 C={c}"
     gen = torch.Generator(device="cpu").manual_seed(3)
     x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
     s = (torch.randn(c, generator=gen) * 0.5 + 1).to(dev)
     b = (torch.randn(c, generator=gen) * 0.1).to(dev)
     dy = torch.randn(rows, c, generator=gen).to(dev, torch.bfloat16)
-    err_f = _snr_check("K3 fwd", [("y", k3.layer_norm_fwd(x, s, b),
-                                   k3.layer_norm_fwd_plain(x, s, b))], card)
-    err_b = _snr_check("K3 bwd", zip(
+    err_f = _snr_check(f"{tag} fwd", [("y", k3.layer_norm_fwd(x, s, b),
+                                       k3.layer_norm_fwd_plain(x, s, b))],
+                       card)
+    err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "dscale", "dbias"), k3.layer_norm_bwd(x, s, dy),
         k3.layer_norm_bwd_plain(x, s, dy)), card)
     torch.cuda.synchronize()
@@ -444,46 +443,50 @@ def phase_k3(card: str):
     elems = rows * c
     # float32 FLOP per element: forward ~8 (two sums, centre, square,
     # scale, shift), backward ~14
-    fwd = _row("K3 fwd", lambda: k3.layer_norm_fwd(x, s, b),
+    fwd = _row(f"{tag} fwd", lambda: k3.layer_norm_fwd(x, s, b),
                lambda: k3.layer_norm_fwd_plain(x, s, b),
                lambda: F.layer_norm(x, (c,), sb.detach(), bb.detach()),
-               0.0, 8.0 * elems, 2 * elems * 2 + 2 * c * 4, 3, card)
-    bwd = _row("K3 bwd", lambda: k3.layer_norm_bwd(x, s, dy),
+               0.0, 8.0 * elems, 2 * elems * 2 + 2 * c * 4, per_step, card)
+    bwd = _row(f"{tag} bwd", lambda: k3.layer_norm_bwd(x, s, dy),
                lambda: k3.layer_norm_bwd_plain(x, s, dy),
                lambda: torch.autograd.grad(y_lib, (xs, sb, bb), dy,
                                            retain_graph=True),
-               0.0, 14.0 * elems, 3 * elems * 2 + 3 * c * 4, 3, card)
+               0.0, 14.0 * elems, 3 * elems * 2 + 3 * c * 4, per_step,
+               card)
     return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
 
 
-def phase_k4(card: str):
-    """K4 at the training shape, with per-utterance padded tails that mask
-    about 1/6 of the frames."""
+def phase_k4(card: str, c: int, per_step: int):
+    """K4 at the training shape of a decoder of width ``c``, with
+    per-utterance padded tails that mask about 1/6 of the frames; the
+    times scale to ``per_step`` launches a train step."""
     from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 
     dev = torch.device("cuda")
-    b, m, c, k = TRAIN_BATCH, TRAIN_FRAMES, 128, 5
+    b, m, k = TRAIN_BATCH, TRAIN_FRAMES, 5
+    tag = f"K4 C={c}"
     gen = torch.Generator(device="cpu").manual_seed(4)
     f = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd
                                 ).to(dev)
     x = f(b, m, c).to(torch.bfloat16)
     lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
     keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
-    weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1), f(c, c, 1, sd=0.09),
-               f(c, sd=0.1), 1 + f(c, sd=0.2), f(c, sd=0.1)]
+    weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1),
+               f(c, c, 1, sd=0.09 * (128 / c) ** 0.5), f(c, sd=0.1),
+               1 + f(c, sd=0.2), f(c, sd=0.1)]
     dy = f(b, m, c).to(torch.bfloat16)
-    print(f"[K4] (B, M, C) ({b}, {m}, {c}), masked frames "
+    print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
-    err_f = _snr_check("K4 fwd", [(
+    err_f = _snr_check(f"{tag} fwd", [(
         "y", k4.decoder_block_fwd(x, keep, *weights),
         k4.decoder_block_fwd_plain(x, keep, *weights))], card)
     grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
-    err_b = _snr_check("K4 bwd", zip(
+    err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "d_dw_w", "d_dw_b", "d_pw_w", "d_pw_b", "d_ln_s", "d_ln_b"),
         grads, k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)), card)
     torch.cuda.synchronize()
     if grads[0][keep == 0].any():
-        fail("K4 bwd: dx is not zero on masked frames")
+        fail(f"{tag} bwd: dx is not zero on masked frames")
 
     elems = b * m * c
     w_bytes = sum(w.numel() for w in weights) * 4
@@ -491,16 +494,71 @@ def phase_k4(card: str):
     # float32 FLOP per element outside the tensor cores: forward ~22 (mask,
     # 5 taps, biases, tanh, LayerNorm), backward ~60 (the recomputed
     # forward, the LayerNorm and tanh gradients, 5-tap dx and tap sums)
-    fwd = _row("K4 fwd", lambda: k4.decoder_block_fwd(x, keep, *weights),
+    fwd = _row(f"{tag} fwd",
+               lambda: k4.decoder_block_fwd(x, keep, *weights),
                lambda: k4.decoder_block_fwd_plain(x, keep, *weights), None,
-               mm, 22.0 * elems, 2 * elems * 2 + b * m * 4 + w_bytes, 4,
-               card)
-    bwd = _row("K4 bwd",
+               mm, 22.0 * elems, 2 * elems * 2 + b * m * 4 + w_bytes,
+               per_step, card)
+    bwd = _row(f"{tag} bwd",
                lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy),
                lambda: k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy),
                None, 3 * mm, 60.0 * elems,
-               3 * elems * 2 + b * m * 4 + 2 * w_bytes, 4, card)
+               3 * elems * 2 + b * m * 4 + 2 * w_bytes, per_step, card)
     return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
+
+
+def phase_k5(card: str):
+    """K5 at the int8 probe's shape, both variants against the plain
+    version; then the probe entry point once, K5's main path, with the
+    launches counted from 0 just before and read just after."""
+    from efficientspeech_tpu_torch.ops.kernels import int8_window as k5
+    from efficientspeech_tpu_torch.probes import int8_window as probe
+
+    dev = torch.device("cuda")
+    t, d_in, d_out, n_win, tm = probe.SHAPE
+    xb, xi, w = probe.probe_inputs(t, d_in, d_out, n_win, tm, dev)
+    t_pad = k5.layout(t, tm, n_win)[0]
+    w_col = w.t().contiguous().t()  # the library product's B layout
+    stats = {}
+    for name, x in (("bf16", xb), ("int8", xi)):
+        tag = f"K5 {name}-in"
+        got = k5.int8_window_matmul(x, w, n_win, tm)
+        want = k5.int8_window_matmul_plain(x, w, n_win, tm)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{tag}: {tuple(got.shape)} vs plain {tuple(want.shape)}, "
+                 "or not finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        print(f"[{tag}] out {tuple(got.shape)} | max_abs_err {err:.3g}, "
+              f"relative {rel:.3g} (tol <= {K5_REL_ERR}) | {card}")
+        if rel > K5_REL_ERR:
+            fail(f"{tag}: relative error {rel:.3g} > {K5_REL_ERR}")
+        xq, _ = k5.quantized_slices(x, n_win, tm)
+        win8 = k5.window(xq, n_win, tm).to(torch.int8).reshape(t_pad, -1)
+        ms, host_ms = time_ms(lambda: k5.int8_window_matmul(x, w, n_win, tm),
+                              50)
+        plain_ms, _ = time_ms(
+            lambda: k5.int8_window_matmul_plain(x, w, n_win, tm), 3)
+        lib_ms, _ = time_ms(lambda: torch._int_mm(win8, w_col), 50)
+        ops = 2.0 * t_pad * n_win * d_in * d_out
+        nbytes = x.numel() * x.element_size() + w.numel() + t_pad * d_out * 4
+        b_ms, by = bound(0.0, nbytes, int8_ops=ops)
+        print(f"[{tag}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} (torch._int_mm on the window) "
+              f"bound_ms {b_ms:.4f} ({by}) | {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GOP int8 | achieved {ops / ms / 1e9:.0f} "
+              f"TOP/s, {nbytes / ms / 1e6:.0f} GB/s | wrapper host_ms "
+              f"{host_ms:.4f} | {card}")
+        stats[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=by, max_abs_err=err)
+
+    # the main path: the probe entry point
+    k5.launches_quant = k5.launches_int8 = 0
+    probe.run(iters=20)
+    launches = {"k5_bf16": k5.launches_quant, "k5_int8": k5.launches_int8}
+    print(f"[K5] probe entry point: launches {launches} | {card}")
+    return stats, launches
 
 
 def write_corpus(root: str, n_train: int = 256, n_val: int = 16,
@@ -546,11 +604,13 @@ def write_corpus(root: str, n_train: int = 256, n_val: int = 16,
         json.dump(stats, fh)
 
 
-def phase_train(card: str, profile: bool):
-    """The training main path: Trainer.fit for TRAIN_EPOCHS epochs of
-    EPOCH_STEPS steps on the card, kernel launches counted from 0 just
-    before and read just after.  Then the loss on one repeated batch, and
-    the kernel route against the plain route on one batch."""
+def phase_train(card: str, preset: str, data: str, out: str,
+                profile: bool):
+    """The training main path of one preset: Trainer.fit for TRAIN_EPOCHS
+    epochs of EPOCH_STEPS steps on the card over the corpus in ``data``,
+    kernel launches counted from 0 just before and read just after.  Then
+    the loss on one repeated batch, and the kernel route against the plain
+    route on one batch."""
     from efficientspeech_tpu_torch.config import (
         ModelConfig, PreprocessConfig, TrainConfig)
     from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
@@ -560,139 +620,144 @@ def phase_train(card: str, profile: bool):
         Trainer, batch_to_device)
     from efficientspeech_tpu_torch.training.step import forward_losses
 
-    counts = lambda: (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
-                      k4.launches_bwd)
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_corpus(os.path.join(root, "data"),
-                     n_train=EPOCH_STEPS * TRAIN_BATCH)
-        preprocess_cfg = PreprocessConfig(
-            preprocessed_path=os.path.join(root, "data"))
-        stats = preprocess_cfg.load_stats()
-        model_cfg = ModelConfig.preset(
-            "tiny", pitch_stats=tuple(stats["pitch"][:2]),
-            energy_stats=tuple(stats["energy"][:2]),
-            max_phoneme_len=TRAIN_PHONEMES, max_mel_len=TRAIN_FRAMES)
-        train_cfg = TrainConfig(
-            batch_size=TRAIN_BATCH, warmup_epochs=0, seed=0,
-            checkpoint_dir=os.path.join(root, "ckpt"),
-            log_dir=os.path.join(root, "logs"))
-        trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
-                          dtype=torch.bfloat16)
-        dec = trainer.model.decoder
-        print(f"[train] corpus and trainer in "
-              f"{time.perf_counter() - t0:.1f} s: {len(trainer.train_ds)} "
-              f"train + {len(trainer.val_ds)} val utterances, "
-              f"{trainer.steps_per_epoch} steps per epoch, fused norm "
-              f"{dec.fused_norm} block {dec.fused_block} | {card}")
-        if not (dec.fused_norm and dec.fused_block):
-            fail("the trainer on the card did not take the kernel routes")
-        if trainer.steps_per_epoch != EPOCH_STEPS:
-            fail(f"{trainer.steps_per_epoch} steps per epoch, not "
-                 f"{EPOCH_STEPS}")
-        total = EPOCH_STEPS * TRAIN_EPOCHS
+    tag = f"train {preset}"
+    t0 = time.perf_counter()
+    preprocess_cfg = PreprocessConfig(preprocessed_path=data)
+    stats = preprocess_cfg.load_stats()
+    model_cfg = ModelConfig.preset(
+        preset, pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]),
+        max_phoneme_len=TRAIN_PHONEMES, max_mel_len=TRAIN_FRAMES)
+    train_cfg = TrainConfig(
+        batch_size=TRAIN_BATCH, warmup_epochs=0, seed=0,
+        checkpoint_dir=os.path.join(out, "ckpt"),
+        log_dir=os.path.join(out, "logs"))
+    trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
+                      dtype=torch.bfloat16)
+    dec = trainer.model.decoder
+    width = dec.proj_norm.weight.shape[0]
+    nb, bd = model_cfg.n_blocks, model_cfg.block_depth
+    # K3: proj_norm and each block's skip norm; K4: every block body
+    expect = (1 + nb, 1 + nb, nb * bd, nb * bd)
+    counters = (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+                k4.launches_bwd)
+    counts = lambda: tuple(d[width] for d in counters)
+    print(f"[{tag}] trainer in {time.perf_counter() - t0:.1f} s: "
+          f"{len(trainer.train_ds)} train + {len(trainer.val_ds)} val "
+          f"utterances, {trainer.steps_per_epoch} steps per epoch, decoder "
+          f"width {width}, {nb} blocks x depth {bd}, fused norm "
+          f"{dec.fused_norm} block {dec.fused_block} | {card}")
+    if not (dec.fused_norm and dec.fused_block):
+        fail("the trainer on the card did not take the kernel routes")
+    if trainer.steps_per_epoch != EPOCH_STEPS:
+        fail(f"{trainer.steps_per_epoch} steps per epoch, not "
+             f"{EPOCH_STEPS}")
+    total = EPOCH_STEPS * TRAIN_EPOCHS
 
-        # the main path: launch counts from 0, read right after
-        stamps, per_step = [], []
-        k3.launches_fwd = k3.launches_bwd = 0
-        k4.launches_fwd = k4.launches_bwd = 0
+    # the main path: launch counts from 0, read right after
+    stamps, per_step = [], []
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
 
-        def on_step(step, metrics):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            per_step.append(counts())
-
+    def on_step(step, metrics):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         per_step.append(counts())
-        last = trainer.fit(max_steps=total, on_step=on_step)
-        launches = dict(zip(("k3_fwd", "k3_bwd", "k4_fwd", "k4_bwd"),
-                            counts()))
-        if last != total:
-            fail(f"fit stopped at step {last}, not {total}")
-        # step_ms[i] ends at step i + 1; the gap of step EPOCH_STEPS + 1
-        # also holds the first epoch's end (metric fetch, metrics.jsonl)
-        # and the loader's restart
-        step_ms = np.diff(stamps) * 1e3
-        step_launches = {tuple(b - a for a, b in zip(per_step[i],
-                                                      per_step[i + 1]))
-                         for i in range(len(per_step) - 1)}
-        print(f"[train] {total} steps, batch {TRAIN_BATCH} x "
-              f"{TRAIN_PHONEMES} phonemes x {TRAIN_FRAMES} frames, first "
-              f"step {step_ms[0]:.1f} ms | {card}")
-        inside = {}
-        for epoch, lo in ((0, WARMUP_STEPS), (1, EPOCH_STEPS + 1)):
-            gaps = step_ms[lo:(epoch + 1) * EPOCH_STEPS]
-            inside[epoch] = float(np.median(gaps))
-            print(f"[train] epoch {epoch}, steps {lo + 1}-"
-                  f"{(epoch + 1) * EPOCH_STEPS}: median step "
-                  f"{inside[epoch]:.2f} ms (min {gaps.min():.2f}, max "
-                  f"{gaps.max():.2f}), "
-                  f"{TRAIN_BATCH * TRAIN_FRAMES / inside[epoch] * 1e3:.0f} "
-                  f"frames/s | {card}")
-        boundary = float(step_ms[EPOCH_STEPS])
-        print(f"[train] step {EPOCH_STEPS + 1}, across the epoch boundary: "
-              f"{boundary:.2f} ms, {boundary - inside[1]:.2f} ms over the "
-              f"second epoch's median | {card}")
-        print(f"[train] launches per step (K3 fwd, K3 bwd, K4 fwd, K4 bwd):"
-              f" {sorted(step_launches)}; over the run {launches} | {card}")
-        if step_launches != {(3, 3, 4, 4)}:
-            fail(f"a train step launched {sorted(step_launches)}; expected "
-                 "K3 3 + 3 and K4 4 + 4")
-        logged = [json.loads(line) for line in open(
-            os.path.join(train_cfg.log_dir, "metrics.jsonl"))]
-        losses = [r["loss"] for r in logged if "loss" in r]
-        print(f"[train] epoch losses {[round(v, 4) for v in losses]}, "
-              f"val {[r for r in logged if 'val_loss' in r]} | {card}")
-        if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all():
-            fail(f"epoch losses missing or not finite: {losses}")
 
-        # the loss falls over repeated steps on one batch
-        batch = batch_to_device(next(iter(trainer.train_loader)),
-                                trainer.device)
-        repeat = []
-        for _ in range(8):
-            trainer.state, metrics = trainer.train_step(trainer.state, batch)
-            repeat.append(float(metrics["loss"]))
-        print(f"[train] one batch, 8 steps: loss {repeat[0]:.4f} -> "
-              f"{repeat[-1]:.4f} | {card}")
-        if not np.isfinite(repeat).all() or repeat[-1] >= repeat[0]:
-            fail(f"the loss did not fall on one batch: {repeat}")
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    per_step.append(counts())
+    last = trainer.fit(max_steps=total, on_step=on_step)
+    launches = dict(zip((f"k3_fwd_{width}", f"k3_bwd_{width}",
+                         f"k4_fwd_{width}", f"k4_bwd_{width}"), counts()))
+    other = sum(d[c] for d in counters for c in d if c != width)
+    if last != total:
+        fail(f"fit stopped at step {last}, not {total}")
+    # step_ms[i] ends at step i + 1; the gap of step EPOCH_STEPS + 1 also
+    # holds the first epoch's end (metric fetch, metrics.jsonl) and the
+    # loader's restart
+    step_ms = np.diff(stamps) * 1e3
+    step_launches = {tuple(b - a for a, b in zip(per_step[i],
+                                                  per_step[i + 1]))
+                     for i in range(len(per_step) - 1)}
+    print(f"[{tag}] {total} steps, batch {TRAIN_BATCH} x {TRAIN_PHONEMES} "
+          f"phonemes x {TRAIN_FRAMES} frames, first step "
+          f"{step_ms[0]:.1f} ms | {card}")
+    inside = {}
+    for epoch, lo in ((0, WARMUP_STEPS), (1, EPOCH_STEPS + 1)):
+        gaps = step_ms[lo:(epoch + 1) * EPOCH_STEPS]
+        inside[epoch] = float(np.median(gaps))
+        print(f"[{tag}] epoch {epoch}, steps {lo + 1}-"
+              f"{(epoch + 1) * EPOCH_STEPS}: median step "
+              f"{inside[epoch]:.2f} ms (min {gaps.min():.2f}, max "
+              f"{gaps.max():.2f}), "
+              f"{TRAIN_BATCH * TRAIN_FRAMES / inside[epoch] * 1e3:.0f} "
+              f"frames/s | {card}")
+    boundary = float(step_ms[EPOCH_STEPS])
+    print(f"[{tag}] step {EPOCH_STEPS + 1}, across the epoch boundary: "
+          f"{boundary:.2f} ms, {boundary - inside[1]:.2f} ms over the "
+          f"second epoch's median | {card}")
+    print(f"[{tag}] launches per step (K3 and K4 at C={width}, fwd, bwd, "
+          f"fwd, bwd): {sorted(step_launches)}; over the run "
+          f"{launches} | {card}")
+    if step_launches != {expect} or other:
+        fail(f"a train step launched {sorted(step_launches)} (and {other} "
+             f"K3 or K4 launches of another width); expected K3 {expect[0]} + "
+             f"{expect[1]} and K4 C={width} {expect[2]} + {expect[3]}")
+    logged = [json.loads(line) for line in open(
+        os.path.join(train_cfg.log_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in logged if "loss" in r]
+    print(f"[{tag}] epoch losses {[round(v, 4) for v in losses]}, val "
+          f"{[r for r in logged if 'val_loss' in r]} | {card}")
+    if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+        fail(f"epoch losses missing or not finite: {losses}")
 
-        # the kernel route against the plain route on one batch
-        plain = Phoneme2Mel(trainer.model_cfg).to(trainer.device)
-        plain.load_state_dict(trainer.model.state_dict())
-        results = []
-        for model in (trainer.model, plain):
-            for p in model.parameters():
-                p.grad = None
-            loss = forward_losses(model, batch, torch.bfloat16)["loss"]
-            loss.backward()
-            results.append((float(loss.detach()), {
-                n: p.grad for n, p in model.named_parameters()
-                if p.grad is not None}))
-        (loss_k, grads_k), (loss_p, grads_p) = results
-        rel = abs(loss_k - loss_p) / abs(loss_p)
-        cos = {}
-        for name, gp in grads_p.items():
-            if not gp.any():
-                continue
-            gk = grads_k[name].double().flatten()
-            gp = gp.double().flatten()
-            cos[name] = float(gk @ gp / (gk.norm() * gp.norm()))
-        worst = min(cos, key=cos.get)
-        print(f"[train] kernel vs plain route, one batch: loss {loss_k:.5f}"
-              f" vs {loss_p:.5f} (rel {rel:.2e}, tol <= {ROUTE_LOSS_RTOL}); "
-              f"gradient cosine min {cos[worst]:.5f} at {worst} over "
-              f"{len(cos)} leaves (tol >= {ROUTE_GRAD_COS}) | {card}")
-        if rel > ROUTE_LOSS_RTOL or cos[worst] < ROUTE_GRAD_COS:
-            fail("the kernel route's train step does not hold the plain "
-                 "route's")
+    # the loss falls over repeated steps on one batch
+    batch = batch_to_device(next(iter(trainer.train_loader)),
+                            trainer.device)
+    repeat = []
+    for _ in range(8):
+        trainer.state, metrics = trainer.train_step(trainer.state, batch)
+        repeat.append(float(metrics["loss"]))
+    print(f"[{tag}] one batch, 8 steps: loss {repeat[0]:.4f} -> "
+          f"{repeat[-1]:.4f} | {card}")
+    if not np.isfinite(repeat).all() or repeat[-1] >= repeat[0]:
+        fail(f"the loss did not fall on one batch: {repeat}")
 
-        if profile:
-            trace(lambda: trainer.train_step(trainer.state, batch),
-                  "train step", card)
-        trainer.logger.jsonl.close()
+    # the kernel route against the plain route on one batch
+    plain = Phoneme2Mel(trainer.model_cfg).to(trainer.device)
+    plain.load_state_dict(trainer.model.state_dict())
+    results = []
+    for model in (trainer.model, plain):
+        for p in model.parameters():
+            p.grad = None
+        loss = forward_losses(model, batch, torch.bfloat16)["loss"]
+        loss.backward()
+        results.append((float(loss.detach()), {
+            n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}))
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = {}
+    for name, gp in grads_p.items():
+        if not gp.any():
+            continue
+        gk = grads_k[name].double().flatten()
+        gp = gp.double().flatten()
+        cos[name] = float(gk @ gp / (gk.norm() * gp.norm()))
+    worst = min(cos, key=cos.get)
+    print(f"[{tag}] kernel vs plain route, one batch: loss {loss_k:.5f} vs "
+          f"{loss_p:.5f} (rel {rel:.2e}, tol <= {ROUTE_LOSS_RTOL}); "
+          f"gradient cosine min {cos[worst]:.5f} at {worst} over "
+          f"{len(cos)} leaves (tol >= {ROUTE_GRAD_COS}) | {card}")
+    if rel > ROUTE_LOSS_RTOL or cos[worst] < ROUTE_GRAD_COS:
+        fail("the kernel route's train step does not hold the plain "
+             "route's")
+
+    if profile:
+        trace(lambda: trainer.train_step(trainer.state, batch),
+              f"{preset} train step", card)
+    trainer.logger.jsonl.close()
     return launches
 
 
@@ -701,7 +766,7 @@ def main():
                                      "on one CUDA card.")
     parser.add_argument("--profile", action="store_true",
                         help="also trace one long request and one train "
-                             "step with torch.profiler")
+                             "step of each preset with torch.profiler")
     args = parser.parse_args()
     card = phase_device()
     phase_build(card)
@@ -723,26 +788,60 @@ def main():
     del synth
     torch.cuda.empty_cache()
 
-    k3_fwd, k3_bwd = phase_k3(card)
-    k4_fwd, k4_bwd = phase_k4(card)
-    launches.update(phase_train(card, args.profile))
+    # launches a train step: K3 1 + blocks (tiny 3, small 4), K4 blocks x
+    # depth (tiny 2 x 2, small 3 x 2)
+    k3 = {c: phase_k3(card, c, per_step)
+          for c, per_step in ((128, 3), (256, 4))}
+    k4 = {c: phase_k4(card, c, per_step)
+          for c, per_step in ((128, 4), (256, 6))}
+    k5, k5_launches = phase_k5(card)
+    launches.update(k5_launches)
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        write_corpus(data, n_train=EPOCH_STEPS * TRAIN_BATCH)
+        print(f"[train] synthetic corpus of {EPOCH_STEPS * TRAIN_BATCH} + 16 "
+              f"utterances in {time.perf_counter() - t0:.1f} s | {card}")
+        train = {preset: phase_train(card, preset, data,
+                                     os.path.join(root, preset),
+                                     args.profile)
+                 for preset in ("tiny", "small")}
+    for preset_launches in train.values():
+        launches.update(preset_launches)
 
     csrc = "efficientspeech_tpu_torch/csrc/"
     pallas = "efficientspeech_tpu/ops/pallas/"
+    probe = "benchmarks/int8_pallas_probe.py:27"
     table = []
     for name, key, src, replaces, stats in (
             ("folded_matmul", "folded_matmul", csrc + "folded_matmul.cu",
              pallas + "folded_matmul.py:231", k1),
             ("mrf_fused", "mrf_fused", csrc + "mrf_block.cu",
              pallas + "mrf_block.py:176", k2),
-            ("layer_norm_fused fwd", "k3_fwd", csrc + "layer_norm.cu",
-             pallas + "layer_norm.py:67", k3_fwd),
-            ("layer_norm_fused bwd", "k3_bwd", csrc + "layer_norm.cu",
-             pallas + "layer_norm.py:90", k3_bwd),
-            ("decoder_block_fused fwd", "k4_fwd", csrc + "decoder_block.cu",
-             pallas + "decoder_block.py:198", k4_fwd),
-            ("decoder_block_fused bwd", "k4_bwd", csrc + "decoder_block.cu",
-             pallas + "decoder_block.py:237", k4_bwd)):
+            ("layer_norm_fused fwd", "k3_fwd_128", csrc + "layer_norm.cu",
+             pallas + "layer_norm.py:67", k3[128][0]),
+            ("layer_norm_fused bwd", "k3_bwd_128", csrc + "layer_norm.cu",
+             pallas + "layer_norm.py:90", k3[128][1]),
+            ("layer_norm_fused fwd C=256", "k3_fwd_256",
+             csrc + "layer_norm.cu", pallas + "layer_norm.py:67", k3[256][0]),
+            ("layer_norm_fused bwd C=256", "k3_bwd_256",
+             csrc + "layer_norm.cu", pallas + "layer_norm.py:90", k3[256][1]),
+            ("decoder_block_fused fwd", "k4_fwd_128",
+             csrc + "decoder_block.cu", pallas + "decoder_block.py:198",
+             k4[128][0]),
+            ("decoder_block_fused bwd", "k4_bwd_128",
+             csrc + "decoder_block.cu", pallas + "decoder_block.py:237",
+             k4[128][1]),
+            ("decoder_block_fused fwd C=256", "k4_fwd_256",
+             csrc + "decoder_block.cu", pallas + "decoder_block.py:198",
+             k4[256][0]),
+            ("decoder_block_fused bwd C=256", "k4_bwd_256",
+             csrc + "decoder_block.cu", pallas + "decoder_block.py:237",
+             k4[256][1]),
+            ("int8_window_matmul bf16-in", "k5_bf16",
+             csrc + "int8_window.cu", probe, k5["bf16"]),
+            ("int8_window_matmul int8-in", "k5_int8",
+             csrc + "int8_window.cu", probe, k5["int8"])):
         if launches[key] == 0:
             fail(f"{name} was not launched on the main path")
         table.append({"name": name, "route": "cuda", "source": src,

@@ -26,6 +26,7 @@ from efficientspeech_tpu_torch.device import resolve_device
 from efficientspeech_tpu_torch.models.efficientspeech import EfficientSpeech
 from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, folded_plan_apply, prepare_for_kernels)
+from efficientspeech_tpu_torch.models.modules import cast_params_
 from efficientspeech_tpu_torch.text.g2p import (
     get_lexicon_and_g2p, text2phoneme)
 from efficientspeech_tpu_torch.text.symbols import PAD_ID, symbols
@@ -95,7 +96,9 @@ class Synthesizer:
         self._obs_recent = collections.deque(maxlen=self.OBS_WINDOW)
 
         model = model.to(self.device).eval()
-        self.acoustic = model.phoneme2mel.to(dtype)
+        # Linear and conv weights in ``dtype``; LayerNorm and embedding
+        # parameters stay float32, as the JAX modules keep them
+        self.acoustic = cast_params_(model.phoneme2mel, dtype)
         with torch.no_grad():
             arrays, self.fold_meta = fold_hifigan(model.hifigan, dtype)
             self.folded, self.mrf = prepare_for_kernels(

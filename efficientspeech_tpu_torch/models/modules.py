@@ -174,6 +174,16 @@ def compute_params(model: nn.Module, dtype: torch.dtype
     return out
 
 
+def cast_params_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``model``'s parameters in place by ``compute_params``'s rule,
+    for serving: Linear and conv weights to ``dtype``, LayerNorm and
+    embedding parameters left float32, as the JAX modules keep them."""
+    with torch.no_grad():
+        for name, t in compute_params(model, dtype).items():
+            model.get_parameter(name).data = t
+    return model
+
+
 def gelu_exact(x):
     """torch nn.GELU default: the exact erf form."""
     return F.gelu(x, approximate="none")

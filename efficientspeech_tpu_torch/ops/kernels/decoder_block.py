@@ -13,8 +13,9 @@ partials; the gradient with respect to keep is zero.  The weights are the
 float32 parameters of the decoder's modules, in their PyTorch layouts:
 dw_w (C, 1, k) of the depthwise Conv1d, pw_w (C, C, 1) of the pointwise
 one, and the LayerNorm's (C,) scale and bias; each is cast inside, so
-their gradients come back float32.  A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+their gradients come back float32.  A CPU tensor takes the plain version
+(any width, any dtype); a CUDA tensor launches the kernel, built for bf16
+at C = 128 and 256, or raises.
 """
 
 import ctypes
@@ -25,9 +26,13 @@ import torch.nn.functional as F
 
 from efficientspeech_tpu_torch.ops.kernels import build
 
-# kernel launches since the counts were last set to 0
-launches_fwd = 0
-launches_bwd = 0
+# the decoder widths the CUDA kernel is built for: the list in
+# csrc/decoder_block.cu's with_width
+WIDTHS = (128, 256)
+
+# kernel launches by width since the counts were last set to 0
+launches_fwd = dict.fromkeys(WIDTHS, 0)
+launches_bwd = dict.fromkeys(WIDTHS, 0)
 
 
 def _recompute_to_t(x, keep, dww, dwb, w_io, pwb):
@@ -103,10 +108,11 @@ def decoder_block_bwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decoder_block_fwd_launch": ([_P] * 9 + [_I, _I, _F, _I, _P], _I),
-    "decoder_block_bwd_launch": ([_P] * 11 + [_I, _I, _F, _I, _P], _I),
-    "decoder_block_tile_rows": ([_I], _I),
-    "decoder_block_channels": ([], _I),
+    "decoder_block_fwd_launch": ([_P] * 9 + [_I, _I, _I, _F, _I, _P], _I),
+    "decoder_block_bwd_launch": ([_P] * 11 + [_I, _I, _I, _F, _I, _P], _I),
+    "decoder_block_tile_rows": ([_I, _I], _I),
+    "decoder_block_fwd_blocks_per_sm": ([_I], _I),
+    "decoder_block_split": ([_I], _I),
     "decoder_block_taps": ([], _I),
 }
 
@@ -117,12 +123,10 @@ def _lib():
 
 def check_supported(channels: int, dtype: torch.dtype):
     """Raise unless the CUDA kernel covers a decoder of width ``channels``
-    in ``dtype``: it is built for one width (``decoder_block_channels``)
-    and bf16 only."""
-    width = _lib().decoder_block_channels()
-    if channels != width or dtype != torch.bfloat16:
+    in ``dtype``: it is built for the widths in ``WIDTHS``, bf16 only."""
+    if channels not in WIDTHS or dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"decoder_block kernel: built for C = {width} in bf16, not "
+            f"decoder_block kernel: built for C in {WIDTHS} in bf16, not "
             f"C = {channels} in {dtype}; this decoder cannot run on the "
             "card yet")
 
@@ -149,19 +153,22 @@ def _kernel_args(lib, x, keep, dw_w, dw_b, pw_w, pw_b, ln_s):
             dw_b.contiguous(), pw_b.contiguous(), ln_s.contiguous())
 
 
-def _grid(lib, b: int, m: int, backward: bool, dev) -> int:
-    rows = lib.decoder_block_tile_rows(int(backward))
-    tiles = b * -(-m // rows)
+def _grid(lib, b: int, m: int, c: int, backward: bool, dev) -> int:
+    """Persistent grids: the forward fills every SM with as many blocks as
+    fit on one; the backward puts one block on each SM, in groups of
+    ``split`` blocks that share a tile (one per 128 columns)."""
+    tiles = b * -(-m // lib.decoder_block_tile_rows(c, int(backward)))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # the forward fits two blocks on an SM, the backward one
-    return max(1, min(tiles, sms if backward else 2 * sms))
+    if not backward:
+        return max(1, min(tiles, lib.decoder_block_fwd_blocks_per_sm(c) * sms))
+    split = lib.decoder_block_split(c)
+    return split * max(1, min(tiles, sms // split))
 
 
 def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
                       eps: float = 1e-5) -> torch.Tensor:
     """x (B, M, C), keep (B, M) float32 → y (B, M, C).  On CUDA: x bf16
-    and C = 128."""
-    global launches_fwd
+    and C in ``WIDTHS``."""
     if x.device.type == "cpu":
         return decoder_block_fwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, ln_b, eps)
@@ -171,26 +178,25 @@ def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
     w_io, dww, dwb, pwb, lns = _kernel_args(lib, x, keep, dw_w, dw_b, pw_w,
                                             pw_b, ln_s)
     build.check_tensor("ln_b", ln_b, torch.float32, (x.shape[2],), x.device)
-    b, m, _ = x.shape
+    b, m, c = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.decoder_block_fwd_launch(
             x.data_ptr(), keep.data_ptr(), w_io.data_ptr(), dww.data_ptr(),
             dwb.data_ptr(), pwb.data_ptr(), lns.data_ptr(), ln_b.data_ptr(),
-            y.data_ptr(), b, m, float(eps), _grid(lib, b, m, False, x.device),
-            stream)
+            y.data_ptr(), b, m, c, float(eps),
+            _grid(lib, b, m, c, False, x.device), stream)
     build.check(lib, err, "decoder_block forward")
-    launches_fwd += 1
+    launches_fwd[c] += 1
     return y
 
 
 def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
                       eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
     """→ (dx, d_dw_w, d_dw_b, d_pw_w, d_pw_b, d_ln_s, d_ln_b); the kernel
-    writes one float32 partial of each weight gradient per block, summed
-    here."""
-    global launches_bwd
+    writes one float32 partial of each weight gradient per block group,
+    summed here."""
     if x.device.type == "cpu":
         return decoder_block_bwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, dy, eps)
@@ -203,19 +209,21 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     dev = x.device
     build.check_tensor("dy", dy, torch.bfloat16, (b, m, c), dev)
     k = dw_w.shape[2]
-    grid = _grid(lib, b, m, True, dev)
+    grid = _grid(lib, b, m, c, True, dev)
+    groups = grid // lib.decoder_block_split(c)
     dx = torch.empty_like(x)
-    part_pw = torch.empty((grid, c, c), dtype=torch.float32, device=dev)
-    part_vec = torch.empty((grid, k + 4, c), dtype=torch.float32, device=dev)
+    part_pw = torch.empty((groups, c, c), dtype=torch.float32, device=dev)
+    part_vec = torch.empty((groups, k + 4, c), dtype=torch.float32,
+                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.decoder_block_bwd_launch(
             x.data_ptr(), keep.data_ptr(), w_io.data_ptr(), dww.data_ptr(),
             dwb.data_ptr(), pwb.data_ptr(), lns.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), part_pw.data_ptr(), part_vec.data_ptr(), b, m,
+            dx.data_ptr(), part_pw.data_ptr(), part_vec.data_ptr(), b, m, c,
             float(eps), grid, stream)
     build.check(lib, err, "decoder_block backward")
-    launches_bwd += 1
+    launches_bwd[c] += 1
     d_w_io = part_pw.sum(0)
     vec = part_vec.sum(0)
     return (dx, vec[:k].t()[:, None, :].contiguous(), vec[k],

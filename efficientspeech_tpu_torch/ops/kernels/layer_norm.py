@@ -20,11 +20,12 @@ import torch
 
 from efficientspeech_tpu_torch.ops.kernels import build
 
-# kernel launches since the counts were last set to 0
-launches_fwd = 0
-launches_bwd = 0
-
+# the widths the CUDA kernel is built for
 WIDTHS = (128, 256)
+
+# kernel launches by width since the counts were last set to 0
+launches_fwd = dict.fromkeys(WIDTHS, 0)
+launches_bwd = dict.fromkeys(WIDTHS, 0)
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -91,7 +92,6 @@ def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x (rows, C) → y (rows, C).  On CUDA: x bf16 or float32, C 128 or
     256, scale and bias float32."""
-    global launches_fwd
     if x2d.device.type == "cpu":
         return layer_norm_fwd_plain(x2d, scale, bias, eps)
     if x2d.device.type != "cuda":
@@ -109,7 +109,7 @@ def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,
             rows, c, int(x2d.dtype == torch.bfloat16), float(eps), grid,
             stream)
     build.check(lib, err, "layer_norm forward")
-    launches_fwd += 1
+    launches_fwd[c] += 1
     return y
 
 
@@ -118,7 +118,6 @@ def layer_norm_bwd(x2d: torch.Tensor, scale: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(x, scale, dy) → (dx, dscale, dbias); the kernel writes one float32
     partial row per block, summed here."""
-    global launches_bwd
     if x2d.device.type == "cpu":
         return layer_norm_bwd_plain(x2d, scale, dy2d, eps)
     if x2d.device.type != "cuda":
@@ -140,7 +139,7 @@ def layer_norm_bwd(x2d: torch.Tensor, scale: torch.Tensor,
             parts[0].data_ptr(), parts[1].data_ptr(), rows, c,
             int(x2d.dtype == torch.bfloat16), float(eps), grid, stream)
     build.check(lib, err, "layer_norm backward")
-    launches_bwd += 1
+    launches_bwd[c] += 1
     ds, db = parts.sum(dim=1)
     return dx, ds, db
 

@@ -1,0 +1,40 @@
+"""Timing on the card (the counterpart of the JAX package's
+``benchmarks/_chain.py``): CUDA events around a run of calls, and the
+card's name and power limit to print beside every number."""
+
+import subprocess
+import time
+
+import torch
+
+
+def card() -> str:
+    """``nvidia-smi``'s "name, power.limit" of card 0."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode == 0 and smi.stdout.strip():
+        return smi.stdout.strip().splitlines()[0]
+    return f"{torch.cuda.get_device_name(0)}, power limit unknown"
+
+
+def time_ms(fn, iters: int):
+    """(device ms, host ms) per call, after a warm-up.  The card first
+    sleeps while the host queues all the calls, so the CUDA events around
+    them time the device's work and not the host's launch rate; the host
+    clock around the queueing gives the host's cost per call."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host_ms

@@ -14,6 +14,7 @@ from efficientspeech_tpu.config import ModelConfig as JaxModelConfig
 from efficientspeech_tpu.models.phoneme2mel import Phoneme2Mel as JaxP2M
 from efficientspeech_tpu_torch.config import ModelConfig
 from efficientspeech_tpu_torch.models.acoustic import ScalarEmbedding
+from efficientspeech_tpu_torch.models.modules import cast_params_
 from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
 from efficientspeech_tpu_torch.weights import load_jax_params
 
@@ -87,12 +88,12 @@ def test_scalar_bins_bit_equal_to_jax():
 
 
 def test_phoneme2mel_bf16_matches_jax():
-    """The serving acoustic model in bf16: the port casts every parameter
-    to bf16 (LayerNorm scale and bias included), the JAX modules keep
-    LayerNorm's in float32.  Both round activations to bf16 at other
-    places; JAX's own bf16-vs-float32 mel gap at these inputs is about
-    0.03, so the two bf16 mels are held to 0.06 max-abs, and the rounded
-    durations, hence mel_len, must agree."""
+    """The serving acoustic model in bf16: the port casts its Linear and
+    conv weights to bf16 and keeps LayerNorm and embedding parameters
+    float32 (``cast_params_``), as the JAX modules do.  Both round
+    activations to bf16 at other places; JAX's own bf16-vs-float32 mel gap
+    at these inputs is about 0.03, so the two bf16 mels are held to 0.06
+    max-abs, and the rounded durations, hence mel_len, must agree."""
     jcfg = dataclasses.replace(JaxModelConfig.preset("tiny"),
                                max_phoneme_len=BUCKET, max_mel_len=FRAMES)
     rng = np.random.default_rng(7)
@@ -112,7 +113,8 @@ def test_phoneme2mel_bf16_matches_jax():
 
     model = Phoneme2Mel(ModelConfig.preset("tiny"))
     load_jax_params(model, params)
-    model.to(torch.bfloat16)
+    cast_params_(model, torch.bfloat16)
+    assert model.decoder.proj_norm.weight.dtype == torch.float32
     with torch.no_grad():
         got = model(torch.from_numpy(phoneme), torch.from_numpy(pad),
                     max_mel_len=FRAMES)

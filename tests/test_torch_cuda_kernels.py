@@ -9,15 +9,18 @@ import numpy as np
 import pytest
 import torch
 
-from efficientspeech_tpu_torch.config import HifiGanConfig
+from efficientspeech_tpu_torch.config import HifiGanConfig, ModelConfig
 from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
 from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, prepare_for_kernels)
 from efficientspeech_tpu_torch.models.modules import reset_parameters
+from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
 from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+from efficientspeech_tpu_torch.ops.kernels import int8_window as k5
 from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
 from efficientspeech_tpu_torch.ops.kernels import mrf_block
+from efficientspeech_tpu_torch.training.step import forward_losses
 
 pytestmark = pytest.mark.cuda
 
@@ -96,12 +99,16 @@ def test_layer_norm_kernel(card, rows, c, dtype):
         assert snr_db(w, a) >= 35.0, name
 
 
-@pytest.mark.parametrize("b,m", [(3, 200), (2, 1024)])
-def test_decoder_block_kernel(card, b, m):
+@pytest.mark.parametrize("b,m,c", [
+    pytest.param(3, 200, 128, id="3-200"),
+    pytest.param(2, 1024, 128, id="2-1024"),
+    pytest.param(3, 200, 256, id="3-200-C256"),
+    pytest.param(2, 1024, 256, id="2-1024-C256")])
+def test_decoder_block_kernel(card, b, m, c):
     """K4 forward and backward against the plain version on a keep mask
     with padded tails: y, dx and the six weight gradients each at
     SNR >= 35 dB, dx exactly zero on padded frames."""
-    c, k = 128, 5
+    k = 5
     g = torch.Generator(device="cpu").manual_seed(m)
     f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
     x = f(b, m, c).to(torch.bfloat16)
@@ -124,17 +131,89 @@ def test_decoder_block_kernel(card, b, m):
     assert not grads[0][keep == 0].any()
 
 
-@pytest.mark.parametrize("c,dtype", [(256, torch.bfloat16),
-                                     (128, torch.float32)])
+@pytest.mark.parametrize("c,dtype", [(384, torch.bfloat16),
+                                     (128, torch.float32),
+                                     (256, torch.float32)])
 def test_decoder_block_kernel_refuses(card, c, dtype):
-    """A decoder the kernel is not built for (the small and base presets'
-    C = 256, or float32) raises on the card instead of taking the plain
+    """A decoder the kernel is not built for (a width other than 128 and
+    256, or float32) raises on the card instead of taking the plain
     version."""
     with pytest.raises(NotImplementedError, match="cannot run on the card"):
         k4.check_supported(c, dtype)
+    # the library is built for exactly the widths check_supported names
+    lib = k4._lib()
+    assert [w for w in (128, 256, 384) if lib.decoder_block_tile_rows(w, 0)
+            and lib.decoder_block_split(w)] == list(k4.WIDTHS)
     x = torch.zeros(1, 16, c, dtype=dtype, device=card)
     keep = torch.ones(1, 16, device=card)
     weights = [torch.zeros(shape, device=card) for shape in
                ((c, 1, 5), (c,), (c, c, 1), (c,), (c,), (c,))]
     with pytest.raises(NotImplementedError, match="cannot run on the card"):
         k4.decoder_block_fused(x, keep, *weights)
+
+
+@pytest.mark.parametrize("preset,width,k3_per_dir,k4_per_dir", [
+    ("tiny", 128, 3, 4), ("small", 256, 4, 6), ("base", 256, 4, 9)])
+def test_fused_decoder_launches_per_preset(card, preset, width, k3_per_dir,
+                                           k4_per_dir):
+    """Every preset's train-mode forward and backward in bf16 goes through
+    K3 (proj_norm and each block's skip norm) and K4 (every block body),
+    at the preset's decoder width, with finite losses."""
+    cfg = ModelConfig.preset(preset, max_phoneme_len=32, max_mel_len=256)
+    model = Phoneme2Mel(cfg, fused_decoder_norm=True,
+                        fused_decoder_block=True)
+    reset_parameters(model, 0)
+    model.to(card)
+    k4.check_supported(model.decoder.proj_norm.weight.shape[0],
+                       torch.bfloat16)
+    g = np.random.default_rng(0)
+    n, m, b = 32, 256, 2
+    duration = g.integers(1, 8, (b, n))
+    mel_len = np.minimum(duration.sum(1), m)
+    batch = {
+        "phoneme": g.integers(1, 140, (b, n)), "phoneme_mask":
+        np.zeros((b, n), bool), "pitch": g.normal(size=(b, n)),
+        "energy": g.normal(size=(b, n)), "duration": duration,
+        "mel": g.normal(size=(b, m, 80)),
+        "mel_mask": np.arange(m)[None, :] >= mel_len[:, None]}
+    batch = {k: torch.from_numpy(v).to(card) for k, v in batch.items()}
+    for key in ("pitch", "energy", "mel"):
+        batch[key] = batch[key].float()
+    for d in (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+              k4.launches_bwd):
+        d.update(dict.fromkeys(d, 0))
+    loss = forward_losses(model, batch, torch.bfloat16)["loss"]
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert k3.launches_fwd == {c: k3_per_dir if c == width else 0
+                               for c in k3.WIDTHS}
+    assert k3.launches_bwd == k3.launches_fwd
+    assert k4.launches_fwd == {c: k4_per_dir if c == width else 0
+                               for c in k4.WIDTHS}
+    assert k4.launches_bwd == k4.launches_fwd
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t,tm,n_win", [(4096, 512, 5), (1000, 256, 3)])
+def test_int8_window_kernel(card, quantize, t, tm, n_win):
+    """K5 against its plain version: the int32 sums are exact in both, so
+    the outputs agree to 1e-6 of their largest magnitude (the one float32
+    multiply by the scale)."""
+    d_in = d_out = 128
+    _, rows = k5.layout(t, tm, n_win)
+    g = torch.Generator(device="cpu").manual_seed(t)
+    xs = torch.randn(rows, d_in, generator=g)
+    x = (xs.to(torch.bfloat16) if quantize
+         else torch.clamp(xs * 40, -127, 127).to(torch.int8)).to(card)
+    w = torch.randint(-127, 127, (n_win * d_in, d_out), generator=g,
+                      dtype=torch.int8).to(card)
+    before = (k5.launches_quant, k5.launches_int8)
+    got = k5.int8_window_matmul(x, w, n_win, tm)
+    want = k5.int8_window_matmul_plain(x, w, n_win, tm)
+    torch.cuda.synchronize()
+    assert (k5.launches_quant - before[0], k5.launches_int8 - before[1]) \
+        == ((1, 0) if quantize else (0, 1))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), err

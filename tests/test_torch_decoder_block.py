@@ -20,20 +20,24 @@ from efficientspeech_tpu_torch.weights import init_params
 
 # batch 3 is not a multiple of the JAX kernel's batch group tg = 2
 B, M, C, K = 3, 40, 128, 5
+# the mel decoder's widths: 128 (tiny), 256 (small, base)
+WIDTHS = (128, 256)
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 GRAD_NAMES = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
 
 
-def _inputs(seed):
-    """JAX-layout weights: dw (K, 1, C), pw (1, C_in, C_out)."""
+def _inputs(seed, c=C):
+    """JAX-layout weights: dw (K, 1, C), pw (1, C_in, C_out); the
+    pointwise weight's scale falls as 1/sqrt(C), as its init's does."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     return dict(
-        x=f(B, M, C), keep=(rng.random((B, M)) > 0.2).astype(np.float32),
-        dw_w=f(K, 1, C) * 0.4, dw_b=f(C) * 0.1, pw_w=f(1, C, C) * 0.09,
-        pw_b=f(C) * 0.1, ln_s=1 + 0.2 * f(C), ln_b=0.1 * f(C),
-        cot=f(B, M, C))
+        x=f(B, M, c), keep=(rng.random((B, M)) > 0.2).astype(np.float32),
+        dw_w=f(K, 1, c) * 0.4, dw_b=f(c) * 0.1,
+        pw_w=f(1, c, c) * np.float32(0.09 * np.sqrt(C / c)),
+        pw_b=f(c) * 0.1, ln_s=1 + 0.2 * f(c), ln_b=0.1 * f(c),
+        cot=f(B, M, c))
 
 
 def _torch_weights(a):
@@ -76,10 +80,12 @@ def _torch_grads(a, tdt):
                                                         for w in weights]]
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_matches_jax_kernel(dtype):
+@pytest.mark.parametrize("dtype,c", [
+    pytest.param(dtype, c, id=dtype if c == C else f"{dtype}-C{c}")
+    for c in WIDTHS for dtype in sorted(DTYPES)])
+def test_matches_jax_kernel(dtype, c):
     jdt, tdt = DTYPES[dtype]
-    a = _inputs(0)
+    a = _inputs(0, c)
     y_want, g_want = _jax_grads(a, jdt)
     y_got, g_got = _torch_grads(a, tdt)
     if dtype == "f32":
@@ -148,3 +154,19 @@ def test_mel_decoder_kernel_routes_match_plain_route():
     assert bf16["proj_linear.weight"].dtype == torch.bfloat16
     assert compute_params(plain, torch.bfloat16)[
         "block0_conv0_dw.weight"].dtype == torch.bfloat16
+
+
+def test_check_supported_names_the_kernel_widths():
+    """The kernel covers every preset's decoder (width 128 or 256) in
+    bf16, and refuses float32 and other widths with a message that says
+    so; the check needs no build."""
+    for c in WIDTHS:
+        k4.check_supported(c, torch.bfloat16)
+    for c, dtype in ((256, torch.float32), (128, torch.float32),
+                     (384, torch.bfloat16), (64, torch.bfloat16)):
+        with pytest.raises(NotImplementedError,
+                           match="cannot run on the card"):
+            k4.check_supported(c, dtype)
+    widths = {p: MelDecoder(ModelConfig.preset(p)).proj_norm.weight.shape[0]
+              for p in ("tiny", "small", "base")}
+    assert widths == {"tiny": 128, "small": 256, "base": 256}

@@ -49,9 +49,12 @@ def test_no_jax_import_in_source():
 def test_kernel_modules_need_no_nvcc():
     code = "\n".join([
         "from efficientspeech_tpu_torch.ops.kernels import (",
-        "    build, decoder_block, folded_matmul, layer_norm, mrf_block)",
+        "    build, decoder_block, folded_matmul, int8_window, layer_norm,",
+        "    mrf_block)",
+        "from efficientspeech_tpu_torch.probes import int8_window as probe",
         "from efficientspeech_tpu_torch.training import loop",
-        "assert set(build.SOURCES) >= {'layer_norm', 'decoder_block'}",
+        "assert set(build.SOURCES) >= {'layer_norm', 'decoder_block',",
+        "                              'int8_window'}",
         "from efficientspeech_tpu_torch.models import hifigan_folded",
         "assert all((build.CSRC / f'{n}.cu').is_file()",
         "           for n in build.SOURCES)",
@@ -76,6 +79,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_synthesizer(preset="tiny")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_int8_probe_raises_without_cuda(monkeypatch, capsys):
+    """The int8 probe times the card, and without one refuses to start
+    unless asked for the CPU, where it runs K5's plain version."""
+    from efficientspeech_tpu_torch.probes import int8_window as probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe.main([])
+    out = probe.main(["--device", "cpu"])
+    assert set(out) == {"k5_bf16", "k5_int8"} and min(out.values()) > 0
+    assert "plain on the cpu" in capsys.readouterr().out
 
 
 def test_training_raises_without_cuda(monkeypatch, tmp_path):

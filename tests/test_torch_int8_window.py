@@ -1,0 +1,71 @@
+"""Kernel K5's plain version (the function the CUDA kernel computes)
+against the JAX package's int8 probe kernel, run in interpret mode by
+``benchmarks/int8_pallas_probe.run`` on inputs the test rebuilds with
+numpy from the probe's seed.  The quantisation and the int32 sums leave
+no rounding but the final float32 multiply, so both variants must agree
+bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from benchmarks.int8_pallas_probe import run as jax_probe_run
+from efficientspeech_tpu_torch.ops.kernels import int8_window as k5
+
+
+def _probe_inputs(t, d_in, d_out, n_win, tm, quantize):
+    """``run``'s inputs: ``default_rng(0)``, first xs, then W."""
+    rng = np.random.default_rng(0)
+    _, rows = k5.layout(t, tm, n_win)
+    xs = rng.normal(size=(rows, d_in))
+    w = rng.integers(-127, 127, size=(n_win * d_in, d_out))
+    x = (torch.from_numpy(xs.astype(np.float32)).to(torch.bfloat16)
+         if quantize
+         else torch.from_numpy(np.clip(xs * 40, -127, 127).astype(np.int8)))
+    return x, torch.from_numpy(w.astype(np.int8))
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t,tm,n_win,d", [
+    (256, 64, 5, 128),   # the probe's window and width, four tiles
+    (200, 64, 5, 128),   # t not a multiple of tm: the last tile is padded
+    (96, 32, 3, 64)])
+def test_plain_bit_equal_to_jax_probe(quantize, t, tm, n_win, d):
+    want = np.asarray(jax_probe_run(
+        t, d, d, n_win, tm, quantize,
+        jnp.bfloat16 if quantize else jnp.int8, 0, 0, interpret=True))
+    x, w = _probe_inputs(t, d, d, n_win, tm, quantize)
+    got = k5.int8_window_matmul(x, w, n_win, tm)
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (k5.layout(t, tm, n_win)[0], d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want).max() > 0
+
+
+def test_layout_and_tile_scale():
+    """slice_rows rounds the window up to 8 rows; each tile's scale comes
+    from its whole slice, the rows past its window included."""
+    assert k5.slice_rows(512, 5) == 520 and k5.slice_rows(64, 3) == 72
+    assert k5.layout(49152, 512, 5) == (49152, 49672)
+    assert k5.layout(200, 64, 5) == (256, 328)
+    x = torch.zeros(k5.layout(64, 32, 3)[1], 32, dtype=torch.bfloat16)
+    # row 36: past tile 0's window (rows 0-33) but in its slice (0-39)
+    x[36, 0] = 4.0
+    xq, scale = k5.quantized_slices(x, 3, 32)
+    assert float(scale[0]) == float(scale[1]) == \
+        float(np.float32(4.0) * np.float32(k5.INV_127))
+    assert xq.shape == (2, 40, 32) and float(xq.abs().max()) == 127
+    # an all-zero slice takes the 1e-6 floor
+    xq, scale = k5.quantized_slices(torch.zeros_like(x), 3, 32)
+    assert float(scale[0]) == float(np.float32(1e-6) *
+                                    np.float32(k5.INV_127))
+
+
+def test_cpu_tensor_launches_nothing():
+    x, w = _probe_inputs(64, 32, 64, 3, 32, True)
+    before = (k5.launches_quant, k5.launches_int8)
+    k5.int8_window_matmul(x, w, 3, 32)
+    k5.int8_window_matmul(x.to(torch.int8), w, 3, 32)
+    assert (k5.launches_quant, k5.launches_int8) == before

@@ -11,12 +11,15 @@ import jax.numpy as jnp
 from efficientspeech_tpu.audio.transfer import (
     encode_device as jax_encode_device)
 from efficientspeech_tpu.config import HifiGanConfig as JaxHifiGanConfig
+from efficientspeech_tpu.config import ModelConfig as JaxModelConfig
 from efficientspeech_tpu.infer import build_synthesizer as jax_build
 from efficientspeech_tpu.models.hifigan import HifiGanGenerator as JaxGen
+from efficientspeech_tpu.models.phoneme2mel import Phoneme2Mel as JaxP2M
 from efficientspeech_tpu_torch.audio.transfer import (
     decode_host, encode_device)
 from efficientspeech_tpu_torch.config import HifiGanConfig
 from efficientspeech_tpu_torch.infer import build_synthesizer
+from efficientspeech_tpu_torch.models.modules import Embedding, LayerNorm
 
 torch.set_num_threads(2)
 
@@ -116,3 +119,68 @@ def test_kernel_route_matches_plain_route(synths, monkeypatch):
     assert folded_matmul.launches == mrf_block.launches == 0
     assert mel_len_k == mel_len
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_synthesizer_keeps_norms_f32_and_matches_jax(synths):
+    """Serving in bf16 casts the acoustic model's Linear and conv weights
+    and keeps its LayerNorm and embedding parameters float32, as the JAX
+    modules do.  With LayerNorm scales and biases drawn from a seed (a
+    cast of init's 1 and 0 to bf16 is exact, so they would hide a cast),
+    the synthesizer's bf16 mel is held to the JAX model's bf16 mel at the
+    bar of test_phoneme2mel_bf16_matches_jax: 0.06 max-abs, mel_len
+    equal."""
+    jsynth, _ = synths
+    bucket, frames = 16, 128
+    rng = np.random.default_rng(11)
+    phoneme = np.zeros((2, bucket), np.int32)
+    phoneme[0, :14] = rng.integers(1, 140, 14)
+    phoneme[1, :9] = rng.integers(1, 140, 9)
+    pad = phoneme == 0
+    jmodel = JaxP2M(JaxModelConfig.preset("tiny", max_phoneme_len=bucket,
+                                          max_mel_len=frames),
+                    dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(phoneme), jnp.asarray(pad),
+        train=False)["params"])
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "scale":
+            return (1 + 0.3 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name == "bias":
+            return (0.2 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name in ("embedding", "speaker_embedding"):
+            return rng.standard_normal(s.shape).astype(np.float32)
+        bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    p2m = jax.tree_util.tree_map_with_path(leaf, shapes)
+    p2m["encoder"]["duration_decoder"]["linear"]["bias"] = np.array(
+        [3.3], np.float32)
+    want = jmodel.apply({"params": p2m}, jnp.asarray(phoneme),
+                        jnp.asarray(pad), train=False)
+
+    psynth = build_synthesizer(
+        preset="tiny", params={"phoneme2mel": p2m,
+                               "hifigan": jsynth.params["hifigan"]},
+        hifigan_cfg=HifiGanConfig(**SMALL_HIFIGAN), dtype=torch.bfloat16,
+        transfer="f32", vocoder_mode="folded", device="cpu")
+    kept = 0
+    for module in psynth.acoustic.modules():
+        f32 = getattr(module, "takes_f32_params", False)
+        kept += isinstance(module, (LayerNorm, Embedding))
+        for name, p in module.named_parameters(recurse=False):
+            assert p.dtype == (torch.float32 if f32 else torch.bfloat16), \
+                (type(module).__name__, name, p.dtype)
+    assert kept > 10
+    assert psynth.acoustic.decoder.proj_norm.weight.dtype == torch.float32
+    with torch.no_grad():
+        got = psynth.acoustic(torch.from_numpy(phoneme),
+                              torch.from_numpy(pad), max_mel_len=frames)
+    assert got["mel"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["mel_len"].numpy(),
+                                  np.asarray(want["mel_len"]))
+    assert int(got["mel_len"].min()) > 0
+    err = np.abs(got["mel"].float().numpy()
+                 - np.asarray(want["mel"], np.float32)).max()
+    assert err <= 0.06, err

@@ -136,15 +136,24 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-@pytest.fixture(scope="module")
-def step_case():
+# the small preset's case keeps its mel-decoder width (256) and cuts its
+# blocks (3 → 1) and lengths for speed
+CASES = {"tiny": (dict(), N, M), "small": (dict(n_blocks=1), 16, 64)}
+# at most this many updated parameter elements differ from JAX's, all
+# where the float32 gradient is within the gradients' tolerance of zero
+LEFT_OUT = {"tiny": 0, "small": 2}
+
+
+def _step_case(preset):
     """A batch, JAX-layout parameters, and the JAX package's results for
     them in each dtype: its train step (fused decoder routes, Pallas
     kernels in interpret mode) and the gradients of the same loss."""
+    overrides, n, m = CASES[preset]
     rng = np.random.default_rng(5)
-    batch = _batch(rng)
+    batch = _batch(rng, n=n, m=m)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    jcfg = JaxModelConfig.preset("tiny", max_phoneme_len=N, max_mel_len=M)
+    jcfg = JaxModelConfig.preset(preset, max_phoneme_len=n, max_mel_len=m,
+                                 **overrides)
     models = {name: JaxP2M(jcfg, dtype=jdt, fused_decoder_norm=True,
                            fused_decoder_block=True,
                            fused_norm_interpret=True)
@@ -182,18 +191,35 @@ def step_case():
     return batch, params, ref
 
 
+@pytest.fixture(scope="module")
+def step_case():
+    return _step_case("tiny")
+
+
+@pytest.fixture(scope="module")
+def step_case_small():
+    return _step_case("small")
+
+
 def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_train_step_matches_jax(step_case, dtype):
+@pytest.mark.parametrize("preset,dtype", [
+    pytest.param(preset, dtype,
+                 id=dtype if preset == "tiny" else f"{preset}-{dtype}")
+    for preset in CASES for dtype in sorted(DTYPES)])
+def test_train_step_matches_jax(request, preset, dtype):
     """One train step of the whole slice, fused decoder routes: the loss,
     every gradient leaf and the updated parameters."""
-    batch, params, ref = step_case
-    model = Phoneme2Mel(ModelConfig.preset("tiny", max_phoneme_len=N,
-                                           max_mel_len=M),
+    batch, params, ref = request.getfixturevalue(
+        "step_case" if preset == "tiny" else f"step_case_{preset}")
+    overrides, n, m = CASES[preset]
+    model = Phoneme2Mel(ModelConfig.preset(preset, max_phoneme_len=n,
+                                           max_mel_len=m, **overrides),
                         fused_decoder_norm=True, fused_decoder_block=True)
+    assert model.decoder.proj_norm.weight.shape[0] == \
+        {"tiny": 128, "small": 256}[preset]
     load_jax_params(model, params)
     cfg = TrainConfig(lr=1e-3, warmup_epochs=0, max_epochs=10)
     state = create_train_state(model, cfg, warmup_cosine_schedule(
@@ -214,10 +240,23 @@ def test_train_step_matches_jax(step_case, dtype):
             np.testing.assert_allclose(got / scale,
                                        want["grads"][name] / scale,
                                        atol=1e-4, err_msg=name)
-        # one AdamW step at lr 1e-3 moves each weight by about 1e-3
+        # one AdamW step at lr 1e-3 moves each weight by about 1e-3.  A
+        # first Adam step moves a weight by lr · g / (|g| + eps): where g is
+        # within the gradients' tolerance of zero but not zero (0 < |g| <
+        # 1e-4 of its leaf's largest) the two frameworks' steps may differ
+        # in sign.
+        # Every other element must agree; of those, the ones that do not
+        # are counted
+        left_out = 0
         for name, p in model.state_dict().items():
-            np.testing.assert_allclose(p.numpy(), want["params"][name],
-                                       atol=2e-5, err_msg=name)
+            got, ref_p = p.numpy(), want["params"][name]
+            g = np.abs(want["grads"][name])
+            noise = (g > 0) & (g < 1e-4 * g.max())
+            np.testing.assert_allclose(got[~noise], ref_p[~noise], atol=2e-5,
+                                       err_msg=name)
+            left_out += int((~np.isclose(got[noise], ref_p[noise], rtol=1e-7,
+                                         atol=2e-5)).sum())
+        assert left_out <= LEFT_OUT[preset], left_out
         return
     # bf16 rounds activations at other places in the two frameworks, so
     # the bf16 gradients of the two differ by as much as each differs from
@@ -233,7 +272,7 @@ def test_train_step_matches_jax(step_case, dtype):
                  "encoder.pitch_embedding.weight",
                  "encoder.encoder.stage0.norm1.weight",
                  "decoder.proj_norm.weight", "decoder.block0_norm0.bias",
-                 "decoder.block1_conv1_dw.weight",
+                 f"decoder.block{model.cfg.n_blocks - 1}_conv1_dw.weight",
                  "decoder.block0_conv0_pw.weight"):
         g = torch.from_numpy(grads[name])
         assert not torch.equal(g, g.bfloat16().float()), name
