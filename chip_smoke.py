@@ -5,7 +5,7 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device  - a CUDA card must be present; prints nvidia-smi's name and
-               power limit;
+               power limit; TF32 is switched off for cuBLAS and cuDNN;
   2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel;
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
@@ -19,54 +19,65 @@ Phases (each prints its lines; any failure exits non-zero):
                frames, so the kernels engage) and three short ones, with
                launch counts, a check of every waveform, and the long
                request held against the plain vocoder route;
-  6. K3      - layer_norm_fused forward and backward at the training shape
-               (131,072 rows of C, bf16) against the plain version, with
+  6. f32     - phases 3-5 again for a float32 synthesizer (the same model,
+               folded in float32: --precision f32), through the kernels'
+               float32 variants, with one long and one short request;
+  7. K3      - layer_norm_fused forward and backward at the training shape
+               (131,072 rows of C) against the plain version, with
                F.layer_norm and its autograd backward as the yardstick,
-               for C = 128 (tiny) and C = 256 (small, base);
-  7. K4      - decoder_block_fused forward and backward at (128, 1024, C)
-               bf16 with about 1/6 of the frames masked, the same way, for
-               C = 128 (tiny) and C = 256 (small, base);
-  8. K5      - int8_window_matmul, bf16 input with tile quantisation and
+               for C = 128 (tiny) and C = 256 (small, base), in bf16 and
+               in float32;
+  8. K4      - decoder_block_fused forward and backward at (128, 1024, C)
+               with about 1/6 of the frames masked, the same way, for
+               C = 128 (tiny) and C = 256 (small, base), in bf16 and in
+               float32;
+  9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
                torch._int_mm on the materialised window as the yardstick;
                then the probe entry point (probes/int8_window.py) once,
                K5's main path, with its launches counted;
-  9. train   - the acoustic Trainer (batch 128, 128 phonemes, 1,024
-               frames, bf16, random init from seed 0) on a synthetic
+ 10. train   - the acoustic Trainer (batch 128, 128 phonemes, 1,024
+               frames, random init from seed 0) on a synthetic
                preprocessed corpus of 20 batches written from a seed, for
                the tiny preset (C = 128) and then the small preset
-               (C = 256): two epochs (40 steps) each, with the launches of
-               K3 and K4 counted per step (tiny 3 + 3 and 4 + 4, small
-               4 + 4 and 6 + 6), the median step time inside each epoch
-               (the first reads the corpus from disk, the second from the
-               loader's memory cache) and the cost of the epoch boundary,
-               finite losses, the loss falling over repeated steps on one
-               batch, and the kernel route's loss and gradients held
-               against the plain route's on one batch.
-The kernel table goes on a JSON line before the last (K1/K2 times per
-utterance at 2,048 frames, K3/K4 times per train step: the per-launch
-time × the launches of a step, tiny preset for C = 128 and small for
-C = 256; K5 per call at the probe's shape); the last line is
-{"ok": true, "device": {...}}.  With --profile, the slice and train phases
-also trace a long request and a train step with torch.profiler and print
-where the device time goes and the device's idle share.
+               (C = 256), in bf16 and then in float32: two epochs (40
+               steps) each, with the launches of the dtype's K3 and K4
+               variants counted per step (tiny 3 + 3 and 4 + 4, small
+               4 + 4 and 6 + 6; no other variant may run), the median step
+               time inside each epoch (the first reads the corpus from
+               disk, the second from the loader's memory cache) and the
+               cost of the epoch boundary, finite losses, the loss falling
+               over repeated steps on one batch, and the kernel route's
+               loss and gradients held against the plain route's on one
+               batch.
+The kernel table goes on a JSON line before the last, 22 rows, each with
+its dtype (K1/K2 times per utterance at 2,048 frames, K3/K4 times per
+train step: the per-launch time × the launches of a step, tiny preset for
+C = 128 and small for C = 256; K5 per call at the probe's shape); the last
+line is {"ok": true, "device": {...}}.  With --profile, the slice and
+train phases also trace a long request and a train step with
+torch.profiler and print where the device time goes and the device's
+idle share.
 
-Tolerances: both kernels multiply in bf16 with float32 accumulation (the
-TPU's MXU arithmetic) while the plain versions multiply in float32, so
-each kernel is held to its plain version at SNR >= 35 dB (the bar the JAX
+Tolerances: the bf16 kernels multiply in bf16 with float32 accumulation
+(the TPU's MXU arithmetic) while the plain versions multiply in float32,
+so each is held to its plain version at SNR >= 35 dB (the bar the JAX
 package's own folded-vocoder test sets), and rows at or beyond `valid`
-must be exactly zero.  The end-to-end waveform of the kernel route is held
-to the plain route's (bf16 operands, float32 products) at SNR >= 30 dB.
-K3 and K4 are held to their plain versions (which follow the TPU kernels
-op for op in bf16) at SNR >= 35 dB on every output: y, dx and each weight
-gradient.  K5's int32 sums are exact in the kernel and its plain version
-alike, so the two are held to 1e-6 of the output's largest magnitude (the
-one float32 multiply by the scale).  A train step of the kernel route is
-held to the plain route's
-at loss relative difference <= 1e-2 and cosine >= 0.99 for every
-parameter gradient that is not zero: both run bf16 activations that round
-at other places.
+must be exactly zero.  The end-to-end waveform of the bf16 kernel route is
+held to the plain route's (bf16 operands, float32 products) at SNR >= 30
+dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
+TPU kernels op for op in bf16) at SNR >= 35 dB on every output: y, dx and
+each weight gradient.  The float32 variants compute in float32 throughout,
+as their plain versions do, in another summation order: each output is
+held at SNR >= 90 dB (a TF32 or bf16 product would land below it), the
+float32 waveform at 80 dB.  K5's int32 sums are exact in the kernel and
+its plain version alike, so the two are held to 1e-6 of the output's
+largest magnitude (the one float32 multiply by the scale).  A bf16 train
+step of the kernel route is held to the plain route's at loss relative
+difference <= 1e-2 and cosine >= 0.99 for every parameter gradient that is
+not zero (both run bf16 activations that round at other places); a
+float32 step at 1e-4 and 0.999.
 """
 
 import argparse
@@ -89,6 +100,10 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FRAMES = 2048
 KERNEL_SNR_DB = 35.0
 E2E_SNR_DB = 30.0
+# the float32 variants: float32 sums in another order land at 110 dB or
+# more; TF32 or bf16 products would land near the bf16 figures (54-95 dB)
+F32_KERNEL_SNR_DB = 90.0
+F32_E2E_SNR_DB = 80.0
 K5_REL_ERR = 1e-6
 # the training shape: train.py's defaults
 TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
@@ -96,6 +111,7 @@ TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
 # times the steps inside each apart from the one across the boundary
 EPOCH_STEPS, TRAIN_EPOCHS, WARMUP_STEPS = 20, 2, 3
 ROUTE_LOSS_RTOL, ROUTE_GRAD_COS = 1e-2, 0.99
+F32_ROUTE_LOSS_RTOL, F32_ROUTE_GRAD_COS = 1e-4, 0.999
 LONG_TEXT = (
     "The polyphase folded vocoder turns every convolution of the waveform "
     "generator into a dense matrix product over frame rate activations. "
@@ -109,6 +125,28 @@ LONG_TEXT = (
     "speculative buffer large enough for both kernels to engage.")
 SHORT_TEXTS = ("Hello there.", "How are you today?",
                "The quick brown fox jumps over the lazy dog.")
+
+
+def snr_bar(dtype) -> float:
+    return F32_KERNEL_SNR_DB if dtype == torch.float32 else KERNEL_SNR_DB
+
+
+def dname(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def f32_suffix(dtype, sep: str = " ") -> str:
+    """What float32 phases append to their tags (sep " ") and launch keys
+    (sep "_"); bf16 ones keep the names they had."""
+    return sep + "f32" if dtype == torch.float32 else ""
+
+
+def product_bound(flops: float, nbytes: float, dtype):
+    """bound() of a matrix product: bf16 on the tensor cores, float32 on
+    the CUDA cores."""
+    if dtype == torch.float32:
+        return bound(0.0, nbytes, f32_flops=flops)
+    return bound(flops, nbytes)
 
 
 def fail(msg: str):
@@ -155,11 +193,16 @@ def phase_build(card: str):
 
 
 def phase_k1(synth, card: str):
+    """K1 on the synthesizer's folded weights (its serving dtype picks the
+    kernel's variant), with torch.matmul on the materialised window in
+    that dtype as the yardstick."""
     from efficientspeech_tpu_torch.models.hifigan_folded import (
         kernel_op_shapes)
     from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
 
     dev = synth.device
+    dt = synth.dtype
+    tag, bar = "K1" + f32_suffix(dt), snr_bar(dt)
     gen = torch.Generator(device="cpu").manual_seed(1)
     ops, _ = kernel_op_shapes(synth.hifigan_cfg, FRAMES)
     cases = [(key, t, d_in, d_out, w, key) for key, t, d_in, d_out, w in ops]
@@ -187,23 +230,24 @@ def phase_k1(synth, card: str):
         snr = snr_db(want[:valid_rows], got[:valid_rows])
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all():
-            fail(f"K1 {name}: non-finite output")
+            fail(f"{tag} {name}: non-finite output")
         if got[valid_rows:].any():
-            fail(f"K1 {name}: rows at or beyond valid are not zero")
-        if snr < KERNEL_SNR_DB:
-            fail(f"K1 {name}: SNR {snr:.1f} dB < {KERNEL_SNR_DB} dB")
-        win = fm.window(fm.leaky(x, kw["lrelu_slope"]), w).to(torch.bfloat16)
+            fail(f"{tag} {name}: rows at or beyond valid are not zero")
+        if snr < bar:
+            fail(f"{tag} {name}: SNR {snr:.1f} dB < {bar} dB")
+        win = fm.window(fm.leaky(x, kw["lrelu_slope"]), w).to(dt)
         ms, host_ms = time_ms(
             lambda: fm.folded_matmul(x, W, b, w, valid, **kw), 50)
         plain_ms, _ = time_ms(
             lambda: fm.folded_matmul_plain(x, W, b, w, valid, **kw), 10)
         lib_ms, _ = time_ms(lambda: torch.matmul(win, W), 50)
         flops = 2.0 * valid_rows * (2 * w + 1) * d_in * d_out
-        nbytes = (x.numel() * 4 + W.numel() * 2 + b.numel() * 4
+        nbytes = (x.numel() * 4 + W.numel() * W.element_size()
+                  + b.numel() * 4
                   + t * d_out * 4 * (1 + (res is not None) + (acc is not None)))
-        b_ms, by = bound(flops, nbytes)
-        print(f"[K1] {name}: T {t} x {d_in} -> {d_out}, w {w} | SNR "
-              f"{snr:.1f} dB (tol >= {KERNEL_SNR_DB}) max_abs_err {err:.3g} "
+        b_ms, by = product_bound(flops, nbytes, dt)
+        print(f"[{tag}] {name}: T {t} x {d_in} -> {d_out}, w {w} | SNR "
+              f"{snr:.1f} dB (tol >= {bar}) max_abs_err {err:.3g} "
               f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({by}) | wrapper host_ms "
               f"{host_ms:.4f} | {card}")
@@ -226,6 +270,8 @@ def phase_k2(synth, card: str):
     from efficientspeech_tpu_torch.ops.kernels import mrf_block
 
     dev = synth.device
+    dt = synth.dtype
+    tag, bar = "K2" + f32_suffix(dt), snr_bar(dt)
     nk = len(synth.hifigan_cfg.resblock_kernel_sizes)
     gen = torch.Generator(device="cpu").manual_seed(2)
     _, stages = kernel_op_shapes(synth.hifigan_cfg, FRAMES)
@@ -243,22 +289,24 @@ def phase_k2(synth, card: str):
         snr = snr_db(want[:valid_rows], got[:valid_rows])
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all():
-            fail(f"K2 stage {stage}: non-finite output")
+            fail(f"{tag} stage {stage}: non-finite output")
         if got[valid_rows:].any():
-            fail(f"K2 stage {stage}: rows at or beyond valid are not zero")
-        if snr < KERNEL_SNR_DB:
-            fail(f"K2 stage {stage}: SNR {snr:.1f} dB < {KERNEL_SNR_DB} dB")
+            fail(f"{tag} stage {stage}: rows at or beyond valid are not zero")
+        if snr < bar:
+            fail(f"{tag} stage {stage}: SNR {snr:.1f} dB < {bar} dB")
         ms, host_ms = time_ms(lambda: mrf_block.mrf_fused(
             x, chains, W_all, b_all, H, valid, nk), 20)
         plain_ms, _ = time_ms(lambda: mrf_block.mrf_fused_plain(
             x, chains, W_all, b_all, H, valid, nk), 3)
         flops = sum(2.0 * valid_rows * n_win * 128 * 128
                     for chain in chains for _, n_win, _, _ in chain)
-        nbytes = (2 * t * 128 * 4 + W_all.numel() * 2 + b_all.numel() * 4)
-        b_ms, by = bound(flops, nbytes)
-        print(f"[K2] stage {stage}: T {t} x 128, halo {H}, tile "
-              f"{mrf_block.tile_rows(H)} | {flops / 1e9:.1f} GFLOP | SNR "
-              f"{snr:.1f} dB (tol >= {KERNEL_SNR_DB}) max_abs_err {err:.3g} "
+        nbytes = (2 * t * 128 * 4 + W_all.numel() * W_all.element_size()
+                  + b_all.numel() * 4)
+        b_ms, by = product_bound(flops, nbytes, dt)
+        max_rows = mrf_block._lib().mrf_max_rows(int(dt == torch.float32))
+        print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, tile "
+              f"{mrf_block.tile_rows(H, max_rows)} | {flops / 1e9:.1f} GFLOP "
+              f"| SNR {snr:.1f} dB (tol >= {bar}) max_abs_err {err:.3g} "
               f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
               f"bound_ms {b_ms:.4f} ({by}) | achieved "
               f"{flops / ms / 1e9:.1f} TFLOP/s | wrapper host_ms "
@@ -273,12 +321,18 @@ def phase_k2(synth, card: str):
                 else "bytes")
 
 
-def phase_slice(synth, card: str):
+def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
+    """The serving main path: ``texts`` (the long request first) through
+    ``synth.tts``, launch counts of the serving dtype's kernel variants
+    from 0 just before and read just after (no other variant may run);
+    then the long request against the plain vocoder route."""
     from efficientspeech_tpu_torch import infer
     from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
     from efficientspeech_tpu_torch.ops.kernels import mrf_block
 
-    texts = (LONG_TEXT,) + SHORT_TEXTS
+    dt = synth.dtype
+    tag0 = "slice" + f32_suffix(dt)
+    e2e_bar = E2E_SNR_DB if dt == torch.bfloat16 else F32_E2E_SNR_DB
     seqs = [synth.phonemize(t) for t in texts]
     long_frames = synth._spec_frames(len(seqs[0]),
                                      synth._pad_to_bucket(seqs[0])[2])
@@ -291,20 +345,26 @@ def phase_slice(synth, card: str):
     synth._obs_recent.clear()
 
     # the main path: launch counts from 0, read right after
-    fm.launches = mrf_block.launches = 0
+    for d in (fm.launches, mrf_block.launches):
+        d.update(dict.fromkeys(d, 0))
     results = []
     for text in texts:
         torch.cuda.synchronize()
-        before = (fm.launches, mrf_block.launches)
+        before = (fm.launches[dt], mrf_block.launches[dt])
         wav, info = synth.tts(text)
-        after = (fm.launches, mrf_block.launches)
+        after = (fm.launches[dt], mrf_block.launches[dt])
         results.append((wav, info, after[0] - before[0],
                         after[1] - before[1]))
-    launches = {"folded_matmul": fm.launches, "mrf_fused": mrf_block.launches}
+    launches = {"folded_matmul" + f32_suffix(dt, "_"): fm.launches[dt],
+                "mrf_fused" + f32_suffix(dt, "_"): mrf_block.launches[dt]}
+    other = sum(n for d in (fm.launches, mrf_block.launches)
+                for k, n in d.items() if k != dt)
+    if other:
+        fail(f"{tag0}: {other} launches of another dtype's kernel variant")
 
     for i, (wav, info, k1, k2) in enumerate(results):
         tag = "long" if i == 0 else f"short{i}"
-        print(f"[slice] {tag}: phonemes {info['phoneme_len']} mel_len "
+        print(f"[{tag0}] {tag}: phonemes {info['phoneme_len']} mel_len "
               f"{info['mel_len']} | {info['total_secs'] * 1e3:.1f} ms RTF "
               f"{info['rtf']:.1f} | launches K1 {k1} K2 {k2} | {card}")
         if info["mel_len"] <= 0:
@@ -325,10 +385,10 @@ def phase_slice(synth, card: str):
     if mel_k != mel_p:
         fail(f"kernel route mel_len {mel_k} != plain route {mel_p}")
     snr = snr_db(torch.from_numpy(wav_p), torch.from_numpy(wav_k))
-    print(f"[slice] long request, kernel route vs plain route: SNR "
-          f"{snr:.1f} dB (tol >= {E2E_SNR_DB}) | {card}")
-    if snr < E2E_SNR_DB:
-        fail(f"end-to-end SNR {snr:.1f} dB < {E2E_SNR_DB} dB")
+    print(f"[{tag0}] long request, kernel route vs plain route: SNR "
+          f"{snr:.1f} dB (tol >= {e2e_bar}) | {card}")
+    if snr < e2e_bar:
+        fail(f"{tag0}: end-to-end SNR {snr:.1f} dB < {e2e_bar} dB")
     return launches
 
 
@@ -370,12 +430,13 @@ def trace(fn, label: str, card: str):
 def phase_profile(synth, card: str):
     """Trace one long request."""
     seq = synth.phonemize(LONG_TEXT)
-    trace(lambda: synth.synthesize_ids(seq), "long request", card)
+    trace(lambda: synth.synthesize_ids(seq),
+          f"long request {dname(synth.dtype)}", card)
 
 
-def _snr_check(tag: str, pairs, card: str):
+def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB):
     """Fail unless every (name, kernel, plain) output is finite and holds
-    its plain version at KERNEL_SNR_DB; returns the worst max-abs error."""
+    its plain version at ``bar`` dB; returns the worst max-abs error."""
     worst = 0.0
     for name, got, want in pairs:
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -386,10 +447,10 @@ def _snr_check(tag: str, pairs, card: str):
         snr = snr_db(want, got)
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
-        print(f"[{tag}] {name}: SNR {snr:.1f} dB (tol >= {KERNEL_SNR_DB}) "
+        print(f"[{tag}] {name}: SNR {snr:.1f} dB (tol >= {bar}) "
               f"max_abs_err {err:.3g} | {card}")
-        if snr < KERNEL_SNR_DB:
-            fail(f"{tag} {name}: SNR {snr:.1f} dB < {KERNEL_SNR_DB} dB")
+        if snr < bar:
+            fail(f"{tag} {name}: SNR {snr:.1f} dB < {bar} dB")
     return worst
 
 
@@ -412,8 +473,8 @@ def _row(tag: str, fn, plain, library, flops, f32_flops, nbytes,
                 bound_ms=b_ms * per_step, bound_by=by)
 
 
-def phase_k3(card: str, c: int, per_step: int):
-    """K3 at the training shape of a decoder of width ``c``: its
+def phase_k3(card: str, c: int, per_step: int, dt=torch.bfloat16):
+    """K3 at the training shape of a decoder of width ``c`` in ``dt``: its
     frame-rate LayerNorms over 128 × 1,024 frames; the times scale to
     ``per_step`` launches a train step."""
     import torch.nn.functional as F
@@ -422,23 +483,23 @@ def phase_k3(card: str, c: int, per_step: int):
 
     dev = torch.device("cuda")
     rows = TRAIN_BATCH * TRAIN_FRAMES
-    tag = f"K3 C={c}"
+    tag = f"K3 C={c}" + f32_suffix(dt)
+    bar, size = snr_bar(dt), torch.finfo(dt).bits // 8
     gen = torch.Generator(device="cpu").manual_seed(3)
-    x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
+    x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to(dev, dt)
     s = (torch.randn(c, generator=gen) * 0.5 + 1).to(dev)
     b = (torch.randn(c, generator=gen) * 0.1).to(dev)
-    dy = torch.randn(rows, c, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(rows, c, generator=gen).to(dev, dt)
     err_f = _snr_check(f"{tag} fwd", [("y", k3.layer_norm_fwd(x, s, b),
                                        k3.layer_norm_fwd_plain(x, s, b))],
-                       card)
+                       card, bar)
     err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "dscale", "dbias"), k3.layer_norm_bwd(x, s, dy),
-        k3.layer_norm_bwd_plain(x, s, dy)), card)
+        k3.layer_norm_bwd_plain(x, s, dy)), card, bar)
     torch.cuda.synchronize()
 
     xs = x.clone().requires_grad_()
-    sb, bb = s.to(torch.bfloat16).requires_grad_(), \
-        b.to(torch.bfloat16).requires_grad_()
+    sb, bb = s.to(dt).requires_grad_(), b.to(dt).requires_grad_()
     y_lib = F.layer_norm(xs, (c,), sb, bb)
     elems = rows * c
     # float32 FLOP per element: forward ~8 (two sums, centre, square,
@@ -446,44 +507,47 @@ def phase_k3(card: str, c: int, per_step: int):
     fwd = _row(f"{tag} fwd", lambda: k3.layer_norm_fwd(x, s, b),
                lambda: k3.layer_norm_fwd_plain(x, s, b),
                lambda: F.layer_norm(x, (c,), sb.detach(), bb.detach()),
-               0.0, 8.0 * elems, 2 * elems * 2 + 2 * c * 4, per_step, card)
+               0.0, 8.0 * elems, 2 * elems * size + 2 * c * 4, per_step,
+               card)
     bwd = _row(f"{tag} bwd", lambda: k3.layer_norm_bwd(x, s, dy),
                lambda: k3.layer_norm_bwd_plain(x, s, dy),
                lambda: torch.autograd.grad(y_lib, (xs, sb, bb), dy,
                                            retain_graph=True),
-               0.0, 14.0 * elems, 3 * elems * 2 + 3 * c * 4, per_step,
+               0.0, 14.0 * elems, 3 * elems * size + 3 * c * 4, per_step,
                card)
     return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
 
 
-def phase_k4(card: str, c: int, per_step: int):
-    """K4 at the training shape of a decoder of width ``c``, with
-    per-utterance padded tails that mask about 1/6 of the frames; the
+def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
+    """K4 at the training shape of a decoder of width ``c`` in ``dt``,
+    with per-utterance padded tails that mask about 1/6 of the frames; the
     times scale to ``per_step`` launches a train step."""
     from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 
     dev = torch.device("cuda")
     b, m, k = TRAIN_BATCH, TRAIN_FRAMES, 5
-    tag = f"K4 C={c}"
+    tag = f"K4 C={c}" + f32_suffix(dt)
+    bar, size = snr_bar(dt), torch.finfo(dt).bits // 8
     gen = torch.Generator(device="cpu").manual_seed(4)
     f = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd
                                 ).to(dev)
-    x = f(b, m, c).to(torch.bfloat16)
+    x = f(b, m, c).to(dt)
     lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
     keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
     weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1),
                f(c, c, 1, sd=0.09 * (128 / c) ** 0.5), f(c, sd=0.1),
                1 + f(c, sd=0.2), f(c, sd=0.1)]
-    dy = f(b, m, c).to(torch.bfloat16)
+    dy = f(b, m, c).to(dt)
     print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
     err_f = _snr_check(f"{tag} fwd", [(
         "y", k4.decoder_block_fwd(x, keep, *weights),
-        k4.decoder_block_fwd_plain(x, keep, *weights))], card)
+        k4.decoder_block_fwd_plain(x, keep, *weights))], card, bar)
     grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
     err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "d_dw_w", "d_dw_b", "d_pw_w", "d_pw_b", "d_ln_s", "d_ln_b"),
-        grads, k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)), card)
+        grads, k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)), card,
+        bar)
     torch.cuda.synchronize()
     if grads[0][keep == 0].any():
         fail(f"{tag} bwd: dx is not zero on masked frames")
@@ -491,19 +555,21 @@ def phase_k4(card: str, c: int, per_step: int):
     elems = b * m * c
     w_bytes = sum(w.numel() for w in weights) * 4
     mm = 2.0 * b * m * c * c  # one C x C pointwise product
-    # float32 FLOP per element outside the tensor cores: forward ~22 (mask,
+    # the products run on the tensor cores in bf16 and on the CUDA cores in
+    # float32; float32 FLOP per element outside them: forward ~22 (mask,
     # 5 taps, biases, tanh, LayerNorm), backward ~60 (the recomputed
     # forward, the LayerNorm and tanh gradients, 5-tap dx and tap sums)
+    tc = 1.0 if dt == torch.bfloat16 else 0.0
     fwd = _row(f"{tag} fwd",
                lambda: k4.decoder_block_fwd(x, keep, *weights),
                lambda: k4.decoder_block_fwd_plain(x, keep, *weights), None,
-               mm, 22.0 * elems, 2 * elems * 2 + b * m * 4 + w_bytes,
-               per_step, card)
+               tc * mm, 22.0 * elems + (1 - tc) * mm,
+               2 * elems * size + b * m * 4 + w_bytes, per_step, card)
     bwd = _row(f"{tag} bwd",
                lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy),
                lambda: k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy),
-               None, 3 * mm, 60.0 * elems,
-               3 * elems * 2 + b * m * 4 + 2 * w_bytes, per_step, card)
+               None, tc * 3 * mm, 60.0 * elems + (1 - tc) * 3 * mm,
+               3 * elems * size + b * m * 4 + 2 * w_bytes, per_step, card)
     return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
 
 
@@ -605,12 +671,13 @@ def write_corpus(root: str, n_train: int = 256, n_val: int = 16,
 
 
 def phase_train(card: str, preset: str, data: str, out: str,
-                profile: bool):
-    """The training main path of one preset: Trainer.fit for TRAIN_EPOCHS
-    epochs of EPOCH_STEPS steps on the card over the corpus in ``data``,
-    kernel launches counted from 0 just before and read just after.  Then
-    the loss on one repeated batch, and the kernel route against the plain
-    route on one batch."""
+                profile: bool, dt=torch.bfloat16):
+    """The training main path of one preset in ``dt``: Trainer.fit for
+    TRAIN_EPOCHS epochs of EPOCH_STEPS steps on the card over the corpus in
+    ``data``, kernel launches counted from 0 just before and read just
+    after (only the ``dt`` variants may run).  Then the loss on one
+    repeated batch, and the kernel route against the plain route on one
+    batch."""
     from efficientspeech_tpu_torch.config import (
         ModelConfig, PreprocessConfig, TrainConfig)
     from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
@@ -620,7 +687,11 @@ def phase_train(card: str, preset: str, data: str, out: str,
         Trainer, batch_to_device)
     from efficientspeech_tpu_torch.training.step import forward_losses
 
-    tag = f"train {preset}"
+    tag = f"train {preset}" + f32_suffix(dt)
+    sfx = f32_suffix(dt, "_")
+    loss_rtol, grad_cos = ((F32_ROUTE_LOSS_RTOL, F32_ROUTE_GRAD_COS)
+                           if dt == torch.float32
+                           else (ROUTE_LOSS_RTOL, ROUTE_GRAD_COS))
     t0 = time.perf_counter()
     preprocess_cfg = PreprocessConfig(preprocessed_path=data)
     stats = preprocess_cfg.load_stats()
@@ -632,8 +703,7 @@ def phase_train(card: str, preset: str, data: str, out: str,
         batch_size=TRAIN_BATCH, warmup_epochs=0, seed=0,
         checkpoint_dir=os.path.join(out, "ckpt"),
         log_dir=os.path.join(out, "logs"))
-    trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
-                      dtype=torch.bfloat16)
+    trainer = Trainer(model_cfg, train_cfg, preprocess_cfg, dtype=dt)
     dec = trainer.model.decoder
     width = dec.proj_norm.weight.shape[0]
     nb, bd = model_cfg.n_blocks, model_cfg.block_depth
@@ -641,7 +711,7 @@ def phase_train(card: str, preset: str, data: str, out: str,
     expect = (1 + nb, 1 + nb, nb * bd, nb * bd)
     counters = (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
                 k4.launches_bwd)
-    counts = lambda: tuple(d[width] for d in counters)
+    counts = lambda: tuple(d[width, dt] for d in counters)
     print(f"[{tag}] trainer in {time.perf_counter() - t0:.1f} s: "
           f"{len(trainer.train_ds)} train + {len(trainer.val_ds)} val "
           f"utterances, {trainer.steps_per_epoch} steps per epoch, decoder "
@@ -668,9 +738,10 @@ def phase_train(card: str, preset: str, data: str, out: str,
     stamps.append(time.perf_counter())
     per_step.append(counts())
     last = trainer.fit(max_steps=total, on_step=on_step)
-    launches = dict(zip((f"k3_fwd_{width}", f"k3_bwd_{width}",
-                         f"k4_fwd_{width}", f"k4_bwd_{width}"), counts()))
-    other = sum(d[c] for d in counters for c in d if c != width)
+    launches = dict(zip((f"k3_fwd_{width}{sfx}", f"k3_bwd_{width}{sfx}",
+                         f"k4_fwd_{width}{sfx}", f"k4_bwd_{width}{sfx}"),
+                        counts()))
+    other = sum(d[v] for d in counters for v in d if v != (width, dt))
     if last != total:
         fail(f"fit stopped at step {last}, not {total}")
     # step_ms[i] ends at step i + 1; the gap of step EPOCH_STEPS + 1 also
@@ -697,13 +768,14 @@ def phase_train(card: str, preset: str, data: str, out: str,
     print(f"[{tag}] step {EPOCH_STEPS + 1}, across the epoch boundary: "
           f"{boundary:.2f} ms, {boundary - inside[1]:.2f} ms over the "
           f"second epoch's median | {card}")
-    print(f"[{tag}] launches per step (K3 and K4 at C={width}, fwd, bwd, "
-          f"fwd, bwd): {sorted(step_launches)}; over the run "
-          f"{launches} | {card}")
+    print(f"[{tag}] launches per step (K3 and K4 at C={width} "
+          f"{dname(dt)}, fwd, bwd, fwd, bwd): {sorted(step_launches)}; over "
+          f"the run {launches} | {card}")
     if step_launches != {expect} or other:
         fail(f"a train step launched {sorted(step_launches)} (and {other} "
-             f"K3 or K4 launches of another width); expected K3 {expect[0]} + "
-             f"{expect[1]} and K4 C={width} {expect[2]} + {expect[3]}")
+             f"K3 or K4 launches of another width or dtype); expected K3 "
+             f"{expect[0]} + {expect[1]} and K4 C={width} {expect[2]} + "
+             f"{expect[3]}")
     logged = [json.loads(line) for line in open(
         os.path.join(train_cfg.log_dir, "metrics.jsonl"))]
     losses = [r["loss"] for r in logged if "loss" in r]
@@ -727,15 +799,21 @@ def phase_train(card: str, preset: str, data: str, out: str,
     # the kernel route against the plain route on one batch
     plain = Phoneme2Mel(trainer.model_cfg).to(trainer.device)
     plain.load_state_dict(trainer.model.state_dict())
-    results = []
+    results, route_launches = [], []
     for model in (trainer.model, plain):
         for p in model.parameters():
             p.grad = None
-        loss = forward_losses(model, batch, torch.bfloat16)["loss"]
+        before = counts()
+        loss = forward_losses(model, batch, dt)["loss"]
         loss.backward()
+        route_launches.append(tuple(
+            n - m for m, n in zip(before, counts())))
         results.append((float(loss.detach()), {
             n: p.grad for n, p in model.named_parameters()
             if p.grad is not None}))
+    if route_launches != [expect, (0, 0, 0, 0)]:
+        fail(f"the route comparison launched {route_launches} (kernel, "
+             f"plain route); expected {[expect, (0, 0, 0, 0)]}")
     (loss_k, grads_k), (loss_p, grads_p) = results
     rel = abs(loss_k - loss_p) / abs(loss_p)
     cos = {}
@@ -747,16 +825,17 @@ def phase_train(card: str, preset: str, data: str, out: str,
         cos[name] = float(gk @ gp / (gk.norm() * gp.norm()))
     worst = min(cos, key=cos.get)
     print(f"[{tag}] kernel vs plain route, one batch: loss {loss_k:.5f} vs "
-          f"{loss_p:.5f} (rel {rel:.2e}, tol <= {ROUTE_LOSS_RTOL}); "
-          f"gradient cosine min {cos[worst]:.5f} at {worst} over "
-          f"{len(cos)} leaves (tol >= {ROUTE_GRAD_COS}) | {card}")
-    if rel > ROUTE_LOSS_RTOL or cos[worst] < ROUTE_GRAD_COS:
+          f"{loss_p:.5f} (rel {rel:.2e}, tol <= {loss_rtol}); "
+          f"gradient cosine min {cos[worst]:.7f} (1 - cos "
+          f"{1 - cos[worst]:.2e}) at {worst} over {len(cos)} leaves (tol "
+          f">= {grad_cos}) | {card}")
+    if rel > loss_rtol or cos[worst] < grad_cos:
         fail("the kernel route's train step does not hold the plain "
              "route's")
 
     if profile:
         trace(lambda: trainer.train_step(trainer.state, batch),
-              f"{preset} train step", card)
+              f"{preset} {dname(dt)} train step", card)
     trainer.logger.jsonl.close()
     return launches
 
@@ -780,9 +859,26 @@ def main():
     print(f"[setup] synthesizer on {synth.device} in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
 
-    k1 = phase_k1(synth, card)
-    k2 = phase_k2(synth, card)
+    k1 = {"bf16": phase_k1(synth, card)}
+    k2 = {"bf16": phase_k2(synth, card)}
     launches = phase_slice(synth, card)
+    if args.profile:
+        phase_profile(synth, card)
+    del synth
+    torch.cuda.empty_cache()
+
+    # serving at --precision f32: the same model folded in float32, through
+    # the kernels' float32 variants
+    t0 = time.perf_counter()
+    synth = build_synthesizer(preset="tiny", seed=0, bench_duration_bias=6.0,
+                              dtype=torch.float32,
+                              vocoder_mode="folded_kernel")
+    print(f"[setup] float32 synthesizer on {synth.device} in "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    k1["f32"] = phase_k1(synth, card)
+    k2["f32"] = phase_k2(synth, card)
+    launches.update(phase_slice(synth, card,
+                                texts=(LONG_TEXT, SHORT_TEXTS[0])))
     if args.profile:
         phase_profile(synth, card)
     del synth
@@ -790,10 +886,12 @@ def main():
 
     # launches a train step: K3 1 + blocks (tiny 3, small 4), K4 blocks x
     # depth (tiny 2 x 2, small 3 x 2)
-    k3 = {c: phase_k3(card, c, per_step)
-          for c, per_step in ((128, 3), (256, 4))}
-    k4 = {c: phase_k4(card, c, per_step)
-          for c, per_step in ((128, 4), (256, 6))}
+    k3, k4 = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        for c, per_step in ((128, 3), (256, 4)):
+            k3[c, dname(dt)] = phase_k3(card, c, per_step, dt)
+        for c, per_step in ((128, 4), (256, 6)):
+            k4[c, dname(dt)] = phase_k4(card, c, per_step, dt)
     k5, k5_launches = phase_k5(card)
     launches.update(k5_launches)
     with tempfile.TemporaryDirectory() as root:
@@ -802,50 +900,49 @@ def main():
         write_corpus(data, n_train=EPOCH_STEPS * TRAIN_BATCH)
         print(f"[train] synthetic corpus of {EPOCH_STEPS * TRAIN_BATCH} + 16 "
               f"utterances in {time.perf_counter() - t0:.1f} s | {card}")
-        train = {preset: phase_train(card, preset, data,
-                                     os.path.join(root, preset),
-                                     args.profile)
-                 for preset in ("tiny", "small")}
-    for preset_launches in train.values():
-        launches.update(preset_launches)
+        for dt in (torch.bfloat16, torch.float32):
+            for preset in ("tiny", "small"):
+                launches.update(phase_train(
+                    card, preset, data,
+                    os.path.join(root, f"{preset}_{dname(dt)}"),
+                    args.profile, dt))
 
     csrc = "efficientspeech_tpu_torch/csrc/"
     pallas = "efficientspeech_tpu/ops/pallas/"
     probe = "benchmarks/int8_pallas_probe.py:27"
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        dn, sfx, key = dname(dt), f32_suffix(dt), f32_suffix(dt, "_")
+        rows += [
+            ("folded_matmul" + sfx, "folded_matmul" + key, dn,
+             csrc + "folded_matmul.cu", pallas + "folded_matmul.py:231",
+             k1[dn]),
+            ("mrf_fused" + sfx, "mrf_fused" + key, dn, csrc + "mrf_block.cu",
+             pallas + "mrf_block.py:176", k2[dn])]
+        for kn, fn, stats, lines in (
+                ("k3", "layer_norm", k3, (67, 90)),
+                ("k4", "decoder_block", k4, (198, 237))):
+            for c in (128, 256):
+                wsfx = "" if c == 128 else f" C={c}"
+                for i, direction in enumerate(("fwd", "bwd")):
+                    rows.append((f"{fn}_fused {direction}{wsfx}{sfx}",
+                                 f"{kn}_{direction}_{c}{key}", dn,
+                                 csrc + f"{fn}.cu",
+                                 pallas + f"{fn}.py:{lines[i]}",
+                                 stats[c, dn][i]))
+        if dn == "bf16":
+            rows += [
+                ("int8_window_matmul bf16-in", "k5_bf16", "bf16",
+                 csrc + "int8_window.cu", probe, k5["bf16"]),
+                ("int8_window_matmul int8-in", "k5_int8", "int8",
+                 csrc + "int8_window.cu", probe, k5["int8"])]
     table = []
-    for name, key, src, replaces, stats in (
-            ("folded_matmul", "folded_matmul", csrc + "folded_matmul.cu",
-             pallas + "folded_matmul.py:231", k1),
-            ("mrf_fused", "mrf_fused", csrc + "mrf_block.cu",
-             pallas + "mrf_block.py:176", k2),
-            ("layer_norm_fused fwd", "k3_fwd_128", csrc + "layer_norm.cu",
-             pallas + "layer_norm.py:67", k3[128][0]),
-            ("layer_norm_fused bwd", "k3_bwd_128", csrc + "layer_norm.cu",
-             pallas + "layer_norm.py:90", k3[128][1]),
-            ("layer_norm_fused fwd C=256", "k3_fwd_256",
-             csrc + "layer_norm.cu", pallas + "layer_norm.py:67", k3[256][0]),
-            ("layer_norm_fused bwd C=256", "k3_bwd_256",
-             csrc + "layer_norm.cu", pallas + "layer_norm.py:90", k3[256][1]),
-            ("decoder_block_fused fwd", "k4_fwd_128",
-             csrc + "decoder_block.cu", pallas + "decoder_block.py:198",
-             k4[128][0]),
-            ("decoder_block_fused bwd", "k4_bwd_128",
-             csrc + "decoder_block.cu", pallas + "decoder_block.py:237",
-             k4[128][1]),
-            ("decoder_block_fused fwd C=256", "k4_fwd_256",
-             csrc + "decoder_block.cu", pallas + "decoder_block.py:198",
-             k4[256][0]),
-            ("decoder_block_fused bwd C=256", "k4_bwd_256",
-             csrc + "decoder_block.cu", pallas + "decoder_block.py:237",
-             k4[256][1]),
-            ("int8_window_matmul bf16-in", "k5_bf16",
-             csrc + "int8_window.cu", probe, k5["bf16"]),
-            ("int8_window_matmul int8-in", "k5_int8",
-             csrc + "int8_window.cu", probe, k5["int8"])):
+    for name, key, dn, src, replaces, stats in rows:
         if launches[key] == 0:
             fail(f"{name} was not launched on the main path")
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": launches[key],
+        table.append({"name": name, "route": "cuda", "dtype": dn,
+                      "source": src, "replaces": replaces,
+                      "launches": launches[key],
                       "max_abs_err": stats["max_abs_err"],
                       "ms": stats["ms"], "plain_ms": stats["plain_ms"],
                       "bound_ms": stats["bound_ms"],

@@ -14,7 +14,9 @@
 //
 // and its gradient: dx (masked by keep) and float32 partial sums of the
 // seven weight gradients, one set per block (or block pair), summed by the
-// caller.  The gradient with respect to keep is zero.
+// caller.  The gradient with respect to keep is zero.  A float32 variant of
+// both kernels (x, y, dx, dy float32, every step in float32) follows the
+// bf16 ones below, with its own note.
 //
 // What bounds it on an H100: bytes.  At B = 128, M = 1024 the forward reads
 // x and writes y (67 MB at C = 256); the backward reads x and dy and writes
@@ -539,6 +541,490 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
                             acc_pw[j], C, wmma::mem_row_major);
 }
 
+// ---------------------------------------------------------------------------
+// The float32 variant (x, y, dx, dy float32).  Every product takes float32
+// operands into float32 sums on the CUDA cores (FFMA), as the TPU kernel's
+// Precision.HIGHEST float32 route does; nothing is rounded to bf16 or TF32.
+//
+// What bounds it: operations.  The pointwise products are 2 N C^2 FLOP a
+// pass (N = B M rows), 4.3 GFLOP forward at C = 128 and 17.2 at C = 256,
+// and three such products backward, against 67 TFLOP/s of float32.  The
+// float32 W is 64 KB at C = 128 and 256 KB at C = 256, more than a block
+// has, so every product streams its B operand (W, or W^T for du) from L2
+// through shared memory in panels of 2,048 floats (16 rows at C = 128, 8 at
+// C = 256), double-buffered through registers.  Tiles are R = 64 rows at
+// both widths: the forward holds the masked input (then v) and u; the
+// backward the masked input, u (then du) and v (then dv in place), 217 KB
+// at C = 256.  Each thread owns RM x 8 outputs of an R x C product (rows
+// 4 apart, two runs of 4 columns 32 apart), so a warp's operand reads are
+// broadcasts or conflict-free 128-byte rows.
+//
+// The C x C weight gradient does not fit one block's registers at C = 256
+// (256 values a thread), so each block keeps its own float32 partial in
+// device memory (L2-resident: 34 MB over 132 blocks at C = 256) and adds
+// each tile's u^T dv into it in passes of 64 accumulators a thread; the
+// caller sums the per-block partials.  No block duplicates another's work
+// and there are no float atomics, so every run gives the same sums.
+//
+// Numerics: the depthwise taps are summed in tap order with separate
+// multiplies and adds (__fmul_rn, __fadd_rn), exactly as _recompute_to_t's
+// float32 arithmetic; the products' summation order and tanhf differ from
+// the plain version's, so the kernel is held to it by SNR.
+
+template <int C_>
+struct GeoF {
+  static constexpr int C = C_;
+  static constexpr int R = 64;                 // rows of u per tile
+  static constexpr int NT = 256, NW = NT / 32;
+  static constexpr int LD = C + 4;             // float32 row stride
+  static constexpr int XROWS = R + 2 * PAD;
+  static constexpr int FWD_OWN = R;
+  static constexpr int BWD_OWN = R - 2 * PAD;
+  static constexpr int KP = 2048 / C;          // weight rows per panel
+  // R x C products: RM rows x 8 columns a thread, warps of 4 x 8 threads
+  static constexpr int RM = C == 128 ? 4 : 8;
+  static constexpr int WCOLS = C / 64;         // warps along the columns
+  // the C x C weight gradient in passes of PR rows, 8 x 8 a thread
+  static constexpr int PR = NT * 64 / C;
+  static constexpr int GROUPS = NT / C;        // row groups of a column
+  static constexpr size_t XS_BYTES = align128((size_t)XROWS * LD * 4);
+  static constexpr size_t RS_BYTES = align128((size_t)R * LD * 4);
+  static constexpr size_t PANEL_BYTES = 2 * (size_t)KP * C * 4;
+  static constexpr size_t FWD_SMEM = XS_BYTES + RS_BYTES + PANEL_BYTES;
+  static constexpr size_t BWD_SMEM = XS_BYTES + 2 * RS_BYTES + PANEL_BYTES;
+  static constexpr int FWD_BLOCKS = C == 128 ? 2 : 1;
+  static constexpr int SPLIT = 1;            // backward blocks per tile
+  static_assert(NW / WCOLS * 4 * RM == R, "product rows split over warps");
+  static_assert(PR % 32 == 0 && C % PR == 0 && (PR / 32) * (C / 64) == NW,
+                "weight-gradient pass split over warps");
+  static_assert(BWD_OWN % GROUPS == 0, "owned rows split evenly");
+  static_assert(FWD_SMEM * FWD_BLOCKS <= SMEM_LIMIT, "forward smem");
+  static_assert(BWD_SMEM <= SMEM_LIMIT, "backward smem");
+  static_assert(((K + 1) * GROUPS + 3 * NW) * C * 4 <= XS_BYTES,
+                "reduction scratch does not fit");
+};
+
+// xs row i <- x[b, u0 - PAD + i] * keep, zero outside [0, M)
+template <class G>
+__device__ void load_x_f32(const float* __restrict__ x,
+                           const float* __restrict__ keep, int b, int u0,
+                           int M, float* xs) {
+  constexpr int CH = G::C / 4;
+  for (int i = threadIdx.x; i < G::XROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c4 = i - r * CH;
+    const int g = u0 - PAD + r;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g >= 0 && g < M) {
+      const size_t row = (size_t)b * M + g;
+      q = reinterpret_cast<const float4*>(x + row * G::C)[c4];
+      const float kp = keep[row];
+      q.x *= kp; q.y *= kp; q.z *= kp; q.w *= kp;
+    }
+    *reinterpret_cast<float4*>(xs + r * G::LD + c4 * 4) = q;
+  }
+}
+
+// u rows [r0, r1) of column c, the taps summed in tap order
+template <class G>
+__device__ void depthwise_f32(const float* xs, float* us,
+                              const float* __restrict__ dww,
+                              const float* __restrict__ dwb, int c, int r0,
+                              int r1) {
+  float wt[K];
+#pragma unroll
+  for (int tap = 0; tap < K; ++tap) wt[tap] = dww[tap * G::C + c];
+  const float bb = dwb[c];
+  for (int r = r0; r < r1; ++r) {
+    float acc = __fmul_rn(xs[r * G::LD + c], wt[0]);
+#pragma unroll
+    for (int tap = 1; tap < K; ++tap)
+      acc = __fadd_rn(acc, __fmul_rn(xs[(r + tap) * G::LD + c], wt[tap]));
+    us[r * G::LD + c] = __fadd_rn(acc, bb);
+  }
+}
+
+// The thread's place in an R x C product: rows row0 + 4 i (i < RM),
+// columns col0 + 32 g + j (g < 2, j < 4).
+template <class G>
+__device__ __forceinline__ void mm_place(int& row0, int& col0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  row0 = (warp / G::WCOLS) * 4 * G::RM + (lane >> 3);
+  col0 = (warp % G::WCOLS) * 64 + 4 * (lane & 7);
+}
+
+// acc <- a (R x C, shared, stride LD) @ bm (C x C row-major, device
+// memory), bm streamed through `panel` (2 x KP x C floats).  Starts and
+// ends with a barrier: the caller's writes of `a` are visible, and every
+// thread is done with the panels (and with whatever it read before the
+// call) when it returns.
+template <class G>
+__device__ void mm_f32(const float* a, const float* __restrict__ bm,
+                       float* panel, float (&acc)[G::RM][8]) {
+  constexpr int C = G::C, KP = G::KP, NP = C / KP;
+  constexpr int PER = KP * C / 4 / G::NT;  // float4 a thread per panel
+  static_assert(PER * 4 * G::NT == KP * C, "panel split over threads");
+  const int tid = threadIdx.x;
+  int row0, col0;
+  mm_place<G>(row0, col0);
+#pragma unroll
+  for (int i = 0; i < G::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float4* b4 = reinterpret_cast<const float4*>(bm);
+  float4* p4 = reinterpret_cast<float4*>(panel);
+  float4 pf[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) p4[tid + q * G::NT] = b4[tid + q * G::NT];
+  __syncthreads();
+  for (int p = 0; p < NP; ++p) {
+    const float* cur = panel + (p & 1) * KP * C;
+    if (p + 1 < NP) {
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        pf[q] = b4[(p + 1) * (KP * C / 4) + tid + q * G::NT];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(cur + kk * C + col0);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(cur + kk * C + col0 + 32);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < G::RM; ++i) {
+        const float av = a[(row0 + 4 * i) * G::LD + p * KP + kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+    if (p + 1 < NP) {
+      float4* nxt = p4 + ((p + 1) & 1) * (KP * C / 4);
+#pragma unroll
+      for (int q = 0; q < PER; ++q) nxt[tid + q * G::NT] = pf[q];
+    }
+    __syncthreads();
+  }
+}
+
+// out (R x C, shared, stride LD) <- the thread's part of a product
+template <class G>
+__device__ __forceinline__ void store_rows(const float (&acc)[G::RM][8],
+                                           float* out) {
+  int row0, col0;
+  mm_place<G>(row0, col0);
+#pragma unroll
+  for (int i = 0; i < G::RM; ++i)
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<float4*>(out + (row0 + 4 * i) * G::LD + col0 +
+                                 32 * g) =
+          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                      acc[i][4 * g + 3]);
+}
+
+// part[i0 + i, :] (+)= sum over the owned rows r of us[r, i0 + i] dv[r, :]
+// for one pass of PR rows of the C x C weight gradient (first: store
+// instead of add).  Thread: rows rb + i (i < 8), columns col0 + 32 g + j.
+template <class G>
+__device__ void dw_pass(const float* us, const float* dv,
+                        float* __restrict__ part, int i0, bool first) {
+  constexpr int C = G::C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rb = i0 + (warp / G::WCOLS) * 32 + (lane >> 3) * 8;
+  const int col0 = (warp % G::WCOLS) * 64 + 4 * (lane & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int r = PAD; r < G::R - PAD; ++r) {
+    const float4 a0 = *reinterpret_cast<const float4*>(us + r * G::LD + rb);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(us + r * G::LD + rb + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(dv + r * G::LD + col0);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(dv + r * G::LD + col0 + 32);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float4* p = reinterpret_cast<float4*>(part + (size_t)(rb + i) * C +
+                                            col0 + 32 * g);
+      float4 v = make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                             acc[i][4 * g + 2], acc[i][4 * g + 3]);
+      if (!first) {
+        const float4 o = *p;
+        v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+      }
+      *p = v;
+    }
+}
+
+// t of one row from v, and its LayerNorm statistics, over the lane's
+// columns: t = tanh(v + pb)
+template <int C>
+__device__ __forceinline__ void row_t_f32(const float* v_row, int lane,
+                                          const float* pb, float* t,
+                                          float eps, float& mean,
+                                          float& rstd) {
+  constexpr int CH = C / 128;
+  float s = 0.f;
+#pragma unroll
+  for (int h = 0; h < CH; ++h) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(v_row + h * 128 + lane * 4);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t[h * 4 + i] = tanhf(vv[i] + pb[h * 4 + i]);
+      s += t[h * 4 + i];
+    }
+  }
+  mean = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4 * CH; ++i) {
+    const float d = t[i] - mean;
+    q += d * d;
+  }
+  rstd = 1.f / sqrtf(warp_sum(q) / C + eps);
+}
+
+template <int C>
+__global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
+    decoder_block_fwd_f32_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ keep,
+                                 const float* __restrict__ w,
+                                 const float* __restrict__ dww,
+                                 const float* __restrict__ dwb,
+                                 const float* __restrict__ pwb,
+                                 const float* __restrict__ lns,
+                                 const float* __restrict__ lnb,
+                                 float* __restrict__ y, int B, int M,
+                                 float eps) {
+  using G = GeoF<C>;
+  constexpr int NW = G::NW, CH = C / 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // masked input, then v
+  float* us = reinterpret_cast<float*>(smem + G::XS_BYTES);
+  float* panel = reinterpret_cast<float*>(smem + G::XS_BYTES + G::RS_BYTES);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int GROWS = G::R / G::GROUPS;
+  const int c = tid % C, grp = tid / C;
+  float pb[4 * CH], s[4 * CH], sb[4 * CH];
+  lane_cols<G>(pwb, lane, pb);
+  lane_cols<G>(lns, lane, s);
+  lane_cols<G>(lnb, lane, sb);
+
+  const int tiles_m = (M + G::FWD_OWN - 1) / G::FWD_OWN;
+  for (int tile = blockIdx.x; tile < B * tiles_m; tile += gridDim.x) {
+    const int b = tile / tiles_m;
+    const int u0 = (tile - b * tiles_m) * G::FWD_OWN;
+    load_x_f32<G>(x, keep, b, u0, M, xs);
+    __syncthreads();
+    depthwise_f32<G>(xs, us, dww, dwb, c, grp * GROWS, (grp + 1) * GROWS);
+    {
+      float acc[G::RM][8];
+      mm_f32<G>(us, w, panel, acc);
+      store_rows<G>(acc, xs);  // xs is past its last read
+    }
+    __syncthreads();
+    for (int r = warp; r < G::R && u0 + r < M; r += NW) {
+      float t[4 * CH], mean, rstd;
+      row_t_f32<C>(xs + r * G::LD, lane, pb, t, eps, mean, rstd);
+#pragma unroll
+      for (int i = 0; i < 4 * CH; ++i)
+        t[i] = (t[i] - mean) * rstd * s[i] + sb[i];
+#pragma unroll
+      for (int h = 0; h < CH; ++h)
+        *reinterpret_cast<float4*>(y + ((size_t)b * M + u0 + r) * C +
+                                   h * 128 + lane * 4) =
+            make_float4(t[h * 4], t[h * 4 + 1], t[h * 4 + 2], t[h * 4 + 3]);
+    }
+    __syncthreads();
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(GeoF<C>::NT, 1)
+    decoder_block_bwd_f32_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ keep,
+                                 const float* __restrict__ w,
+                                 const float* __restrict__ wt,
+                                 const float* __restrict__ dww,
+                                 const float* __restrict__ dwb,
+                                 const float* __restrict__ pwb,
+                                 const float* __restrict__ lns,
+                                 const float* __restrict__ dy,
+                                 float* __restrict__ dx,
+                                 float* __restrict__ part_pw,
+                                 float* __restrict__ part_vec, int B, int M,
+                                 float eps) {
+  using G = GeoF<C>;
+  constexpr int NT = G::NT, NW = G::NW, CH = C / 128, R = G::R;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* us = reinterpret_cast<float*>(smem + G::XS_BYTES);  // u, then du
+  float* vs = reinterpret_cast<float*>(smem + G::XS_BYTES +
+                                       G::RS_BYTES);  // v, then dv
+  float* panel =
+      reinterpret_cast<float*>(smem + G::XS_BYTES + 2 * G::RS_BYTES);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the depthwise conv and its gradient: column cf, one of GROUPS row
+  // groups
+  constexpr int FROWS = R / G::GROUPS;
+  constexpr int OROWS = G::BWD_OWN / G::GROUPS;
+  const int cf = tid % C, fg = tid / C;
+  float wf[K];
+#pragma unroll
+  for (int tap = 0; tap < K; ++tap) wf[tap] = dww[tap * C + cf];
+  // per-thread partial sums: column cf (taps, dw bias), the lane's
+  // columns (pw bias, LayerNorm scale and bias)
+  float p_dw[K], p_dwb = 0.f, p_pwb[4 * CH], p_lns[4 * CH], p_lnb[4 * CH];
+#pragma unroll
+  for (int i = 0; i < K; ++i) p_dw[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4 * CH; ++i) p_pwb[i] = p_lns[i] = p_lnb[i] = 0.f;
+  float* pw_out = part_pw + (size_t)blockIdx.x * C * C;
+  bool first = true;
+
+  const int tiles_m = (M + G::BWD_OWN - 1) / G::BWD_OWN;
+  for (int tile = blockIdx.x; tile < B * tiles_m; tile += gridDim.x) {
+    const int b = tile / tiles_m;
+    const int m0 = (tile - b * tiles_m) * G::BWD_OWN;
+    const int u0 = m0 - PAD;  // global row of u row 0
+    load_x_f32<G>(x, keep, b, u0, M, xs);
+    __syncthreads();
+    depthwise_f32<G>(xs, us, dww, dwb, cf, fg * FROWS, (fg + 1) * FROWS);
+    {
+      float acc[G::RM][8];
+      mm_f32<G>(us, w, panel, acc);
+      store_rows<G>(acc, vs);
+    }
+    __syncthreads();
+    // recompute t and its LayerNorm, then dv = dLN * (1 - t^2) over v
+    for (int r = warp; r < R; r += NW) {
+      const int g = u0 + r;
+      float* row = vs + r * G::LD;
+      if (g < 0 || g >= M) {
+#pragma unroll
+        for (int h = 0; h < CH; ++h)
+          *reinterpret_cast<float4*>(row + h * 128 + lane * 4) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      float t[4 * CH], mean, rstd, d[4 * CH], pb[4 * CH];
+      lane_cols<G>(pwb, lane, pb);
+      row_t_f32<C>(row, lane, pb, t, eps, mean, rstd);
+      float gs = 0.f, gx = 0.f;
+#pragma unroll
+      for (int h = 0; h < CH; ++h) {
+        const int col = h * 128 + lane * 4;
+        const float4 q = *reinterpret_cast<const float4*>(
+            dy + ((size_t)b * M + g) * C + col);
+        d[h * 4] = q.x; d[h * 4 + 1] = q.y; d[h * 4 + 2] = q.z;
+        d[h * 4 + 3] = q.w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float gg = d[h * 4 + i] * lns[col + i];
+          gs += gg;
+          gx += gg * ((t[h * 4 + i] - mean) * rstd);
+        }
+      }
+      const float gm = warp_sum(gs) / C, gxm = warp_sum(gx) / C;
+      const bool owned_row = r >= PAD && r < R - PAD;
+#pragma unroll
+      for (int h = 0; h < CH; ++h) {
+        const int col = h * 128 + lane * 4;
+        float dv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float tt = t[h * 4 + i];
+          const float that = (tt - mean) * rstd;
+          dv[i] = rstd * (d[h * 4 + i] * lns[col + i] - gm - that * gxm) *
+                  (1.f - tt * tt);
+          if (owned_row) {
+            p_pwb[h * 4 + i] += dv[i];
+            p_lns[h * 4 + i] += d[h * 4 + i] * that;
+            p_lnb[h * 4 + i] += d[h * 4 + i];
+          }
+        }
+        *reinterpret_cast<float4*>(row + col) =
+            make_float4(dv[0], dv[1], dv[2], dv[3]);
+      }
+    }
+    __syncthreads();
+    // the block's weight-gradient partial += u^T dv over the owned rows
+    for (int i0 = 0; i0 < C; i0 += G::PR) dw_pass<G>(us, vs, pw_out, i0, first);
+    first = false;
+    // du = dv W^T over all R rows, into us (mm_f32's first barrier orders
+    // it after every read of u above)
+    {
+      float acc[G::RM][8];
+      mm_f32<G>(vs, wt, panel, acc);
+      store_rows<G>(acc, us);
+    }
+    __syncthreads();
+    // owned rows of column cf: depthwise gradients and dx
+    for (int r = PAD + fg * OROWS; r < PAD + (fg + 1) * OROWS; ++r) {
+      const int g = u0 + r;
+      if (g >= M) break;
+      const float du = us[r * G::LD + cf];
+      p_dwb += du;
+#pragma unroll
+      for (int tap = 0; tap < K; ++tap)
+        p_dw[tap] += xs[(r + tap) * G::LD + cf] * du;
+      float acc = us[(r - PAD) * G::LD + cf] * wf[K - 1];
+#pragma unroll
+      for (int sh = 1; sh < K; ++sh)
+        acc += us[(r - PAD + sh) * G::LD + cf] * wf[K - 1 - sh];
+      dx[((size_t)b * M + g) * C + cf] = acc * keep[(size_t)b * M + g];
+    }
+    __syncthreads();
+  }
+  if (first)  // a block without a tile still writes its partial
+    for (int i = tid; i < C * C; i += NT) pw_out[i] = 0.f;
+
+  // per-block partials of the vectors, summed over threads in a fixed
+  // order
+  float* red_col = xs;                                // [GROUPS][K + 1][C]
+  float* red_row = red_col + G::GROUPS * (K + 1) * C;  // [NW][3][C]
+#pragma unroll
+  for (int tap = 0; tap < K; ++tap)
+    red_col[(fg * (K + 1) + tap) * C + cf] = p_dw[tap];
+  red_col[(fg * (K + 1) + K) * C + cf] = p_dwb;
+#pragma unroll
+  for (int h = 0; h < CH; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = h * 128 + lane * 4 + i;
+      red_row[(warp * 3 + 0) * C + col] = p_pwb[h * 4 + i];
+      red_row[(warp * 3 + 1) * C + col] = p_lns[h * 4 + i];
+      red_row[(warp * 3 + 2) * C + col] = p_lnb[h * 4 + i];
+    }
+  __syncthreads();
+  for (int i = tid; i < (K + 4) * C; i += NT) {
+    const int which = i / C, cc = i - which * C;
+    float acc = 0.f;
+    if (which <= K) {
+      for (int q = 0; q < G::GROUPS; ++q)
+        acc += red_col[(q * (K + 1) + which) * C + cc];
+    } else {
+      for (int wp = 0; wp < NW; ++wp)
+        acc += red_row[(wp * 3 + which - K - 1) * C + cc];
+    }
+    part_vec[((size_t)blockIdx.x * (K + 4) + which) * C + cc] = acc;
+  }
+}
+
 template <int C>
 int fwd_launch(const void* x, const void* keep, const void* w,
                const void* dww, const void* dwb, const void* pwb,
@@ -580,17 +1066,69 @@ int bwd_launch(const void* x, const void* keep, const void* w,
   return cudaGetLastError();
 }
 
-// The one list of the widths the kernels are built for (the Python
-// wrapper's WIDTHS): calls f with the width as a compile-time constant, or
-// returns fallback for any other width.
+template <int C>
+int fwd_launch_f32(const void* x, const void* keep, const void* w,
+                   const void* dww, const void* dwb, const void* pwb,
+                   const void* lns, const void* lnb, void* y, int B, int M,
+                   float eps, int grid, cudaStream_t stream) {
+  using G = GeoF<C>;
+  cudaError_t e = cudaFuncSetAttribute(
+      decoder_block_fwd_f32_kernel<C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::FWD_SMEM);
+  if (e != cudaSuccess) return e;
+  decoder_block_fwd_f32_kernel<C><<<grid, G::NT, G::FWD_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(keep),
+      static_cast<const float*>(w), static_cast<const float*>(dww),
+      static_cast<const float*>(dwb), static_cast<const float*>(pwb),
+      static_cast<const float*>(lns), static_cast<const float*>(lnb),
+      static_cast<float*>(y), B, M, eps);
+  return cudaGetLastError();
+}
+
+template <int C>
+int bwd_launch_f32(const void* x, const void* keep, const void* w,
+                   const void* wt, const void* dww, const void* dwb,
+                   const void* pwb, const void* lns, const void* dy,
+                   void* dx, void* part_pw, void* part_vec, int B, int M,
+                   float eps, int grid, cudaStream_t stream) {
+  using G = GeoF<C>;
+  if (wt == nullptr) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      decoder_block_bwd_f32_kernel<C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::BWD_SMEM);
+  if (e != cudaSuccess) return e;
+  decoder_block_bwd_f32_kernel<C><<<grid, G::NT, G::BWD_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(keep),
+      static_cast<const float*>(w), static_cast<const float*>(wt),
+      static_cast<const float*>(dww), static_cast<const float*>(dwb),
+      static_cast<const float*>(pwb), static_cast<const float*>(lns),
+      static_cast<const float*>(dy), static_cast<float*>(dx),
+      static_cast<float*>(part_pw), static_cast<float*>(part_vec), B, M, eps);
+  return cudaGetLastError();
+}
+
+// The one list of the variants the kernels are built for (the Python
+// wrapper's WIDTHS, in bf16 and float32): calls f with the width and the
+// dtype (true: float32) as compile-time constants, or returns fallback for
+// any other width.
 template <class F>
-int with_width(int channels, int fallback, F f) {
+int with_variant(int channels, int f32, int fallback, F f) {
+  using T = std::true_type;
+  using N = std::false_type;
   switch (channels) {
-    case 128: return f(std::integral_constant<int, 128>());
-    case 256: return f(std::integral_constant<int, 256>());
+    case 128:
+      return f32 ? f(std::integral_constant<int, 128>(), T())
+                 : f(std::integral_constant<int, 128>(), N());
+    case 256:
+      return f32 ? f(std::integral_constant<int, 256>(), T())
+                 : f(std::integral_constant<int, 256>(), N());
     default: return fallback;
   }
 }
+
+// The geometry of one variant
+template <int C, bool F32>
+using GeoOf = typename std::conditional<F32, GeoF<C>, Geo<C>>::type;
 
 }  // namespace
 
@@ -601,60 +1139,72 @@ const char* kernel_error_string(int err) {
 }
 
 // Rows of x a tile covers (forward: all R; backward: the inner R - 4), or
-// 0 for a width the kernels are not built for.
-int decoder_block_tile_rows(int channels, int backward) {
-  return with_width(channels, 0, [&](auto c) {
-    using G = Geo<decltype(c)::value>;
+// 0 for a width the kernels are not built for.  f32: the float32 variant.
+int decoder_block_tile_rows(int channels, int backward, int f32) {
+  return with_variant(channels, f32, 0, [&](auto c, auto f) {
+    using G = GeoOf<decltype(c)::value, decltype(f)::value>;
     return backward ? G::BWD_OWN : G::FWD_OWN;
   });
 }
 
 // Forward blocks that fit on one SM (the backward fits one), or 0.
-int decoder_block_fwd_blocks_per_sm(int channels) {
-  return with_width(channels, 0, [](auto c) {
-    return Geo<decltype(c)::value>::FWD_BLOCKS;
+int decoder_block_fwd_blocks_per_sm(int channels, int f32) {
+  return with_variant(channels, f32, 0, [](auto c, auto f) {
+    return GeoOf<decltype(c)::value, decltype(f)::value>::FWD_BLOCKS;
   });
 }
 
-// Backward blocks that share a tile, one per 128 columns, or 0.
-int decoder_block_split(int channels) {
-  return with_width(channels, 0, [](auto c) {
-    return Geo<decltype(c)::value>::SPLIT;
+// Backward blocks that share a tile (bf16: one per 128 columns; float32:
+// one), or 0.
+int decoder_block_split(int channels, int f32) {
+  return with_variant(channels, f32, 0, [](auto c, auto f) {
+    return GeoOf<decltype(c)::value, decltype(f)::value>::SPLIT;
   });
 }
 
 int decoder_block_taps() { return K; }
 
-// x, y: (B, M, C) bf16; keep (B, M) f32; w (C_in, C_out) bf16; dww (K, C)
-// f32; dwb, pwb, lns, lnb (C,) f32.  grid: blocks (they stride over the
-// tiles).
+// x, y: (B, M, C) bf16 (f32 = 0) or float32 (f32 = 1); keep (B, M) f32; w
+// (C_in, C_out) in x's dtype; dww (K, C) f32; dwb, pwb, lns, lnb (C,) f32.
+// grid: blocks (they stride over the tiles).
 int decoder_block_fwd_launch(const void* x, const void* keep, const void* w,
                              const void* dww, const void* dwb,
                              const void* pwb, const void* lns,
                              const void* lnb, void* y, int B, int M,
-                             int channels, float eps, int grid,
+                             int channels, int f32, float eps, int grid,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_width(channels, cudaErrorInvalidValue, [&](auto c) {
-    return fwd_launch<decltype(c)::value>(x, keep, w, dww, dwb, pwb, lns,
-                                          lnb, y, B, M, eps, grid, s);
+  return with_variant(channels, f32, cudaErrorInvalidValue,
+                      [&](auto c, auto f) {
+    constexpr int C = decltype(c)::value;
+    if (decltype(f)::value)
+      return fwd_launch_f32<C>(x, keep, w, dww, dwb, pwb, lns, lnb, y, B, M,
+                               eps, grid, s);
+    return fwd_launch<C>(x, keep, w, dww, dwb, pwb, lns, lnb, y, B, M, eps,
+                         grid, s);
   });
 }
 
-// dy, dx: (B, M, C) bf16; part_pw (grid / split, C_in, C_out) f32;
-// part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw bias, LN
-// scale, LN bias.  grid is a multiple of decoder_block_split(C).
+// dy, dx: (B, M, C) in x's dtype; wt: W^T (C_out, C_in) float32 (the
+// float32 variant only; may be null in bf16); part_pw (grid / split, C_in,
+// C_out) f32; part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw
+// bias, LN scale, LN bias.  grid is a multiple of decoder_block_split(C).
 int decoder_block_bwd_launch(const void* x, const void* keep, const void* w,
-                             const void* dww, const void* dwb,
-                             const void* pwb, const void* lns,
-                             const void* dy, void* dx, void* part_pw,
-                             void* part_vec, int B, int M, int channels,
-                             float eps, int grid, void* stream) {
+                             const void* wt, const void* dww,
+                             const void* dwb, const void* pwb,
+                             const void* lns, const void* dy, void* dx,
+                             void* part_pw, void* part_vec, int B, int M,
+                             int channels, int f32, float eps, int grid,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_width(channels, cudaErrorInvalidValue, [&](auto c) {
-    return bwd_launch<decltype(c)::value>(x, keep, w, dww, dwb, pwb, lns, dy,
-                                          dx, part_pw, part_vec, B, M, eps,
-                                          grid, s);
+  return with_variant(channels, f32, cudaErrorInvalidValue,
+                      [&](auto c, auto f) {
+    constexpr int C = decltype(c)::value;
+    if (decltype(f)::value)
+      return bwd_launch_f32<C>(x, keep, w, wt, dww, dwb, pwb, lns, dy, dx,
+                               part_pw, part_vec, B, M, eps, grid, s);
+    return bwd_launch<C>(x, keep, w, dww, dwb, pwb, lns, dy, dx, part_pw,
+                         part_vec, B, M, eps, grid, s);
   });
 }
 

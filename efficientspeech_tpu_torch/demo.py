@@ -6,7 +6,9 @@
 Weights are a native random init from ``--seed`` (loading the reference
 checkpoints is not ported yet), so the voice is noise-like; the run shows
 the path end to end and its timings.  It runs on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``--precision f32`` serves in float32
+throughout: the vocoder's kernels run their float32 variants, and cuDNN's
+convolutions and cuBLAS's products are kept out of TF32.
 """
 
 import argparse
@@ -25,7 +27,9 @@ def get_args(argv=None):
     parser.add_argument("--iter", type=int, default=1,
                         help="timed synthesis iterations")
     parser.add_argument("--warmup", type=int, default=1)
-    parser.add_argument("--precision", default="bf16", choices=["bf16", "f32"])
+    parser.add_argument("--precision", default="bf16", choices=["bf16", "f32"],
+                        help="serving dtype: bf16, or float32 throughout "
+                             "(TF32 off)")
     parser.add_argument("--transfer", default="int16",
                         choices=["f32", "int16", "mulaw"])
     parser.add_argument("--vocoder", default="folded_kernel",
@@ -43,9 +47,12 @@ def main(argv=None):
     import torch
     from scipy.io import wavfile
 
+    from efficientspeech_tpu_torch.device import set_full_f32
     from efficientspeech_tpu_torch.infer import build_synthesizer
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if dtype == torch.float32:
+        set_full_f32()
     synth = build_synthesizer(preset=args.preset, dtype=dtype, seed=args.seed,
                               bench_duration_bias=args.bench_duration_bias,
                               transfer=args.transfer,

@@ -216,7 +216,9 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
     folds each stage's resblock sum and ``/ num_kernels`` into the last
     conv of each resblock; ``fuse_mrf`` runs each stage's whole MRF in
     ``mrf_fused`` (resblock "1").  ``act_dtype``: activation dtype between
-    kernel ops (float32 by default; the CUDA kernels take float32 only).
+    kernel ops (float32 by default; the CUDA kernels take float32
+    activations, and weights in ``dtype``, bf16 or float32, which selects
+    the kernels' variant).
     ``mrf``: the per-stage MRF specs from ``prepare_for_kernels``, built
     here when not given.  ``valid_len`` (B,) int on mel's device."""
     widths, reshape = meta["widths"], meta["reshape"]

@@ -14,8 +14,8 @@ float32 parameters of the decoder's modules, in their PyTorch layouts:
 dw_w (C, 1, k) of the depthwise Conv1d, pw_w (C, C, 1) of the pointwise
 one, and the LayerNorm's (C,) scale and bias; each is cast inside, so
 their gradients come back float32.  A CPU tensor takes the plain version
-(any width, any dtype); a CUDA tensor launches the kernel, built for bf16
-at C = 128 and 256, or raises.
+(any width, any dtype); a CUDA tensor launches the kernel, built for
+C = 128 and 256 in bf16 and in float32, or raises.
 """
 
 import ctypes
@@ -26,13 +26,15 @@ import torch.nn.functional as F
 
 from efficientspeech_tpu_torch.ops.kernels import build
 
-# the decoder widths the CUDA kernel is built for: the list in
-# csrc/decoder_block.cu's with_width
+# the decoder widths and dtypes the CUDA kernel is built for: the list in
+# csrc/decoder_block.cu's with_variant
 WIDTHS = (128, 256)
+DTYPES = (torch.bfloat16, torch.float32)
+VARIANTS = tuple((c, dt) for c in WIDTHS for dt in DTYPES)
 
-# kernel launches by width since the counts were last set to 0
-launches_fwd = dict.fromkeys(WIDTHS, 0)
-launches_bwd = dict.fromkeys(WIDTHS, 0)
+# kernel launches by (width, dtype) since the counts were last set to 0
+launches_fwd = dict.fromkeys(VARIANTS, 0)
+launches_bwd = dict.fromkeys(VARIANTS, 0)
 
 
 def _recompute_to_t(x, keep, dww, dwb, w_io, pwb):
@@ -108,11 +110,11 @@ def decoder_block_bwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decoder_block_fwd_launch": ([_P] * 9 + [_I, _I, _I, _F, _I, _P], _I),
-    "decoder_block_bwd_launch": ([_P] * 11 + [_I, _I, _I, _F, _I, _P], _I),
-    "decoder_block_tile_rows": ([_I, _I], _I),
-    "decoder_block_fwd_blocks_per_sm": ([_I], _I),
-    "decoder_block_split": ([_I], _I),
+    "decoder_block_fwd_launch": ([_P] * 9 + [_I] * 4 + [_F, _I, _P], _I),
+    "decoder_block_bwd_launch": ([_P] * 12 + [_I] * 4 + [_F, _I, _P], _I),
+    "decoder_block_tile_rows": ([_I, _I, _I], _I),
+    "decoder_block_fwd_blocks_per_sm": ([_I, _I], _I),
+    "decoder_block_split": ([_I, _I], _I),
     "decoder_block_taps": ([], _I),
 }
 
@@ -123,22 +125,23 @@ def _lib():
 
 def check_supported(channels: int, dtype: torch.dtype):
     """Raise unless the CUDA kernel covers a decoder of width ``channels``
-    in ``dtype``: it is built for the widths in ``WIDTHS``, bf16 only."""
-    if channels not in WIDTHS or dtype != torch.bfloat16:
+    in ``dtype``: it is built for the widths in ``WIDTHS``, each in bf16
+    and float32."""
+    if (channels, dtype) not in VARIANTS:
         raise NotImplementedError(
-            f"decoder_block kernel: built for C in {WIDTHS} in bf16, not "
-            f"C = {channels} in {dtype}; this decoder cannot run on the "
-            "card yet")
+            f"decoder_block kernel: built for C in {WIDTHS} in bf16 and "
+            f"float32, not C = {channels} in {dtype}; this decoder cannot "
+            "run on the card")
 
 
 def _kernel_args(lib, x, keep, dw_w, dw_b, pw_w, pw_b, ln_s):
     """Check the operands and pack the weights as the kernels take them:
-    W (C_in, C_out) bf16, dww (k, C) float32."""
+    W (C_in, C_out) in x's dtype, dww (k, C) float32."""
     b, m, c = x.shape
     k = lib.decoder_block_taps()
     dev = x.device
     check_supported(c, x.dtype)
-    build.check_tensor("x", x, torch.bfloat16, (b, m, c), dev)
+    build.check_tensor("x", x, x.dtype, (b, m, c), dev)
     build.check_tensor("keep", keep, torch.float32, (b, m), dev)
     for name, t, shape in (("dw_w", dw_w, (c, 1, k)), ("dw_b", dw_b, (c,)),
                            ("pw_w", pw_w, (c, c, 1)), ("pw_b", pw_b, (c,)),
@@ -149,26 +152,29 @@ def _kernel_args(lib, x, keep, dw_w, dw_b, pw_w, pw_b, ln_s):
                              f"{shape} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     dww, w_io = _pack(dw_w, pw_w)
-    return (w_io.to(torch.bfloat16).contiguous(), dww.contiguous(),
+    return (w_io.to(x.dtype).contiguous(), dww.contiguous(),
             dw_b.contiguous(), pw_b.contiguous(), ln_s.contiguous())
 
 
-def _grid(lib, b: int, m: int, c: int, backward: bool, dev) -> int:
+def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
+          dev) -> int:
     """Persistent grids: the forward fills every SM with as many blocks as
     fit on one; the backward puts one block on each SM, in groups of
-    ``split`` blocks that share a tile (one per 128 columns)."""
-    tiles = b * -(-m // lib.decoder_block_tile_rows(c, int(backward)))
+    ``split`` blocks that share a tile (bf16: one per 128 columns; float32:
+    one)."""
+    tiles = b * -(-m // lib.decoder_block_tile_rows(c, int(backward), f32))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not backward:
-        return max(1, min(tiles, lib.decoder_block_fwd_blocks_per_sm(c) * sms))
-    split = lib.decoder_block_split(c)
+        return max(1, min(tiles,
+                          lib.decoder_block_fwd_blocks_per_sm(c, f32) * sms))
+    split = lib.decoder_block_split(c, f32)
     return split * max(1, min(tiles, sms // split))
 
 
 def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
                       eps: float = 1e-5) -> torch.Tensor:
-    """x (B, M, C), keep (B, M) float32 → y (B, M, C).  On CUDA: x bf16
-    and C in ``WIDTHS``."""
+    """x (B, M, C), keep (B, M) float32 → y (B, M, C).  On CUDA: x bf16 or
+    float32 and C in ``WIDTHS``."""
     if x.device.type == "cpu":
         return decoder_block_fwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, ln_b, eps)
@@ -179,16 +185,17 @@ def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
                                             pw_b, ln_s)
     build.check_tensor("ln_b", ln_b, torch.float32, (x.shape[2],), x.device)
     b, m, c = x.shape
+    f32 = int(x.dtype == torch.float32)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.decoder_block_fwd_launch(
             x.data_ptr(), keep.data_ptr(), w_io.data_ptr(), dww.data_ptr(),
             dwb.data_ptr(), pwb.data_ptr(), lns.data_ptr(), ln_b.data_ptr(),
-            y.data_ptr(), b, m, c, float(eps),
-            _grid(lib, b, m, c, False, x.device), stream)
+            y.data_ptr(), b, m, c, f32, float(eps),
+            _grid(lib, b, m, c, f32, False, x.device), stream)
     build.check(lib, err, "decoder_block forward")
-    launches_fwd[c] += 1
+    launches_fwd[c, x.dtype] += 1
     return y
 
 
@@ -207,10 +214,13 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
                                             pw_b, ln_s)
     b, m, c = x.shape
     dev = x.device
-    build.check_tensor("dy", dy, torch.bfloat16, (b, m, c), dev)
+    f32 = int(x.dtype == torch.float32)
+    build.check_tensor("dy", dy, x.dtype, (b, m, c), dev)
+    # the float32 du = dv W^T streams W^T (C_out, C_in): pw_w's own layout
+    w_t = pw_w[:, :, 0].contiguous() if f32 else None
     k = dw_w.shape[2]
-    grid = _grid(lib, b, m, c, True, dev)
-    groups = grid // lib.decoder_block_split(c)
+    grid = _grid(lib, b, m, c, f32, True, dev)
+    groups = grid // lib.decoder_block_split(c, f32)
     dx = torch.empty_like(x)
     part_pw = torch.empty((groups, c, c), dtype=torch.float32, device=dev)
     part_vec = torch.empty((groups, k + 4, c), dtype=torch.float32,
@@ -218,12 +228,13 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.decoder_block_bwd_launch(
-            x.data_ptr(), keep.data_ptr(), w_io.data_ptr(), dww.data_ptr(),
+            x.data_ptr(), keep.data_ptr(), w_io.data_ptr(),
+            None if w_t is None else w_t.data_ptr(), dww.data_ptr(),
             dwb.data_ptr(), pwb.data_ptr(), lns.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), part_pw.data_ptr(), part_vec.data_ptr(), b, m, c,
-            float(eps), grid, stream)
+            f32, float(eps), grid, stream)
     build.check(lib, err, "decoder_block backward")
-    launches_bwd[c] += 1
+    launches_bwd[c, x.dtype] += 1
     d_w_io = part_pw.sum(0)
     vec = part_vec.sum(0)
     return (dx, vec[:k].t()[:, None, :].contiguous(), vec[k],

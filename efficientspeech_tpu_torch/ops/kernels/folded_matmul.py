@@ -6,8 +6,9 @@
 
 ``act`` is an optional leaky-relu; rows outside [0, T) read as zero.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  The kernel multiplies in bf16 with float32 accumulation, the
-plain version in float32 (see the source's note on numerics).
+raises.  The kernel has two variants, chosen by W's dtype: bf16 W
+multiplies in bf16 with float32 accumulation, float32 W in float32 (see
+the source's notes on numerics); the plain version multiplies in float32.
 """
 
 import ctypes
@@ -20,8 +21,11 @@ from efficientspeech_tpu_torch.ops.kernels import build
 
 LRELU_SLOPE = 0.1
 
-# kernel launches since the count was last set to 0
-launches = 0
+# the weight dtypes the kernel is built for
+DTYPES = (torch.bfloat16, torch.float32)
+
+# kernel launches by W's dtype since the counts were last set to 0
+launches = dict.fromkeys(DTYPES, 0)
 
 
 def leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -69,8 +73,9 @@ def folded_matmul_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "folded_matmul_launch": ([_P] * 7 + [_I] * 5 + [_F, _I, _F, _P], _I),
-    "folded_matmul_smem_bytes": ([_I, _I], _I),
+    "folded_matmul_launch": ([_P] * 7 + [_I] * 5 + [_F, _I, _F, _I, _P],
+                             _I),
+    "folded_matmul_smem_bytes": ([_I, _I, _I], _I),
 }
 
 
@@ -89,9 +94,8 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     ``valid`` a row count (on CUDA a one-element int32 tensor on the card,
     so the host never waits for it).
 
-    On CUDA: x, residual, accum float32; W bf16; b float32; D_in and D_out
-    multiples of 16."""
-    global launches
+    On CUDA: x, residual, accum float32; W bf16 or float32 (the kernel's
+    variant); b float32; D_in and D_out multiples of 16."""
     if x.device.type == "cpu":
         return folded_matmul_plain(x, W, b, w, valid, residual, accum,
                                    out_scale, pre_lrelu, lrelu_slope)
@@ -104,15 +108,19 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     if d_in % 16 or d_out % 16:
         raise ValueError(f"folded_matmul: D_in {d_in} and D_out {d_out} "
                          "must be multiples of 16")
+    if W.dtype not in DTYPES:
+        raise ValueError(f"folded_matmul: W is {W.dtype}, not one of "
+                         f"{DTYPES}")
+    f32 = int(W.dtype == torch.float32)
     build.check_tensor("x", x, torch.float32, (t, d_in), dev)
-    build.check_tensor("W", W, torch.bfloat16, (n_win * d_in, d_out), dev)
+    build.check_tensor("W", W, W.dtype, (n_win * d_in, d_out), dev)
     build.check_tensor("b", b, torch.float32, (d_out,), dev)
     build.check_valid("folded_matmul", valid, dev)
     for name, r in (("residual", residual), ("accum", accum)):
         if r is not None:
             build.check_tensor(name, r, torch.float32, (t, d_out), dev)
     lib = _lib()
-    if lib.folded_matmul_smem_bytes(d_in, w) > 227 * 1024:
+    if lib.folded_matmul_smem_bytes(d_in, w, f32) > 227 * 1024:
         raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs more "
                          "shared memory than a block has")
     out = torch.empty((t, d_out), dtype=torch.float32, device=dev)
@@ -124,7 +132,7 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
             None if accum is None else accum.data_ptr(),
             out.data_ptr(), valid.data_ptr(), t, d_in, d_out, w,
             int(pre_lrelu), float(lrelu_slope), int(out_scale is not None),
-            float(out_scale if out_scale is not None else 1.0), stream)
+            float(out_scale if out_scale is not None else 1.0), f32, stream)
     build.check(lib, err, "folded_matmul")
-    launches += 1
+    launches[W.dtype] += 1
     return out

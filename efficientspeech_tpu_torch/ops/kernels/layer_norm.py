@@ -20,12 +20,14 @@ import torch
 
 from efficientspeech_tpu_torch.ops.kernels import build
 
-# the widths the CUDA kernel is built for
+# the widths and dtypes the CUDA kernel is built for
 WIDTHS = (128, 256)
+DTYPES = (torch.bfloat16, torch.float32)
+VARIANTS = tuple((c, dt) for c in WIDTHS for dt in DTYPES)
 
-# kernel launches by width since the counts were last set to 0
-launches_fwd = dict.fromkeys(WIDTHS, 0)
-launches_bwd = dict.fromkeys(WIDTHS, 0)
+# kernel launches by (width, dtype) since the counts were last set to 0
+launches_fwd = dict.fromkeys(VARIANTS, 0)
+launches_bwd = dict.fromkeys(VARIANTS, 0)
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -77,7 +79,7 @@ def _check(x2d: torch.Tensor, scale: torch.Tensor, bias=None, dy=None):
     dev = x2d.device
     if c not in WIDTHS:
         raise ValueError(f"layer_norm kernel: C {c} not in {WIDTHS}")
-    if x2d.dtype not in (torch.bfloat16, torch.float32):
+    if x2d.dtype not in DTYPES:
         raise ValueError(f"layer_norm kernel: dtype {x2d.dtype} is neither "
                          "bf16 nor float32")
     build.check_tensor("x", x2d, x2d.dtype, (rows, c), dev)
@@ -109,7 +111,7 @@ def layer_norm_fwd(x2d: torch.Tensor, scale: torch.Tensor,
             rows, c, int(x2d.dtype == torch.bfloat16), float(eps), grid,
             stream)
     build.check(lib, err, "layer_norm forward")
-    launches_fwd[c] += 1
+    launches_fwd[c, x2d.dtype] += 1
     return y
 
 
@@ -139,7 +141,7 @@ def layer_norm_bwd(x2d: torch.Tensor, scale: torch.Tensor,
             parts[0].data_ptr(), parts[1].data_ptr(), rows, c,
             int(x2d.dtype == torch.bfloat16), float(eps), grid, stream)
     build.check(lib, err, "layer_norm backward")
-    launches_bwd[c] += 1
+    launches_bwd[c, x2d.dtype] += 1
     ds, db = parts.sum(dim=1)
     return dx, ds, db
 

@@ -8,7 +8,9 @@ For each resblock j (a chain of (conv1, conv2) pairs):
     out = mask(Σ_j v / num_kernels)
 
 with every conv output masked to rows [0, valid).  A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+plain version; a CUDA tensor launches the kernel or raises.  The kernel
+has two variants, chosen by W_all's dtype: bf16 (bf16 products, float32
+sums) and float32 (float32 throughout).
 """
 
 import ctypes
@@ -23,8 +25,11 @@ from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
 LRELU_SLOPE = 0.1
 D = 128
 
-# kernel launches since the count was last set to 0
-launches = 0
+# the weight dtypes the kernel is built for
+DTYPES = (torch.bfloat16, torch.float32)
+
+# kernel launches by W_all's dtype since the counts were last set to 0
+launches = dict.fromkeys(DTYPES, 0)
 
 # chains[j] = [(w, n_win, w_row_offset, b_index), ...] in execution order
 Chains = List[List[Tuple[int, int, int, int]]]
@@ -84,18 +89,23 @@ def mrf_fused_plain(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _P],
-                   _I),
-    "mrf_max_rows": ([], _I),
-    "mrf_smem_bytes": ([_I, _I], _I),
+    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _I,
+                                          _P], _I),
+    "mrf_max_rows": ([_I], _I),
+    "mrf_smem_bytes": ([_I, _I, _I], _I),
 }
+
+
+def _lib():
+    return build.load("mrf_block", _SIGNATURES)
 
 
 def tile_rows(H: int, max_rows: int = 192) -> int:
     """Rows per block.  128 where the tile plus both halos fits the
-    kernel's 12 row blocks (stages 1-3: H = 19/10/7, halo recompute ≤ 30%);
-    64 at stage 0 (H = 33: 128 + 66 rows would not fit), which at 2,048
-    frames also gives 128 blocks, one wave on the card's 132 SMs."""
+    kernel's ``max_rows`` (``mrf_max_rows``: 192 in bf16, 176 in float32;
+    stages 1-3: H = 19/10/7, halo recompute ≤ 30%); 64 at stage 0 (H = 33:
+    128 + 66 rows would not fit), which at 2,048 frames also gives 128
+    blocks, one wave on the card's 132 SMs."""
     for tm in (128, 64, 32, 16):
         if tm + 2 * H <= max_rows:
             return tm
@@ -111,9 +121,8 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     rows of this stage's grid, at most T (on CUDA a one-element int32
     tensor on the card).
 
-    On CUDA: x float32, W_all bf16, b_all float32; ``tm`` defaults to
-    ``tile_rows(H)``."""
-    global launches
+    On CUDA: x float32, W_all bf16 or float32 (the kernel's variant),
+    b_all float32; ``tm`` defaults to ``tile_rows(H)``."""
     if x.device.type == "cpu":
         return mrf_fused_plain(x, chains, W_all, b_all, H, valid,
                                num_kernels, tm, lrelu_slope)
@@ -123,15 +132,20 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     dev = x.device
     n_ops = sum(len(c) for c in chains)
     rows = chains[-1][-1][2] + chains[-1][-1][1] * D
+    if W_all.dtype not in DTYPES:
+        raise ValueError(f"mrf_fused: W_all is {W_all.dtype}, not one of "
+                         f"{DTYPES}")
+    f32 = int(W_all.dtype == torch.float32)
     build.check_tensor("x", x, torch.float32, (t, D), dev)
-    build.check_tensor("W_all", W_all, torch.bfloat16, (rows, D), dev)
+    build.check_tensor("W_all", W_all, W_all.dtype, (rows, D), dev)
     build.check_tensor("b_all", b_all, torch.float32, (n_ops, D), dev)
     build.check_valid("mrf_fused", valid, dev)
-    lib = build.load("mrf_block", _SIGNATURES)
-    tm = tile_rows(H, lib.mrf_max_rows()) if tm is None else tm
-    if tm % 16 or tm + 2 * H > lib.mrf_max_rows():
+    lib = _lib()
+    max_rows = lib.mrf_max_rows(f32)
+    tm = tile_rows(H, max_rows) if tm is None else tm
+    if tm % 16 or tm + 2 * H > max_rows:
         raise ValueError(f"mrf_fused: tile {tm} with halo {H} does not fit")
-    if lib.mrf_smem_bytes(tm, H) > 227 * 1024:
+    if lib.mrf_smem_bytes(tm, H, f32) > 227 * 1024:
         raise ValueError(f"mrf_fused: tile {tm} with halo {H} needs more "
                          "shared memory than a block has")
     spec = [len(chains)]
@@ -146,7 +160,7 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
         err = lib.mrf_launch(x.data_ptr(), W_all.data_ptr(),
                              b_all.data_ptr(), out.data_ptr(),
                              valid.data_ptr(), t, H, tm, spec_arr,
-                             num_kernels, float(lrelu_slope), stream)
+                             num_kernels, float(lrelu_slope), f32, stream)
     build.check(lib, err, "mrf_fused")
-    launches += 1
+    launches[W_all.dtype] += 1
     return out

@@ -8,7 +8,9 @@ resumes from the latest checkpoint):
         --preprocess-config configs/ljspeech.yaml --batch-size 128
 
 It runs on the CUDA card, and raises without one unless given
-``--device cpu``.
+``--device cpu``.  ``--precision f32`` computes in float32 throughout:
+the decoder's kernels run their float32 variants, and cuDNN's
+convolutions and cuBLAS's products are kept out of TF32.
 """
 
 import argparse
@@ -34,7 +36,9 @@ def get_args(argv=None):
     parser.add_argument("--warmup-epochs", type=int, default=50)
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--precision", default="bf16",
-                        choices=["bf16", "f32"])
+                        choices=["bf16", "f32"],
+                        help="bf16 compute on float32 masters, or float32 "
+                             "throughout (TF32 off)")
     parser.add_argument("--max-phoneme-len", type=int, default=128)
     parser.add_argument("--max-mel-len", type=int, default=1024)
     parser.add_argument("--checkpoint-dir", default="checkpoints",
@@ -50,10 +54,12 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    from efficientspeech_tpu_torch.device import resolve_device
+    from efficientspeech_tpu_torch.device import resolve_device, set_full_f32
     from efficientspeech_tpu_torch.training.loop import Trainer
 
     device = resolve_device(args.device)
+    if args.precision == "f32":
+        set_full_f32()
     preprocess_cfg = PreprocessConfig.from_yaml(args.preprocess_config)
     stats = preprocess_cfg.load_stats()
     model_cfg = ModelConfig.preset(

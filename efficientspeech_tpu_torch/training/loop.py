@@ -55,9 +55,9 @@ def batch_to_device(batch: Dict, device: torch.device) -> Dict:
 class Trainer:
     """``device`` defaults to the card and raises without one.  On the card
     the mel decoder's LayerNorms run through kernel K3 and its block bodies
-    through K4 (widths 128 and 256, so every preset, in bf16), and a
-    decoder width or dtype K4 does not cover (float32) raises here; on the
-    CPU the decoder takes its plain route (same parameters)."""
+    through K4 (widths 128 and 256, so every preset, in bf16 or float32),
+    and a decoder width or dtype K4 does not cover raises here; on the CPU
+    the decoder takes its plain route (same parameters)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  preprocess_cfg: PreprocessConfig,

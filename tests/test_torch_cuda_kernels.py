@@ -40,41 +40,78 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
                                   / err.clamp_min(1e-30)))
 
 
-@pytest.mark.parametrize("t,d_out,w,extras", [
-    (1000, 512, 1, False), (777, 16, 1, False), (300, 128, 13, True)])
-def test_folded_matmul_kernel(card, t, d_out, w, extras):
+# bf16 kernels against float32 plain versions: bf16 operand rounding;
+# float32 kernels: float32 sums in another order (TF32 would land near the
+# bf16 figures, so this bar also shows that no product ran in TF32)
+SNR_BAR = {torch.bfloat16: 35.0, torch.float32: 90.0}
+
+
+@pytest.fixture(scope="module")
+def folded_f32(card):
+    """The LJ_V2-width vocoder folded in float32 (the serving dtype of
+    --precision f32), with its per-stage MRF specs."""
+    cfg = HifiGanConfig()
+    gen = HifiGanGenerator(cfg)
+    reset_parameters(gen, 0)
+    arrays, meta = fold_hifigan(gen.to(card), torch.float32)
+    return prepare_for_kernels(arrays, meta, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("t,d_out,w,extras,key", [
+    (1000, 512, 1, False, "up0"), (777, 16, 1, False, "post"),
+    (300, 128, 13, True, "rb0_2_c1_2")])
+def test_folded_matmul_kernel(card, request, dtype, t, d_out, w, extras,
+                              key):
+    """K1 against its plain version: bf16 on random weights, float32 on
+    the float32-folded vocoder's op ``key``."""
     g = torch.Generator(device="cpu").manual_seed(t)
     x = torch.randn(t, 128, generator=g).to(card)
-    W = (torch.randn((2 * w + 1) * 128, d_out, generator=g) * 0.05
-         ).to(card, torch.bfloat16)
-    b = torch.randn(d_out, generator=g).to(card)
+    if dtype == torch.float32:
+        W, b = request.getfixturevalue("folded_f32")[0][key]
+        assert W.dtype == dtype and W.shape == ((2 * w + 1) * 128, d_out)
+    else:
+        W = (torch.randn((2 * w + 1) * 128, d_out, generator=g) * 0.05
+             ).to(card, torch.bfloat16)
+        b = torch.randn(d_out, generator=g).to(card)
     res = torch.randn(t, d_out, generator=g).to(card) if extras else None
     valid = torch.tensor([t - 137], dtype=torch.int32, device=card)
     kw = dict(residual=res, accum=res, out_scale=1 / 3 if extras else None,
               pre_lrelu=True, lrelu_slope=0.01 if d_out == 16 else 0.1)
+    before = dict(fm.launches)
     got = fm.folded_matmul(x, W, b, w, valid, **kw)
     want = fm.folded_matmul_plain(x, W, b, w, valid, **kw)
     torch.cuda.synchronize()
-    assert snr_db(want, got) >= 35.0
+    assert fm.launches[dtype] == before[dtype] + 1
+    assert snr_db(want, got) >= SNR_BAR[dtype]
     assert not got[t - 137:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
-def test_mrf_kernel(card, stage):
-    cfg = HifiGanConfig()
-    gen = HifiGanGenerator(cfg)
-    reset_parameters(gen, 0)
-    arrays, meta = fold_hifigan(gen.to(card), torch.bfloat16)
-    arrays, mrf = prepare_for_kernels(arrays, meta, cfg)
+def test_mrf_kernel(card, request, stage, dtype):
+    if dtype == torch.float32:
+        _, mrf = request.getfixturevalue("folded_f32")
+    else:
+        cfg = HifiGanConfig()
+        gen = HifiGanGenerator(cfg)
+        reset_parameters(gen, 0)
+        arrays, meta = fold_hifigan(gen.to(card), torch.bfloat16)
+        arrays, mrf = prepare_for_kernels(arrays, meta, cfg)
     chains, W_all, b_all, H = mrf[stage]
+    assert W_all.dtype == dtype
     t = 1000
     x = torch.randn(t, 128, generator=torch.Generator().manual_seed(stage)
                     ).to(card)
     valid = torch.tensor([t - 229], dtype=torch.int32, device=card)
+    before = dict(mrf_block.launches)
     got = mrf_block.mrf_fused(x, chains, W_all, b_all, H, valid, 3)
     want = mrf_block.mrf_fused_plain(x, chains, W_all, b_all, H, valid, 3)
     torch.cuda.synchronize()
-    assert snr_db(want, got) >= 35.0
+    assert mrf_block.launches[dtype] == before[dtype] + 1
+    assert snr_db(want, got) >= SNR_BAR[dtype]
     assert not got[t - 229:].any()
     assert np.isfinite(got.cpu().numpy()).all()
 
@@ -99,51 +136,60 @@ def test_layer_norm_kernel(card, rows, c, dtype):
         assert snr_db(w, a) >= 35.0, name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,m,c", [
     pytest.param(3, 200, 128, id="3-200"),
     pytest.param(2, 1024, 128, id="2-1024"),
     pytest.param(3, 200, 256, id="3-200-C256"),
     pytest.param(2, 1024, 256, id="2-1024-C256")])
-def test_decoder_block_kernel(card, b, m, c):
+def test_decoder_block_kernel(card, b, m, c, dtype):
     """K4 forward and backward against the plain version on a keep mask
     with padded tails: y, dx and the six weight gradients each at
-    SNR >= 35 dB, dx exactly zero on padded frames."""
+    SNR >= 35 dB (bf16) or 90 dB (float32), dx exactly zero on padded
+    frames."""
     k = 5
     g = torch.Generator(device="cpu").manual_seed(m)
     f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
-    x = f(b, m, c).to(torch.bfloat16)
+    x = f(b, m, c).to(dtype)
     keep = torch.ones(b, m, device=card)
     keep[0, m - m // 6:] = 0
     keep[-1, m // 2:] = 0
     weights = [f(c, 1, k, s=0.4), f(c, s=0.1), f(c, c, 1, s=0.09),
                f(c, s=0.1), 1 + f(c, s=0.2), f(c, s=0.1)]
-    dy = f(b, m, c).to(torch.bfloat16)
+    dy = f(b, m, c).to(dtype)
+    before = (dict(k4.launches_fwd), dict(k4.launches_bwd))
     y = k4.decoder_block_fwd(x, keep, *weights)
     y_plain = k4.decoder_block_fwd_plain(x, keep, *weights)
     grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
     grads_plain = k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)
     torch.cuda.synchronize()
-    assert snr_db(y_plain, y) >= 35.0
+    for counts, was in zip((k4.launches_fwd, k4.launches_bwd), before):
+        assert counts[c, dtype] == was[c, dtype] + 1
+    assert y.dtype == dtype and snr_db(y_plain, y) >= SNR_BAR[dtype]
     names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
     for name, a, w in zip(names, grads, grads_plain):
         assert a.dtype == w.dtype and a.shape == w.shape, name
-        assert snr_db(w, a) >= 35.0, name
+        assert snr_db(w, a) >= SNR_BAR[dtype], name
     assert not grads[0][keep == 0].any()
 
 
 @pytest.mark.parametrize("c,dtype", [(384, torch.bfloat16),
-                                     (128, torch.float32),
-                                     (256, torch.float32)])
+                                     (128, torch.float16),
+                                     (256, torch.float16),
+                                     (384, torch.float32)])
 def test_decoder_block_kernel_refuses(card, c, dtype):
     """A decoder the kernel is not built for (a width other than 128 and
-    256, or float32) raises on the card instead of taking the plain
-    version."""
+    256, or a dtype other than bf16 and float32) raises on the card
+    instead of taking the plain version."""
     with pytest.raises(NotImplementedError, match="cannot run on the card"):
         k4.check_supported(c, dtype)
-    # the library is built for exactly the widths check_supported names
+    # the library is built for exactly the variants check_supported names
     lib = k4._lib()
-    assert [w for w in (128, 256, 384) if lib.decoder_block_tile_rows(w, 0)
-            and lib.decoder_block_split(w)] == list(k4.WIDTHS)
+    assert [(w, f32) for w in (128, 256, 384) for f32 in (0, 1)
+            if lib.decoder_block_tile_rows(w, 0, f32)
+            and lib.decoder_block_split(w, f32)] == [
+                (c_, int(dt == torch.float32)) for c_, dt in k4.VARIANTS]
     x = torch.zeros(1, 16, c, dtype=dtype, device=card)
     keep = torch.ones(1, 16, device=card)
     weights = [torch.zeros(shape, device=card) for shape in
@@ -152,20 +198,22 @@ def test_decoder_block_kernel_refuses(card, c, dtype):
         k4.decoder_block_fused(x, keep, *weights)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("preset,width,k3_per_dir,k4_per_dir", [
     ("tiny", 128, 3, 4), ("small", 256, 4, 6), ("base", 256, 4, 9)])
 def test_fused_decoder_launches_per_preset(card, preset, width, k3_per_dir,
-                                           k4_per_dir):
-    """Every preset's train-mode forward and backward in bf16 goes through
-    K3 (proj_norm and each block's skip norm) and K4 (every block body),
-    at the preset's decoder width, with finite losses."""
+                                           k4_per_dir, dtype):
+    """Every preset's train-mode forward and backward, in bf16 and in
+    float32, goes through K3 (proj_norm and each block's skip norm) and K4
+    (every block body), at the preset's decoder width and in the compute
+    dtype, with finite losses."""
     cfg = ModelConfig.preset(preset, max_phoneme_len=32, max_mel_len=256)
     model = Phoneme2Mel(cfg, fused_decoder_norm=True,
                         fused_decoder_block=True)
     reset_parameters(model, 0)
     model.to(card)
-    k4.check_supported(model.decoder.proj_norm.weight.shape[0],
-                       torch.bfloat16)
+    k4.check_supported(model.decoder.proj_norm.weight.shape[0], dtype)
     g = np.random.default_rng(0)
     n, m, b = 32, 256, 2
     duration = g.integers(1, 8, (b, n))
@@ -182,15 +230,15 @@ def test_fused_decoder_launches_per_preset(card, preset, width, k3_per_dir,
     for d in (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
               k4.launches_bwd):
         d.update(dict.fromkeys(d, 0))
-    loss = forward_losses(model, batch, torch.bfloat16)["loss"]
+    loss = forward_losses(model, batch, dtype)["loss"]
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert k3.launches_fwd == {c: k3_per_dir if c == width else 0
-                               for c in k3.WIDTHS}
+    assert k3.launches_fwd == {v: k3_per_dir if v == (width, dtype) else 0
+                               for v in k3.VARIANTS}
     assert k3.launches_bwd == k3.launches_fwd
-    assert k4.launches_fwd == {c: k4_per_dir if c == width else 0
-                               for c in k4.WIDTHS}
+    assert k4.launches_fwd == {v: k4_per_dir if v == (width, dtype) else 0
+                               for v in k4.VARIANTS}
     assert k4.launches_bwd == k4.launches_fwd
 
 

@@ -157,13 +157,15 @@ def test_mel_decoder_kernel_routes_match_plain_route():
 
 
 def test_check_supported_names_the_kernel_widths():
-    """The kernel covers every preset's decoder (width 128 or 256) in
-    bf16, and refuses float32 and other widths with a message that says
-    so; the check needs no build."""
+    """The kernel covers every preset's decoder (width 128 or 256) in bf16
+    and in float32, and refuses float16 and other widths with a message
+    that says so; the check needs no build."""
     for c in WIDTHS:
-        k4.check_supported(c, torch.bfloat16)
-    for c, dtype in ((256, torch.float32), (128, torch.float32),
-                     (384, torch.bfloat16), (64, torch.bfloat16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            k4.check_supported(c, dtype)
+    for c, dtype in ((128, torch.float16), (256, torch.float16),
+                     (384, torch.bfloat16), (64, torch.bfloat16),
+                     (384, torch.float32), (64, torch.float32)):
         with pytest.raises(NotImplementedError,
                            match="cannot run on the card"):
             k4.check_supported(c, dtype)

@@ -108,3 +108,34 @@ def test_training_raises_without_cuda(monkeypatch, tmp_path):
         Trainer(ModelConfig.preset("tiny"), TrainConfig(), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--preprocess-config", str(tmp_path / "none.yaml")])
+
+
+@pytest.mark.parametrize("cli", ["train", "demo"])
+def test_precision_f32_turns_tf32_off(monkeypatch, tmp_path, cli):
+    """``--precision f32`` keeps cuDNN's convolutions and cuBLAS's products
+    out of TF32 before any model is built, so the model's other ops agree
+    with its float32 kernels."""
+    from efficientspeech_tpu_torch import demo, infer, train
+
+    class Stop(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Stop
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(infer, "build_synthesizer", stop)
+    monkeypatch.setattr(train.PreprocessConfig, "from_yaml", stop)
+    args = ["--device", "cpu", "--precision", "bf16"]
+    if cli == "demo":
+        args += ["--text", "hello"]
+    main = {"train": train.main, "demo": demo.main}[cli]
+    with pytest.raises(Stop):
+        main(args)
+    assert torch.backends.cudnn.allow_tf32
+    with pytest.raises(Stop):
+        main(args[:-1] + ["f32"] if cli == "train"
+             else args[:3] + ["f32"] + args[4:])
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -114,11 +114,48 @@ def test_kernel_route_matches_plain_route(synths, monkeypatch):
     want, mel_len, _ = psynth.synthesize_ids(seq)
     monkeypatch.setattr(infer, "KERNEL_MIN_FRAMES", 0)
     monkeypatch.setattr(psynth, "vocoder_mode", "folded_kernel")
-    folded_matmul.launches = mrf_block.launches = 0
+    before = (dict(folded_matmul.launches), dict(mrf_block.launches))
     got, mel_len_k, _ = psynth.synthesize_ids(seq)
-    assert folded_matmul.launches == mrf_block.launches == 0
+    assert (folded_matmul.launches, mrf_block.launches) == before
     assert mel_len_k == mel_len
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_kernel_route_hands_kernels_serving_dtype_weights(monkeypatch,
+                                                          dtype):
+    """The synthesizer's kernel route hands folded_matmul and mrf_fused
+    weights in the serving dtype (the kernels' variant on the card), never
+    a cast to another dtype; activations stay float32."""
+    from efficientspeech_tpu_torch import infer
+    from efficientspeech_tpu_torch.models import hifigan_folded
+
+    seen = {"folded_matmul": [], "mrf_fused": []}
+    # the weight's place among each wrapper's arguments
+    w_arg = {"folded_matmul": 1, "mrf_fused": 2}
+
+    def record(name, fn):
+        def wrapper(*args, **kwargs):
+            seen[name].append((args[0].dtype, args[w_arg[name]].dtype))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in seen:
+        monkeypatch.setattr(hifigan_folded, name,
+                            record(name, getattr(hifigan_folded, name)))
+    monkeypatch.setattr(infer, "KERNEL_MIN_FRAMES", 0)
+    synth = _small_setup(build_synthesizer(
+        preset="tiny", hifigan_cfg=HifiGanConfig(**SMALL_HIFIGAN),
+        dtype=dtype, bench_duration_bias=4.0, transfer="f32",
+        vocoder_mode="folded_kernel", device="cpu"))
+    seq = np.random.default_rng(7).integers(70, 146, size=12).astype(
+        np.int32)
+    wav, mel_len, _ = synth.synthesize_ids(seq)
+    assert mel_len > 0 and np.isfinite(wav).all()
+    for name, calls in seen.items():
+        assert calls, f"{name} was not called"
+        assert set(calls) == {(torch.float32, dtype)}, (name, set(calls))
 
 
 def test_bf16_synthesizer_keeps_norms_f32_and_matches_jax(synths):

@@ -285,6 +285,26 @@ def test_train_step_matches_jax(request, preset, dtype):
                                                 f32[name]), name
 
 
+@pytest.mark.parametrize("preset", ["tiny", "small"])
+def test_compute_params_f32_keeps_every_parameter_f32(preset):
+    """A float32 train step runs on the float32 masters themselves:
+    compute_params at float32 returns every parameter as it is (no cast,
+    no copy), on the fused decoder routes as on the plain ones."""
+    from efficientspeech_tpu_torch.models.modules import compute_params
+
+    for fused in (False, True):
+        model = Phoneme2Mel(ModelConfig.preset(preset, max_phoneme_len=16,
+                                               max_mel_len=64),
+                            fused_decoder_norm=fused,
+                            fused_decoder_block=fused)
+        params = compute_params(model, torch.float32)
+        named = dict(model.named_parameters())
+        assert set(params) == set(named)
+        for name, p in params.items():
+            assert p.dtype == torch.float32, name
+            assert p is named[name], name
+
+
 def _port_cfg(jax_cfg) -> PreprocessConfig:
     """The port's preprocessing config for the JAX fixture's corpus."""
     return PreprocessConfig(preprocessed_path=jax_cfg.preprocessed_path,
