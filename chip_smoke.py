@@ -10,7 +10,8 @@ Phases (each prints its lines; any failure exits non-zero):
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
-               the kernel, the plain version and a library yardstick;
+               the kernel, the plain version and a library yardstick (the
+               bf16 ops also with the L2 cache flushed before each call);
   4. K2      - mrf_fused for the four vocoder stages at 2,048 frames, the
                same way;
   5. slice   - the synthesizer (tiny acoustic model, LJ_V2-width vocoder,
@@ -34,7 +35,8 @@ Phases (each prints its lines; any failure exits non-zero):
   9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
-               torch._int_mm on the materialised window as the yardstick;
+               torch._int_mm on the materialised window as the yardstick
+               (also with the L2 cache flushed before each call);
                then the probe entry point (probes/int8_window.py) once,
                K5's main path, with its launches counted;
  10. train   - the acoustic Trainer (batch 128, 128 phonemes, 1,024
@@ -52,7 +54,8 @@ Phases (each prints its lines; any failure exits non-zero):
                loss and gradients held against the plain route's on one
                batch.
 The kernel table goes on a JSON line before the last, 22 rows, each with
-its dtype (K1/K2 times per utterance at 2,048 frames, K3/K4 times per
+its dtype (the rows of kernels redesigned for Hopper also name the
+design; K1/K2 times per utterance at 2,048 frames, K3/K4 times per
 train step: the per-launch time × the launches of a step, tiny preset for
 C = 128 and small for C = 256; K5 per call at the probe's shape); the last
 line is {"ok": true, "device": {...}}.  With --profile, the slice and
@@ -91,7 +94,7 @@ import numpy as np
 import torch
 
 from efficientspeech_tpu_torch.utils.timing import card as card_name
-from efficientspeech_tpu_torch.utils.timing import time_ms
+from efficientspeech_tpu_torch.utils.timing import time_ms, time_ms_flushed
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
@@ -112,6 +115,18 @@ TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
 EPOCH_STEPS, TRAIN_EPOCHS, WARMUP_STEPS = 20, 2, 3
 ROUTE_LOSS_RTOL, ROUTE_GRAD_COS = 1e-2, 0.99
 F32_ROUTE_LOSS_RTOL, F32_ROUTE_GRAD_COS = 1e-4, 0.999
+# the kernel-table rows whose kernels were redesigned for Hopper after
+# their first port, by launch key: the design each row's time belongs to
+DESIGNS = {
+    "folded_matmul": "Hopper redesign: persistent blocks of two warpgroups, "
+                     "W panel loaded once per block, bulk-copy x stages, "
+                     "wgmma with A in registers",
+    "k5_bf16": "Hopper redesign: tile split over a cluster, partial maxima "
+               "through distributed shared memory, W^T pre-pass and bulk "
+               "copy, wgmma s8",
+    "k5_int8": "Hopper redesign: tile split over a cluster, W^T pre-pass "
+               "and bulk copy, wgmma s8",
+}
 LONG_TEXT = (
     "The polyphase folded vocoder turns every convolution of the waveform "
     "generator into a dense matrix product over frame rate activations. "
@@ -253,12 +268,29 @@ def phase_k1(synth, card: str):
               f"{host_ms:.4f} | {card}")
         if extra:
             continue  # not on the main path: kept out of the totals
+        if dt == torch.bfloat16:
+            cold = time_ms_flushed(
+                lambda: fm.folded_matmul(x, W, b, w, valid, **kw), 20)
+            lib_cold = time_ms_flushed(lambda: torch.matmul(win, W), 20)
+            print(f"[{tag}] {name}: L2 flushed before each call: kernel_ms "
+                  f"{cold:.4f} library_ms {lib_cold:.4f} | {card}")
+            totals["flushed_ms"] = totals.get("flushed_ms", 0.0) + cold
+            totals["flushed_library_ms"] = (
+                totals.get("flushed_library_ms", 0.0) + lib_cold)
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += lib_ms
         totals["bound_ms"] += b_ms
         worst_err = max(worst_err, err)
         bound_by.add(by)
+    line = (f"[{tag}] per utterance ({len(ops)} ops): kernel_ms "
+            f"{totals['ms']:.4f} library_ms {totals['library_ms']:.4f} "
+            f"bound_ms {totals['bound_ms']:.4f}")
+    if "flushed_ms" in totals:
+        line += (f" | L2 flushed before each call: kernel_ms "
+                 f"{totals['flushed_ms']:.4f} library_ms "
+                 f"{totals['flushed_library_ms']:.4f}")
+    print(f"{line} | {card}")
     return dict(totals, max_abs_err=worst_err,
                 bound_by="operations" if "operations" in bound_by
                 else "bytes")
@@ -616,6 +648,11 @@ def phase_k5(card: str):
               f"{ops / 1e9:.2f} GOP int8 | achieved {ops / ms / 1e9:.0f} "
               f"TOP/s, {nbytes / ms / 1e6:.0f} GB/s | wrapper host_ms "
               f"{host_ms:.4f} | {card}")
+        cold = time_ms_flushed(
+            lambda: k5.int8_window_matmul(x, w, n_win, tm), 20)
+        lib_cold = time_ms_flushed(lambda: torch._int_mm(win8, w_col), 20)
+        print(f"[{tag}] L2 flushed before each call: kernel_ms {cold:.4f} "
+              f"library_ms {lib_cold:.4f} | {card}")
         stats[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=by, max_abs_err=err)
 
@@ -940,14 +977,17 @@ def main():
     for name, key, dn, src, replaces, stats in rows:
         if launches[key] == 0:
             fail(f"{name} was not launched on the main path")
-        table.append({"name": name, "route": "cuda", "dtype": dn,
-                      "source": src, "replaces": replaces,
-                      "launches": launches[key],
-                      "max_abs_err": stats["max_abs_err"],
-                      "ms": stats["ms"], "plain_ms": stats["plain_ms"],
-                      "bound_ms": stats["bound_ms"],
-                      "bound_by": stats["bound_by"],
-                      "library_ms": stats["library_ms"]})
+        row = {"name": name, "route": "cuda", "dtype": dn,
+               "source": src, "replaces": replaces,
+               "launches": launches[key],
+               "max_abs_err": stats["max_abs_err"],
+               "ms": stats["ms"], "plain_ms": stats["plain_ms"],
+               "bound_ms": stats["bound_ms"],
+               "bound_by": stats["bound_by"],
+               "library_ms": stats["library_ms"]}
+        if key in DESIGNS:
+            row["design"] = DESIGNS[key]
+        table.append(row)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Each source is a plain C interface (no PyTorch headers), compiled for
 ``sm_90a`` into ``build/kernels/`` at the repository root at first use;
-the library name carries a hash of its source, so an edited source is
-rebuilt and a stale library never loads.  Nothing here runs at import.
+the library name carries a hash of its source and of the headers in
+``csrc/`` (``*.cuh``, which sources share), so an edited source or header
+is rebuilt and a stale library never loads.  Nothing here runs at import.
 """
 
 import ctypes
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> float:

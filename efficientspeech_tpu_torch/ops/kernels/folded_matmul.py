@@ -9,10 +9,13 @@ CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The kernel has two variants, chosen by W's dtype: bf16 W
 multiplies in bf16 with float32 accumulation, float32 W in float32 (see
 the source's notes on numerics); the plain version multiplies in float32.
+The bf16 variant's tiling is decided here, by ``plan``, and handed to the
+launch.
 """
 
 import ctypes
-from typing import Optional, Union
+import functools
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -71,11 +74,100 @@ def folded_matmul_plain(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     return mask_rows(y, valid).to(x.dtype)
 
 
+# shared memory a block may use on an H100 (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
+SMS_H100 = 132
+APAD = 8            # bf16 padding of an A-tile row (csrc: bf16v::APAD)
+ALIGN_SLACK = 1024  # the kernel aligns its shared memory to 1,024 bytes
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel tiles one call: ``tm`` rows × ``tn`` columns a
+    tile; a block per SM walks the row tiles of one ``tn``-column panel
+    (``bpp`` blocks a panel, ``grid`` = bpp · n_panels), its ``n_wg``
+    warpgroups taking alternate tiles, each with its own x stage and A
+    tile.  W's panel is ``resident`` (all 2w+1 taps, loaded once per
+    block) or streamed a tap at a time through one ``w_slot``-byte slot a
+    warpgroup.  Shared memory, from a 1024-byte aligned base: W at 0, the
+    x stages at ``x_off`` (``x_bytes`` each), the bf16 A tiles at
+    ``a_off`` (``a_bytes`` each), the mbarriers at ``bar_off``; ``smem``
+    bytes in all, the alignment slack included."""
+    tm: int
+    tn: int
+    n_wg: int
+    resident: bool
+    bpp: int
+    n_panels: int
+    grid: int
+    w_slot: int
+    x_off: int
+    x_bytes: int
+    a_off: int
+    a_bytes: int
+    bar_off: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(t: int, d_in: int, d_out: int, w: int, sms: int = SMS_H100) -> Plan:
+    """The bf16 kernel's tile plan for x (t, d_in) → (t, d_out) with a
+    2w+1-tap window on ``sms`` SMs; raises ValueError for a shape the
+    kernel does not take.  Panels of 128 columns where there are tiles
+    enough for two warpgroups a block, else 64; W resident before
+    streamed, two warpgroups before one: the first that fits a block's
+    shared memory."""
+    if d_in <= 0 or d_in % 64:
+        raise ValueError(f"folded_matmul: D_in {d_in} must be a positive "
+                         "multiple of 64")
+    if d_out <= 0 or d_out % 16:
+        raise ValueError(f"folded_matmul: D_out {d_out} must be a positive "
+                         "multiple of 16")
+    if w < 0:
+        raise ValueError(f"folded_matmul: w {w} < 0")
+    tn = next(n for n in (128, 64, 32, 16) if d_out % n == 0)
+    if tn == 128 and -(-t // 64) * (d_out // 128) < 2 * sms:
+        # too few tiles for two warpgroups a block: halve the panel (and
+        # the W each block loads) to double them
+        tn = 64
+    tm = 64 if tn >= 64 else 128   # taller tiles for narrow panels
+    rows = tm + 2 * w
+    x_bytes = _align(rows * d_in * 4, 128)
+    a_bytes = _align(rows * (d_in + APAD) * 2, 128)
+    w_slot = _align(d_in * tn * 2, 1024)
+    for resident, n_wg in ((True, 2), (True, 1), (False, 2), (False, 1)):
+        w_bytes = (_align((2 * w + 1) * d_in * tn * 2, 1024) if resident
+                   else n_wg * w_slot)
+        bar_off = w_bytes + n_wg * (x_bytes + a_bytes)
+        smem = bar_off + 8 * (n_wg + 1) + ALIGN_SLACK
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs more "
+                         "shared memory than a block has")
+    n_panels = d_out // tn
+    n_tiles = -(-t // tm)
+    bpp = max(1, min(n_tiles, sms // n_panels))
+    return Plan(tm, tn, n_wg, resident, bpp, n_panels, bpp * n_panels,
+                w_slot, w_bytes, x_bytes, w_bytes + n_wg * x_bytes, a_bytes,
+                bar_off, smem)
+
+
+def f32_smem_bytes(d_in: int, w: int) -> int:
+    """Shared memory of the float32 kernel (csrc: f32v::smem_bytes at the
+    wide tile): the float32 x tile with its halo, two 16-row W chunks."""
+    return _align((64 + 2 * w) * (d_in + 4) * 4, 16) + 2 * 16 * 128 * 4
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "folded_matmul_launch": ([_P] * 7 + [_I] * 5 + [_F, _I, _F, _I, _P],
-                             _I),
-    "folded_matmul_smem_bytes": ([_I, _I, _I], _I),
+    "folded_matmul_bf16_launch": (
+        [_P] * 7 + [_I] * 5 + [_F, _I, _F] + [_I] * 13 + [_P], _I),
+    "folded_matmul_f32_launch": ([_P] * 7 + [_I] * 5 + [_F, _I, _F, _P],
+                                 _I),
 }
 
 
@@ -95,7 +187,8 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     so the host never waits for it).
 
     On CUDA: x, residual, accum float32; W bf16 or float32 (the kernel's
-    variant); b float32; D_in and D_out multiples of 16."""
+    variant); b float32; D_out a multiple of 16, D_in of 64 (bf16) or 16
+    (float32)."""
     if x.device.type == "cpu":
         return folded_matmul_plain(x, W, b, w, valid, residual, accum,
                                    out_scale, pre_lrelu, lrelu_slope)
@@ -105,13 +198,20 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     n_win = 2 * w + 1
     d_out = W.shape[1]
     dev = x.device
-    if d_in % 16 or d_out % 16:
-        raise ValueError(f"folded_matmul: D_in {d_in} and D_out {d_out} "
-                         "must be multiples of 16")
     if W.dtype not in DTYPES:
         raise ValueError(f"folded_matmul: W is {W.dtype}, not one of "
                          f"{DTYPES}")
-    f32 = int(W.dtype == torch.float32)
+    f32 = W.dtype == torch.float32
+    if f32:
+        if d_in % 16 or d_out % 16:
+            raise ValueError(f"folded_matmul: D_in {d_in} and D_out {d_out} "
+                             "must be multiples of 16")
+        if f32_smem_bytes(d_in, w) > SMEM_LIMIT:
+            raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs "
+                             "more shared memory than a block has")
+    else:
+        pl = plan(t, d_in, d_out, w,
+                  torch.cuda.get_device_properties(dev).multi_processor_count)
     build.check_tensor("x", x, torch.float32, (t, d_in), dev)
     build.check_tensor("W", W, W.dtype, (n_win * d_in, d_out), dev)
     build.check_tensor("b", b, torch.float32, (d_out,), dev)
@@ -120,19 +220,22 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
         if r is not None:
             build.check_tensor(name, r, torch.float32, (t, d_out), dev)
     lib = _lib()
-    if lib.folded_matmul_smem_bytes(d_in, w, f32) > 227 * 1024:
-        raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs more "
-                         "shared memory than a block has")
     out = torch.empty((t, d_out), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.folded_matmul_launch(
-            x.data_ptr(), W.data_ptr(), b.data_ptr(),
+    args = (x.data_ptr(), W.data_ptr(), b.data_ptr(),
             None if residual is None else residual.data_ptr(),
             None if accum is None else accum.data_ptr(),
             out.data_ptr(), valid.data_ptr(), t, d_in, d_out, w,
             int(pre_lrelu), float(lrelu_slope), int(out_scale is not None),
-            float(out_scale if out_scale is not None else 1.0), f32, stream)
+            float(out_scale if out_scale is not None else 1.0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if f32:
+            err = lib.folded_matmul_f32_launch(*args, stream)
+        else:
+            err = lib.folded_matmul_bf16_launch(
+                *args, pl.tm, pl.tn, pl.n_wg, int(pl.resident), pl.bpp,
+                pl.n_panels, pl.w_slot, pl.x_off, pl.x_bytes, pl.a_off,
+                pl.a_bytes, pl.bar_off, pl.smem, stream)
     build.check(lib, err, "folded_matmul")
     launches[W.dtype] += 1
     return out

@@ -38,3 +38,22 @@ def time_ms(fn, iters: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host_ms
+
+
+def time_ms_flushed(fn, iters: int, flush_bytes: int = 64 << 20) -> float:
+    """Device ms per call with the 50 MB L2 cache flushed before each: a
+    write of ``flush_bytes`` between calls, outside the timed spans (CUDA
+    events around each call alone), queued while the card sleeps."""
+    buf = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)
+    for start, end in spans:
+        buf.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / iters

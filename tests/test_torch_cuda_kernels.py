@@ -2,7 +2,7 @@
 tests need a CUDA device and nvcc, and skip without them; on a machine
 with a card run them with
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
 import numpy as np
@@ -12,7 +12,7 @@ import torch
 from efficientspeech_tpu_torch.config import HifiGanConfig, ModelConfig
 from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
 from efficientspeech_tpu_torch.models.hifigan_folded import (
-    fold_hifigan, prepare_for_kernels)
+    fold_hifigan, kernel_op_shapes, prepare_for_kernels)
 from efficientspeech_tpu_torch.models.modules import reset_parameters
 from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
 from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
@@ -86,6 +86,68 @@ def test_folded_matmul_kernel(card, request, dtype, t, d_out, w, extras,
     assert fm.launches[dtype] == before[dtype] + 1
     assert snr_db(want, got) >= SNR_BAR[dtype]
     assert not got[t - 137:].any()
+
+
+def _k1_bf16_case(card, t, d_out, w, valid_rows, extras=False, seed=0):
+    """K1 bf16 on random inputs against its plain version: one launch,
+    SNR >= 35 dB over the valid rows, rows at or beyond valid exactly
+    zero."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(t, 128, generator=g).to(card)
+    W = (torch.randn((2 * w + 1) * 128, d_out, generator=g) * 0.05
+         ).to(card, torch.bfloat16)
+    b = torch.randn(d_out, generator=g).to(card)
+    res = torch.randn(t, d_out, generator=g).to(card) if extras else None
+    acc = torch.randn(t, d_out, generator=g).to(card) if extras else None
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
+    kw = dict(residual=res, accum=acc, out_scale=1 / 3 if extras else None,
+              pre_lrelu=True, lrelu_slope=0.01 if d_out == 16 else 0.1)
+    before = fm.launches[torch.bfloat16]
+    got = fm.folded_matmul(x, W, b, w, valid, **kw)
+    want = fm.folded_matmul_plain(x, W, b, w, valid, **kw)
+    torch.cuda.synchronize()
+    assert fm.launches[torch.bfloat16] == before + 1
+    assert torch.isfinite(got).all()
+    assert not got[valid_rows:].any()
+    if valid_rows > 0:
+        assert snr_db(want[:valid_rows], got[:valid_rows]) >= 35.0
+
+
+@pytest.mark.parametrize("key", ["up0", "up1", "up2", "up3", "post"])
+def test_folded_matmul_bf16_main_path_shapes(card, key):
+    """K1 bf16 at each op shape of the serving path for 2,048 frames."""
+    ops, _ = kernel_op_shapes(HifiGanConfig(), 2048)
+    (t, d_in, d_out, w), = [op[1:] for op in ops if op[0] == key]
+    assert d_in == 128
+    _k1_bf16_case(card, t, d_out, w, t - t // 16)
+
+
+@pytest.mark.parametrize("t,d_out,w,valid_rows,extras", [
+    pytest.param(1000, 128, 1, 1000 - 137, False, id="T-not-tile-multiple"),
+    pytest.param(777, 16, 1, 777 - 5, False, id="T-not-tile-multiple-post"),
+    pytest.param(4096, 512, 1, 0, False, id="valid-0"),
+    pytest.param(3000, 128, 1, 3000, False, id="valid-T"),
+    pytest.param(4096, 128, 2, 4096 - 300, False, id="w2-probe-route"),
+    pytest.param(1000, 128, 13, 1000 - 137, True, id="w13-res-acc-scale"),
+    pytest.param(500, 64, 1, 431, False, id="d_out-64"),
+    pytest.param(500, 32, 3, 431, True, id="d_out-32")])
+def test_folded_matmul_bf16_edges(card, t, d_out, w, valid_rows, extras):
+    """K1 bf16 at the edges of its tile plan: a ragged last tile, every
+    row or no row valid, the probe's resident w = 2 panel, the streamed
+    w = 13 panel with every epilogue operand, and narrower panels."""
+    _k1_bf16_case(card, t, d_out, w, valid_rows, extras, seed=t + w)
+
+
+def test_folded_matmul_bf16_refuses(card):
+    """What the bf16 kernel does not take raises before any launch."""
+    x = torch.zeros(64, 96, device=card)
+    W = torch.zeros(3 * 96, 128, dtype=torch.bfloat16, device=card)
+    b = torch.zeros(128, device=card)
+    valid = torch.tensor([64], dtype=torch.int32, device=card)
+    before = dict(fm.launches)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fm.folded_matmul(x, W, b, 1, valid)
+    assert fm.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -243,14 +305,17 @@ def test_fused_decoder_launches_per_preset(card, preset, width, k3_per_dir,
 
 
 @pytest.mark.parametrize("quantize", [True, False], ids=["bf16", "int8"])
-@pytest.mark.parametrize("t,tm,n_win", [(4096, 512, 5), (1000, 256, 3)])
+@pytest.mark.parametrize("t,tm,n_win", [
+    (4096, 512, 5), (4096, 256, 5), (1000, 256, 3),
+    (1000, 160, 5),   # 96 + 64 rows a cluster: not a multiple of its rows
+    (300, 96, 3)])    # a cluster of one block
 def test_int8_window_kernel(card, quantize, t, tm, n_win):
-    """K5 against its plain version: the int32 sums are exact in both, so
-    the outputs agree to 1e-6 of their largest magnitude (the one float32
-    multiply by the scale)."""
+    """K5 against its plain version: the int32 sums are exact in both and
+    the one float32 multiply by the scale rounds alike, so the outputs are
+    bit-equal."""
     d_in = d_out = 128
     _, rows = k5.layout(t, tm, n_win)
-    g = torch.Generator(device="cpu").manual_seed(t)
+    g = torch.Generator(device="cpu").manual_seed(t + tm)
     xs = torch.randn(rows, d_in, generator=g)
     x = (xs.to(torch.bfloat16) if quantize
          else torch.clamp(xs * 40, -127, 127).to(torch.int8)).to(card)
@@ -263,5 +328,5 @@ def test_int8_window_kernel(card, quantize, t, tm, n_win):
     assert (k5.launches_quant - before[0], k5.launches_int8 - before[1]) \
         == ((1, 0) if quantize else (0, 1))
     assert got.shape == want.shape and got.dtype == torch.float32
-    err = float((got - want).abs().max())
-    assert err <= 1e-6 * float(want.abs().max()), err
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert float(want.abs().max()) > 0

@@ -48,3 +48,61 @@ def test_folded_matmul_plain_matches_pallas(t, d_in, d_out, w, valid, res,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
     assert not got[valid:].any()
+
+
+def _plan_cases():
+    """(id, t, d_in, d_out, w, resident, warpgroups): every op of the
+    serving path at 2,048 and 4,096 frames, the int8 probe's w = 2 route
+    and the w = 13 resblock op."""
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.models.hifigan_folded import (
+        kernel_op_shapes)
+    cases = []
+    for frames in (2048, 4096):
+        ops, _ = kernel_op_shapes(HifiGanConfig(), frames)
+        cases += [pytest.param(t, d_in, d_out, w, True, 2,
+                               id=f"{key}-{frames}")
+                  for key, t, d_in, d_out, w in ops]
+    return cases + [
+        pytest.param(49152, 128, 128, 2, True, 1, id="probe-w2"),
+        pytest.param(8192, 128, 128, 13, False, 2, id="w13")]
+
+
+@pytest.mark.parametrize("t,d_in,d_out,w,resident,n_wg", _plan_cases())
+def test_bf16_plan_fits_and_covers_every_tile(t, d_in, d_out, w, resident,
+                                              n_wg):
+    """The bf16 kernel's tile plan: W resident (loaded once per block) or
+    streamed, and one or two warpgroups, as intended; every shared-memory
+    region inside a block's 227 KB without overlap; every (row tile,
+    column panel) owned by exactly one block of a grid of at most one
+    block an SM."""
+    p = fm.plan(t, d_in, d_out, w)
+    assert (p.resident, p.n_wg) == (resident, n_wg)
+    assert p.smem <= 227 * 1024
+    w_bytes = ((2 * w + 1) * d_in * p.tn * 2 if resident
+               else p.n_wg * p.w_slot)
+    assert p.w_slot >= d_in * p.tn * 2 and p.w_slot % 1024 == 0
+    assert p.x_off >= w_bytes and p.x_off % 1024 == 0
+    assert p.x_bytes >= (p.tm + 2 * w) * d_in * 4
+    assert p.a_off == p.x_off + p.n_wg * p.x_bytes
+    assert p.a_bytes >= (p.tm + 2 * w) * (d_in + fm.APAD) * 2
+    assert p.bar_off == p.a_off + p.n_wg * p.a_bytes
+    assert p.x_bytes % 128 == p.a_off % 128 == p.a_bytes % 128 == 0
+    assert p.smem >= p.bar_off + 8 * (p.n_wg + 1) + fm.ALIGN_SLACK
+    assert p.tn * p.n_panels == d_out and p.tm in (64, 128)
+    assert p.grid == p.bpp * p.n_panels <= fm.SMS_H100
+    n_tiles = -(-t // p.tm)
+    owned = sorted((b % p.n_panels, tile) for b in range(p.grid)
+                   for tile in range(b // p.n_panels, n_tiles, p.bpp))
+    assert owned == [(c, r) for c in range(p.n_panels)
+                     for r in range(n_tiles)]
+
+
+@pytest.mark.parametrize("d_in,d_out,w,match", [
+    (96, 128, 1, "multiple of 64"), (128, 24, 1, "multiple of 16"),
+    (128, 128, 120, "shared memory"), (1024, 128, 1, "shared memory")])
+def test_bf16_plan_refuses(d_in, d_out, w, match):
+    """A shape the bf16 kernel does not take raises in the plan, which the
+    wrapper makes before it launches anything."""
+    with pytest.raises(ValueError, match=match):
+        fm.plan(4096, d_in, d_out, w)
