@@ -6,12 +6,15 @@
 Phases (each prints its lines; any failure exits non-zero):
   1. device  - a CUDA card must be present; prints nvidia-smi's name and
                power limit; TF32 is switched off for cuBLAS and cuDNN;
-  2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel;
+  2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel,
+               and prints the registers and spills (-Xptxas -v) of the
+               kernels of folded_matmul.cu and mrf_block.cu;
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
                the kernel, the plain version and a library yardstick (the
-               bf16 ops also with the L2 cache flushed before each call);
+               main path's ops also with the L2 cache flushed before each
+               call);
   4. K2      - mrf_fused for the four vocoder stages at 2,048 frames, the
                same way;
   5. slice   - the synthesizer (tiny acoustic model, LJ_V2-width vocoder,
@@ -55,7 +58,8 @@ Phases (each prints its lines; any failure exits non-zero):
                batch.
 The kernel table goes on a JSON line before the last, 22 rows, each with
 its dtype (the rows of kernels redesigned for Hopper also name the
-design; K1/K2 times per utterance at 2,048 frames, K3/K4 times per
+design; float32 product bounds at the faster of FFMA's 67 TFLOP/s and
+3xTF32 on the tensor cores, the FFMA-route bound printed beside; K1/K2 times per utterance at 2,048 frames, K3/K4 times per
 train step: the per-launch time × the launches of a step, tiny preset for
 C = 128 and small for C = 256; K5 per call at the probe's shape); the last
 line is {"ok": true, "device": {...}}.  With --profile, the slice and
@@ -71,10 +75,12 @@ must be exactly zero.  The end-to-end waveform of the bf16 kernel route is
 held to the plain route's (bf16 operands, float32 products) at SNR >= 30
 dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
 TPU kernels op for op in bf16) at SNR >= 35 dB on every output: y, dx and
-each weight gradient.  The float32 variants compute in float32 throughout,
-as their plain versions do, in another summation order: each output is
-held at SNR >= 90 dB (a TF32 or bf16 product would land below it), the
-float32 waveform at 80 dB.  K5's int32 sums are exact in the kernel and
+each weight gradient.  The float32 variants keep float32 accuracy (K1 and
+K2 by 3xTF32 split products on the tensor cores, about 21 bits a
+product; K3 and K4 in float32 on the CUDA cores), their plain versions
+multiply in float32, in another summation order: each output is held at
+SNR >= 90 dB (one TF32 or bf16 product would land below it), the float32
+waveform at 80 dB.  K5's int32 sums are exact in the kernel and
 its plain version alike, so the two are held to 1e-6 of the output's
 largest magnitude (the one float32 multiply by the scale).  A bf16 train
 step of the kernel route is held to the plain route's at loss relative
@@ -86,6 +92,9 @@ float32 step at 1e-4 and 0.999.
 import argparse
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -98,6 +107,7 @@ from efficientspeech_tpu_torch.utils.timing import time_ms, time_ms_flushed
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor cores
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FRAMES = 2048
@@ -121,6 +131,13 @@ DESIGNS = {
     "folded_matmul": "Hopper redesign: persistent blocks of two warpgroups, "
                      "W panel loaded once per block, bulk-copy x stages, "
                      "wgmma with A in registers",
+    "folded_matmul_f32": "Hopper redesign: 3xTF32 split products on wgmma, "
+                         "transposed (W^T from L2 through registers as A, "
+                         "the split x tile as K-major B), two warpgroups",
+    "mrf_fused_f32": "Hopper redesign: 3xTF32 split products on wgmma, "
+                     "transposed (W^T from L2 through registers as A, the "
+                     "split activation buffer as K-major B, 16-row output "
+                     "chunks), v float32 in shared memory",
     "k5_bf16": "Hopper redesign: tile split over a cluster, partial maxima "
                "through distributed shared memory, W^T pre-pass and bulk "
                "copy, wgmma s8",
@@ -157,11 +174,14 @@ def f32_suffix(dtype, sep: str = " ") -> str:
 
 
 def product_bound(flops: float, nbytes: float, dtype):
-    """bound() of a matrix product: bf16 on the tensor cores, float32 on
-    the CUDA cores."""
+    """bound() of a matrix product: bf16 on the tensor cores; float32 by
+    the faster of the CUDA cores (FFMA) and 3xTF32 split products on the
+    tensor cores.  Returns (ms, what bounds it, the FFMA-route ms: the
+    yardstick before 3xTF32, None for bf16)."""
     if dtype == torch.float32:
-        return bound(0.0, nbytes, f32_flops=flops)
-    return bound(flops, nbytes)
+        return (*bound(0.0, nbytes, f32_products=flops),
+                bound(0.0, nbytes, f32_flops=flops)[0])
+    return (*bound(flops, nbytes), None)
 
 
 def fail(msg: str):
@@ -176,15 +196,24 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
 
 
 def bound(flops: float, nbytes: float, f32_flops: float = 0.0,
-          int8_ops: float = 0.0):
+          int8_ops: float = 0.0, f32_products: float = 0.0):
     """The least time (ms) for the work and what bounds it: the largest of
-    bf16 tensor-core FLOP, float32 FLOP outside the tensor cores and int8
-    tensor-core operations, each at its peak (the units run side by side),
-    and bytes at the memory rate."""
+    bf16 tensor-core FLOP, float32 FLOP outside the tensor cores, int8
+    tensor-core operations and float32 product FLOP (``f32_products``, at
+    the faster of FFMA and 3xTF32: three TF32 products each), each at its
+    peak (the units run side by side), and bytes at the memory rate."""
     t_ops = max(flops / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS,
-                int8_ops / PEAK_INT8_OPS) * 1e3
+                int8_ops / PEAK_INT8_OPS,
+                min(f32_products / PEAK_F32_FLOPS,
+                    3 * f32_products / PEAK_TF32_FLOPS)) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ffma_note(ffma_ms) -> str:
+    """What a float32 line prints beside its bound: the FFMA-route bound,
+    the yardstick the rows before 3xTF32 were reckoned on."""
+    return "" if ffma_ms is None else f" (FFMA route {ffma_ms:.4f})"
 
 
 def phase_device() -> str:
@@ -199,12 +228,60 @@ def phase_device() -> str:
     return card
 
 
+# the sources whose registers and spills the build phase prints
+PTXAS_SOURCES = ("folded_matmul", "mrf_block")
+
+
+def ptxas_lines(log: str):
+    """(kernel, registers, spill stores, spill loads) of each entry
+    function in nvcc's -Xptxas -v output, names demangled where c++filt
+    is at hand."""
+    found, name, spills = [], None, ("?", "?")
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.append([name, int(m.group(1)), *spills])
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and found:
+        out = subprocess.run([filt], input="\n".join(f[0] for f in found),
+                             capture_output=True, text=True).stdout
+        for f, demangled in zip(found, out.splitlines()):
+            f[0] = re.sub(r"\(anonymous namespace\)::", "", demangled)
+    return found
+
+
 def phase_build(card: str):
+    """Build every source of csrc/ into build/kernels/, and alongside, in
+    parallel, the sources of PTXAS_SOURCES once more with -Xptxas -v to
+    print each kernel's registers and spills."""
     from efficientspeech_tpu_torch.ops.kernels import build
 
-    secs = build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"),
+             str(build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for name in PTXAS_SOURCES}
+        secs = build.build()
+        logs = {name: proc.communicate()[0].decode(errors="replace")
+                for name, proc in procs.items()}
     print(f"[build] nvcc sm_90a, {len(build.SOURCES)} sources in parallel: "
           f"{secs:.1f} s | {card}")
+    for name, log in logs.items():
+        if procs[name].returncode != 0:
+            fail(f"nvcc -Xptxas -v failed for {name}.cu:\n{log}")
+        for kernel, regs, stores, loads in ptxas_lines(log):
+            print(f"[ptxas] {name}.cu {kernel}: {regs} registers, spill "
+                  f"stores {stores} B, spill loads {loads} B")
 
 
 def phase_k1(synth, card: str):
@@ -260,37 +337,36 @@ def phase_k1(synth, card: str):
         nbytes = (x.numel() * 4 + W.numel() * W.element_size()
                   + b.numel() * 4
                   + t * d_out * 4 * (1 + (res is not None) + (acc is not None)))
-        b_ms, by = product_bound(flops, nbytes, dt)
+        b_ms, by, ffma_ms = product_bound(flops, nbytes, dt)
         print(f"[{tag}] {name}: T {t} x {d_in} -> {d_out}, w {w} | SNR "
               f"{snr:.1f} dB (tol >= {bar}) max_abs_err {err:.3g} "
               f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-              f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({by}) | wrapper host_ms "
-              f"{host_ms:.4f} | {card}")
+              f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({by}){ffma_note(ffma_ms)} "
+              f"| wrapper host_ms {host_ms:.4f} | {card}")
         if extra:
             continue  # not on the main path: kept out of the totals
-        if dt == torch.bfloat16:
-            cold = time_ms_flushed(
-                lambda: fm.folded_matmul(x, W, b, w, valid, **kw), 20)
-            lib_cold = time_ms_flushed(lambda: torch.matmul(win, W), 20)
-            print(f"[{tag}] {name}: L2 flushed before each call: kernel_ms "
-                  f"{cold:.4f} library_ms {lib_cold:.4f} | {card}")
-            totals["flushed_ms"] = totals.get("flushed_ms", 0.0) + cold
-            totals["flushed_library_ms"] = (
-                totals.get("flushed_library_ms", 0.0) + lib_cold)
+        cold = time_ms_flushed(
+            lambda: fm.folded_matmul(x, W, b, w, valid, **kw), 20)
+        lib_cold = time_ms_flushed(lambda: torch.matmul(win, W), 20)
+        print(f"[{tag}] {name}: L2 flushed before each call: kernel_ms "
+              f"{cold:.4f} library_ms {lib_cold:.4f} | {card}")
+        totals["flushed_ms"] = totals.get("flushed_ms", 0.0) + cold
+        totals["flushed_library_ms"] = (
+            totals.get("flushed_library_ms", 0.0) + lib_cold)
+        if ffma_ms is not None:
+            totals["ffma_bound_ms"] = totals.get("ffma_bound_ms", 0.0) + ffma_ms
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += lib_ms
         totals["bound_ms"] += b_ms
         worst_err = max(worst_err, err)
         bound_by.add(by)
-    line = (f"[{tag}] per utterance ({len(ops)} ops): kernel_ms "
-            f"{totals['ms']:.4f} library_ms {totals['library_ms']:.4f} "
-            f"bound_ms {totals['bound_ms']:.4f}")
-    if "flushed_ms" in totals:
-        line += (f" | L2 flushed before each call: kernel_ms "
-                 f"{totals['flushed_ms']:.4f} library_ms "
-                 f"{totals['flushed_library_ms']:.4f}")
-    print(f"{line} | {card}")
+    print(f"[{tag}] per utterance ({len(ops)} ops): kernel_ms "
+          f"{totals['ms']:.4f} library_ms {totals['library_ms']:.4f} "
+          f"bound_ms {totals['bound_ms']:.4f}"
+          f"{ffma_note(totals.pop('ffma_bound_ms', None))} | L2 flushed "
+          f"before each call: kernel_ms {totals['flushed_ms']:.4f} "
+          f"library_ms {totals['flushed_library_ms']:.4f} | {card}")
     return dict(totals, max_abs_err=worst_err,
                 bound_by="operations" if "operations" in bound_by
                 else "bytes")
@@ -334,20 +410,26 @@ def phase_k2(synth, card: str):
                     for chain in chains for _, n_win, _, _ in chain)
         nbytes = (2 * t * 128 * 4 + W_all.numel() * W_all.element_size()
                   + b_all.numel() * 4)
-        b_ms, by = product_bound(flops, nbytes, dt)
-        max_rows = mrf_block._lib().mrf_max_rows(int(dt == torch.float32))
-        print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, tile "
-              f"{mrf_block.tile_rows(H, max_rows)} | {flops / 1e9:.1f} GFLOP "
-              f"| SNR {snr:.1f} dB (tol >= {bar}) max_abs_err {err:.3g} "
-              f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-              f"bound_ms {b_ms:.4f} ({by}) | achieved "
-              f"{flops / ms / 1e9:.1f} TFLOP/s | wrapper host_ms "
-              f"{host_ms:.4f} | {card}")
+        b_ms, by, ffma_ms = product_bound(flops, nbytes, dt)
+        tile = (mrf_block.f32_plan(mrf_block.chain_widths(chains), t).tm
+                if dt == torch.float32
+                else mrf_block.tile_rows(H, mrf_block._lib().mrf_max_rows()))
+        print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, tile {tile} "
+              f"| {flops / 1e9:.1f} GFLOP | SNR {snr:.1f} dB (tol >= {bar}) "
+              f"max_abs_err {err:.3g} | kernel_ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms null bound_ms {b_ms:.4f} ({by})"
+              f"{ffma_note(ffma_ms)} | achieved {flops / ms / 1e9:.1f} "
+              f"TFLOP/s | wrapper host_ms {host_ms:.4f} | {card}")
+        if ffma_ms is not None:
+            totals["ffma_bound_ms"] = totals.get("ffma_bound_ms", 0.0) + ffma_ms
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["bound_ms"] += b_ms
         worst_err = max(worst_err, err)
         bound_by.add(by)
+    print(f"[{tag}] per utterance ({len(stages)} stages): kernel_ms "
+          f"{totals['ms']:.4f} bound_ms {totals['bound_ms']:.4f}"
+          f"{ffma_note(totals.pop('ffma_bound_ms', None))} | {card}")
     return dict(totals, max_abs_err=worst_err, library_ms=None,
                 bound_by="operations" if "operations" in bound_by
                 else "bytes")
@@ -487,19 +569,25 @@ def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB):
 
 
 def _row(tag: str, fn, plain, library, flops, f32_flops, nbytes,
-         per_step: int, card: str, iters: int = 20):
+         per_step: int, card: str, iters: int = 20,
+         f32_products: float = 0.0):
     """Time one direction of a training kernel at its main-path shape and
-    scale to the launches of one train step."""
+    scale to the launches of one train step.  ``f32_products``: float32
+    product FLOP, bound at the faster of FFMA and 3xTF32 (the FFMA-route
+    bound is printed beside)."""
     ms, host_ms = time_ms(fn, iters)
     plain_ms, _ = time_ms(plain, 3)
     lib_ms = time_ms(library, iters)[0] if library is not None else None
-    b_ms, by = bound(flops, nbytes, f32_flops)
+    b_ms, by = bound(flops, nbytes, f32_flops, f32_products=f32_products)
+    ffma_ms = (bound(flops, nbytes, f32_flops + f32_products)[0]
+               if f32_products else None)
     print(f"[{tag}] per launch: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-          f"bound_ms {b_ms:.4f} ({by}) | {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP bf16 + {f32_flops / 1e9:.2f} GFLOP f32 "
-          f"| achieved {nbytes / ms / 1e6:.0f} GB/s | wrapper host_ms "
-          f"{host_ms:.4f} | {card}")
+          f"bound_ms {b_ms:.4f} ({by}){ffma_note(ffma_ms)} | "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP bf16 + "
+          f"{(f32_flops + f32_products) / 1e9:.2f} GFLOP f32 | achieved "
+          f"{nbytes / ms / 1e6:.0f} GB/s | wrapper host_ms {host_ms:.4f} "
+          f"| {card}")
     return dict(ms=ms * per_step, plain_ms=plain_ms * per_step,
                 library_ms=None if lib_ms is None else lib_ms * per_step,
                 bound_ms=b_ms * per_step, bound_by=by)
@@ -587,21 +675,24 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     elems = b * m * c
     w_bytes = sum(w.numel() for w in weights) * 4
     mm = 2.0 * b * m * c * c  # one C x C pointwise product
-    # the products run on the tensor cores in bf16 and on the CUDA cores in
-    # float32; float32 FLOP per element outside them: forward ~22 (mask,
-    # 5 taps, biases, tanh, LayerNorm), backward ~60 (the recomputed
-    # forward, the LayerNorm and tanh gradients, 5-tap dx and tap sums)
+    # the products run on the tensor cores in bf16, and in float32 at the
+    # faster of FFMA and 3xTF32; float32 FLOP per element outside them:
+    # forward ~22 (mask, 5 taps, biases, tanh, LayerNorm), backward ~60
+    # (the recomputed forward, the LayerNorm and tanh gradients, 5-tap dx
+    # and tap sums)
     tc = 1.0 if dt == torch.bfloat16 else 0.0
     fwd = _row(f"{tag} fwd",
                lambda: k4.decoder_block_fwd(x, keep, *weights),
                lambda: k4.decoder_block_fwd_plain(x, keep, *weights), None,
-               tc * mm, 22.0 * elems + (1 - tc) * mm,
-               2 * elems * size + b * m * 4 + w_bytes, per_step, card)
+               tc * mm, 22.0 * elems,
+               2 * elems * size + b * m * 4 + w_bytes, per_step, card,
+               f32_products=(1 - tc) * mm)
     bwd = _row(f"{tag} bwd",
                lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy),
                lambda: k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy),
-               None, tc * 3 * mm, 60.0 * elems + (1 - tc) * 3 * mm,
-               3 * elems * size + b * m * 4 + 2 * w_bytes, per_step, card)
+               None, tc * 3 * mm, 60.0 * elems,
+               3 * elems * size + b * m * 4 + 2 * w_bytes, per_step, card,
+               f32_products=(1 - tc) * 3 * mm)
     return dict(fwd, max_abs_err=err_f), dict(bwd, max_abs_err=err_b)
 
 

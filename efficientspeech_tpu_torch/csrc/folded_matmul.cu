@@ -68,22 +68,43 @@
 // 35 dB.
 //
 // The float32 variant (W float32, the serving dtype of --precision f32)
-// multiplies float32 operands into float32 sums on the CUDA cores (FFMA):
-// nothing is rounded to bf16 or TF32.  It is bound by operations (2 * 3 *
-// 128 FLOP an output element against 67 TFLOP/s of float32).  The x tile
-// with its halo is staged once as float32 (activation applied); W streams
-// from L2 through shared memory in chunks of 16 rows, double-buffered
-// through registers.  A block computes 64 rows x 128 columns, each thread 4
-// rows x 8 columns (D_out a multiple of 128), or 64 rows x 16 columns, each
-// thread 1 row x 4 columns (other multiples of 16: the post conv's 16).
-// The epilogue writes the same function.  Held to the plain version at
-// SNR >= 90 dB.
+// keeps float32 accuracy on the tensor cores by 3xTF32 split products
+// (csrc/tf32x3.cuh): 3 x 2 * 3 * 128 TF32 FLOP an output element against
+// 494.7 TFLOP/s, 10.19 GFLOP and 0.062 ms per 2,048-frame utterance,
+// against 0.152 ms of float32 FFMA.  wgmma takes TF32 operands K-major
+// only, so the product runs transposed, y^T = W^T act(x)^T:
+// - A is W^T from registers: each warp loads its 16 output columns x 8
+//   k rows of W straight from L2 (row-major W, 32-byte runs, no transpose
+//   anywhere), two k-steps ahead of its use, and splits them in
+//   registers (tf32x3::k_loop).  Each element of W is loaded once per
+//   tile.
+// - B is the activated x tile with its 2w halo rows, split once into a
+//   hi and a lo copy in shared memory in the layout of tf32x3.cuh: rows
+//   16 bytes apart within each chunk of 4 channels, so tap j's B is the
+//   same descriptor started j rows further, and wgmma's N is the tile's
+//   rows: 64 or 128 a warpgroup.
+// - A block is two warpgroups: for D_out a multiple of 128 each takes 64
+//   output columns of a 128-column panel over the same rows; for a
+//   narrower D_out (the post conv's 16) both take the panel, padded to
+//   wgmma's 64 (the padding loads zeros), over the two halves of the
+//   tile's rows.  The tile plan comes from folded_matmul.py::f32_plan.
+// - Per k-step, three wgmma.m64nNk8 (N = 64 or 128 rows; lo x hi, hi x
+//   lo, hi x hi) into the same float32 accumulators; the A registers
+//   rotate through four sets and two commit groups stay in flight.
+// - The epilogue moves the accumulators through shared memory so that
+//   every device-memory access is a 16-byte run of a row (scalar stores
+//   straight from the accumulator layout took a third of the kernel's
+//   time), with bias, residual, accum, scale and rows >= valid zero
+//   (valid read from device memory); a tile whose rows all lie at or
+//   beyond valid loads nothing and writes zeros.
+// Held to the plain version at SNR >= 90 dB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -474,175 +495,169 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
 
 namespace f32v {
 
-constexpr int TM = 64;      // rows per block
-constexpr int NT = 256;     // threads per block
-constexpr int KC = 16;      // W rows per streamed chunk
-constexpr int XPAD = 4;     // float32 row padding of the x tile (banks)
+constexpr int NT = 256;   // two warpgroups
 
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
+struct Params {
+  const float* x;
+  const float* W;
+  const float* bias;
+  const float* residual;
+  const float* accum;
+  float* out;
+  const int* valid;
+  int T, d_in, d_out, w;
+  int pre_lrelu;
+  float slope;
+  int has_scale;
+  float out_scale;
+  // the plan: columns a block (tn < 128: both warpgroups take them, over
+  // the two halves of the rows), rows a block, panels, rows of a channel
+  // chunk in shared memory (its stride is r_alloc * 16 bytes), the lo
+  // copy's byte offset
+  int tn, tile_rows, n_panels, r_alloc, lo_off;
+};
 
-__host__ __device__ constexpr size_t x_bytes(int d_in, int w) {
-  return align16((size_t)(TM + 2 * w) * (d_in + XPAD) * 4);
-}
-
-// TN columns per block; each thread RM rows (ty + TY i) x CG runs of 4
-// columns (g * TN / CG + 4 tx).
-template <int TN, int RM, int CG>
-__global__ void __launch_bounds__(NT) folded_matmul_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ W,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    const float* __restrict__ accum, float* __restrict__ out,
-    const int* __restrict__ valid_ptr, int T, int d_in, int d_out, int w,
-    int pre_lrelu, float slope, int has_scale, float out_scale) {
-  constexpr int TX = TN / (4 * CG);  // threads across the columns
-  constexpr int TY = NT / TX;        // threads across the rows
-  constexpr int V4 = KC * TN / 4;    // float4 in a W chunk
-  constexpr int PER = (V4 + NT - 1) / NT;
-  static_assert(TY * RM == TM, "rows split over threads");
+// 64 NC rows a warpgroup (wgmma's N)
+template <int NC>
+__global__ void __launch_bounds__(NT, 1)
+    folded_matmul_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = TM + 2 * w;
-  const int ldx = d_in + XPAD;
-  float* xs = reinterpret_cast<float*>(smem);
-  float* ws = reinterpret_cast<float*>(smem + x_bytes(d_in, w));
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int T = p.T, d_in = p.d_in, d_out = p.d_out, w = p.w;
+  const int col0 = (blockIdx.x % p.n_panels) * p.tn;
+  const int row0 = (blockIdx.x / p.n_panels) * p.tile_rows;
+  const int row_end = min(row0 + p.tile_rows, T);
+  const int valid = min(max(*p.valid, 0), T);
 
-  const int row0 = blockIdx.x * TM;
-  const int col_tile = blockIdx.y * TN;
-  const int tid = threadIdx.x;
-  const int valid = *valid_ptr;
-
-  if (row0 >= valid) {  // every row of the tile is masked: write zeros only
-    for (int i = tid; i < TM * TN; i += NT) {
-      const int g = row0 + i / TN;
-      if (g < T) out[(size_t)g * d_out + col_tile + i % TN] = 0.f;
+  if (row0 >= valid) {  // every row at or beyond valid: zeros only
+    const int q = p.tn / 4;
+    for (int e = tid; e < (row_end - row0) * q; e += NT) {
+      const int r = e / q, c = (e - r * q) * 4;
+      *reinterpret_cast<float4*>(p.out + (size_t)(row0 + r) * d_out + col0 +
+                                 c) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     return;
   }
 
-  // x rows [row0 - w, row0 - w + rows) -> shared float32, activation
-  // applied
-  const int q = d_in / 4;
-  for (int idx = tid; idx < rows * q; idx += NT) {
-    const int r = idx / q, c4 = idx - r * q;
-    const int g = row0 - w + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g >= 0 && g < T)
-      v = reinterpret_cast<const float4*>(x + (size_t)g * d_in)[c4];
-    if (pre_lrelu) {
-      v.x = v.x >= 0.f ? v.x : v.x * slope;
-      v.y = v.y >= 0.f ? v.y : v.y * slope;
-      v.z = v.z >= 0.f ? v.z : v.z * slope;
-      v.w = v.w >= 0.f ? v.w : v.w * slope;
-    }
-    *reinterpret_cast<float4*>(xs + (size_t)r * ldx + c4 * 4) = v;
-  }
-
-  // chunk ch covers W rows [ch * KC, ch * KC + KC) (tap ch / (d_in / KC)),
-  // columns [col_tile, col_tile + TN)
-  const int nk = d_in / KC, nch = (2 * w + 1) * nk;
-  float4 pf[PER];
-  auto fetch = [&](int ch) {
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int i = tid + p * NT;
-      if (i < V4) {
-        const int r = i / (TN / 4), c4 = i - r * (TN / 4);
-        pf[p] = *reinterpret_cast<const float4*>(
-            W + (size_t)(ch * KC + r) * d_out + col_tile + c4 * 4);
+  // B: rows [row0 - w, row0 + tile_rows + w) of act(x), split, rows
+  // outside [0, T) zero
+  const uint32_t chunk = p.r_alloc * 16;
+  {
+    const int rows = p.tile_rows + 2 * w, q = d_in / 4;
+#pragma unroll 4
+    for (int e = tid; e < rows * q; e += NT) {
+      const int r = e / q, c4 = e - r * q;
+      const int gr = row0 - w + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr >= 0 && gr < T)
+        v = __ldg(reinterpret_cast<const float4*>(p.x + (size_t)gr * d_in) +
+                  c4);
+      if (p.pre_lrelu) {
+        v.x = v.x >= 0.f ? v.x : v.x * p.slope;
+        v.y = v.y >= 0.f ? v.y : v.y * p.slope;
+        v.z = v.z >= 0.f ? v.z : v.z * p.slope;
+        v.w = v.w >= 0.f ? v.w : v.w * p.slope;
       }
+      float4 lo;
+      const float4 hi = tf32x3::split4(v, lo);
+      unsigned char* dst = smem + c4 * chunk + r * 16;
+      *reinterpret_cast<float4*>(dst) = hi;
+      *reinterpret_cast<float4*>(dst + p.lo_off) = lo;
     }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int i = tid + p * NT;
-      if (i < V4) reinterpret_cast<float4*>(ws + buf * KC * TN)[i] = pf[p];
-    }
-  };
-  fetch(0);
-  stash(0);
+  }
+  sm90::fence_proxy_async();
   __syncthreads();
 
-  const int tx = tid % TX, ty = tid / TX;
-  float acc[RM][4 * CG];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * CG; ++j) acc[i][j] = 0.f;
+  // this warpgroup's columns and rows; this thread's A columns ca, ca + 8
+  const bool split_rows = p.tn < 128;
+  const int cg = split_rows ? 0 : 64 * wg;
+  const int rg = split_rows ? 64 * NC * wg : 0;
+  const int tn_w = split_rows ? p.tn : 64;
+  const int ca = 16 * warp + g;
+  const bool ok0 = ca < tn_w, ok1 = ca + 8 < tn_w;
+  const float* wa = p.W + col0 + cg + ca;
 
-  for (int ch = 0; ch < nch; ++ch) {
-    const int tap = ch / nk, k0 = (ch - tap * nk) * KC;
-    const float* cur = ws + (ch & 1) * KC * TN;
-    if (ch + 1 < nch) fetch(ch + 1);
+  float acc[NC * 32];  // one 64 NC-row accumulator
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float bv[4 * CG];
+  for (int i = 0; i < NC * 32; ++i) acc[i] = 0.f;
+  const uint32_t b_hi = sm90::smem_u32(smem) + rg * 16;
+  const uint64_t d_hi = tf32x3::desc(b_hi, chunk),
+                 d_lo = tf32x3::desc(b_hi + p.lo_off, chunk);
+  const float* wt = wa + (size_t)t * d_out;
+  int tap = 0, kc = 0;  // of the next step issued
+  tf32x3::k_loop<2, 4>(
+      (2 * w + 1) * d_in / 8,
+      [&](int s, float (&r)[4]) {  // k rows 8 s + t, 8 s + t + 4
+        const float* q0 = wt + (size_t)(8 * s) * d_out;
+        const float* q1 = q0 + (size_t)4 * d_out;
+        r[0] = ok0 ? __ldg(q0) : 0.f;
+        r[1] = ok1 ? __ldg(q0 + 8) : 0.f;
+        r[2] = ok0 ? __ldg(q1) : 0.f;
+        r[3] = ok1 ? __ldg(q1 + 8) : 0.f;
+      },
+      [&](int, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
+        // rows from tap, channels kc .. kc + 7, in 16-byte units
+        const uint32_t k = (kc >> 2) * p.r_alloc + tap;
+        tf32x3::mma3<64 * NC>(acc, hi, lo, d_hi + k, d_lo + k, 1);
+        kc += 8;
+        if (kc == d_in) kc = 0, ++tap;
+      });
 #pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const float4 b4 = *reinterpret_cast<const float4*>(
-            cur + kk * TN + g * (TN / CG) + 4 * tx);
-        bv[4 * g] = b4.x; bv[4 * g + 1] = b4.y;
-        bv[4 * g + 2] = b4.z; bv[4 * g + 3] = b4.w;
+  for (int i = 0; i < NC * 32; ++i) sm90::reg_fence(acc[i]);
+  __syncthreads();  // both warpgroups are done reading the x tile
+
+  // epilogue: acc[4 j + 2 h + e] is output column ca + 8 h of row
+  // 8 j + 2 t + e of this warpgroup's rows.  The tile goes through
+  // shared memory (over the x tile, rows ldo = tn + 4 floats apart: the
+  // lanes' stores meet 32 banks), then to device memory in 16-byte
+  // stores with bias, residual, accum, scale and the valid-row mask.
+  float* ot = reinterpret_cast<float*>(smem);
+  const int ldo = p.tn + 4;
+#pragma unroll
+  for (int j = 0; j < 8 * NC; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (h ? ok1 : ok0)
+          ot[(rg + 8 * j + 2 * t + e) * ldo + cg + ca + 8 * h] =
+              acc[4 * j + 2 * h + e];
+  __syncthreads();
+  const int q = p.tn / 4;
+  for (int e = tid; e < (row_end - row0) * q; e += NT) {
+    const int r = e / q, c = (e - r * q) * 4;
+    const int row = row0 + r;
+    const size_t o = (size_t)row * d_out + col0 + c;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < valid) {
+      v = *reinterpret_cast<const float4*>(ot + r * ldo + c);
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(p.bias + col0 + c));
+      v.x += bb.x; v.y += bb.y; v.z += bb.z; v.w += bb.w;
+      if (p.residual) {
+        const float4 u = *reinterpret_cast<const float4*>(p.residual + o);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
       }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float av = xs[(size_t)(ty + TY * i + tap) * ldx + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < 4 * CG; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      if (p.accum) {
+        const float4 u = *reinterpret_cast<const float4*>(p.accum + o);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+      }
+      if (p.has_scale) {
+        v.x *= p.out_scale; v.y *= p.out_scale;
+        v.z *= p.out_scale; v.w *= p.out_scale;
       }
     }
-    if (ch + 1 < nch) stash((ch + 1) & 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int g = row0 + ty + TY * i;
-    if (g >= T) continue;
-#pragma unroll
-    for (int gg = 0; gg < CG; ++gg) {
-      const int col = col_tile + gg * (TN / CG) + 4 * tx;
-      const size_t o = (size_t)g * d_out + col;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][4 * gg + j] + bias[col + j];
-        if (residual) v[j] += residual[o + j];
-        if (accum) v[j] += accum[o + j];
-        if (has_scale) v[j] *= out_scale;
-        if (g >= valid) v[j] = 0.f;
-      }
-      *reinterpret_cast<float4*>(out + o) = make_float4(v[0], v[1], v[2], v[3]);
-    }
+    *reinterpret_cast<float4*>(p.out + o) = v;
   }
 }
 
-// wide: 128 columns, 4 x 8 a thread; narrow: 16 columns, 1 x 4 a thread
-constexpr int WIDE_TN = 128, NARROW_TN = 16;
-
-constexpr size_t smem_bytes(int d_in, int w, int tn) {
-  return x_bytes(d_in, w) + 2 * (size_t)KC * tn * 4;
-}
-
-template <int TN, int RM, int CG>
-int launch(const void* x, const void* W, const void* bias,
-           const void* residual, const void* accum, void* out,
-           const void* valid, int T, int d_in, int d_out, int w,
-           int pre_lrelu, float slope, int has_scale, float out_scale,
-           cudaStream_t stream) {
-  const int smem = static_cast<int>(smem_bytes(d_in, w, TN));
+template <int NC>
+int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      folded_matmul_f32_kernel<TN, RM, CG>,
+      folded_matmul_f32_kernel<NC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + TM - 1) / TM, d_out / TN);
-  folded_matmul_f32_kernel<TN, RM, CG><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(W),
-      static_cast<const float*>(bias), static_cast<const float*>(residual),
-      static_cast<const float*>(accum), static_cast<float*>(out),
-      static_cast<const int*>(valid), T, d_in, d_out, w, pre_lrelu, slope,
-      has_scale, out_scale);
+  folded_matmul_f32_kernel<NC><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -686,21 +701,34 @@ int folded_matmul_bf16_launch(
   return cudaErrorInvalidValue;
 }
 
-// float32 W; D_in and D_out multiples of 16, shared memory
-// f32v::smem_bytes(d_in, w, WIDE_TN) (folded_matmul.py::f32_smem_bytes).
-int folded_matmul_f32_launch(const void* x, const void* W, const void* bias,
-                             const void* residual, const void* accum,
-                             void* out, const void* valid, int T, int d_in,
-                             int d_out, int w, int pre_lrelu, float slope,
-                             int has_scale, float out_scale, void* stream) {
+// float32 W; x, bias, residual, accum and out float32.  The plan (panel
+// width tn, 64-row chunks a warpgroup nc, rows a block, rows of a channel
+// chunk, the lo copy's offset, shared memory: the split x tile, then the
+// output tile) comes from
+// folded_matmul.py::f32_plan.
+int folded_matmul_f32_launch(
+    const void* x, const void* W, const void* bias, const void* residual,
+    const void* accum, void* out, const void* valid, int T, int d_in,
+    int d_out, int w, int pre_lrelu, float slope, int has_scale,
+    float out_scale, int tn, int nc, int tile_rows, int r_alloc, int lo_off,
+    int smem, void* stream) {
+  f32v::Params p{static_cast<const float*>(x), static_cast<const float*>(W),
+                 static_cast<const float*>(bias),
+                 static_cast<const float*>(residual),
+                 static_cast<const float*>(accum), static_cast<float*>(out),
+                 static_cast<const int*>(valid), T, d_in, d_out, w,
+                 pre_lrelu, slope, has_scale, out_scale, tn, tile_rows,
+                 tn > 0 ? d_out / tn : 0, r_alloc, lo_off};
+  if (d_in % 32 || (tn != 128 && tn != 64 && tn != 32 && tn != 16) ||
+      d_out % tn || tile_rows != 64 * nc * (tn < 128 ? 2 : 1) ||
+      r_alloc < tile_rows + 2 * w || lo_off < d_in / 4 * r_alloc * 16 ||
+      smem < 2 * lo_off || smem < tile_rows * (tn + 4) * 4)
+    return cudaErrorInvalidValue;
+  const int grid = (T + tile_rows - 1) / tile_rows * p.n_panels;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d_out % f32v::WIDE_TN == 0)
-    return f32v::launch<f32v::WIDE_TN, 4, 2>(
-        x, W, bias, residual, accum, out, valid, T, d_in, d_out, w,
-        pre_lrelu, slope, has_scale, out_scale, s);
-  return f32v::launch<f32v::NARROW_TN, 1, 1>(
-      x, W, bias, residual, accum, out, valid, T, d_in, d_out, w, pre_lrelu,
-      slope, has_scale, out_scale, s);
+  if (nc == 2) return f32v::launch<2>(p, grid, smem, s);
+  if (nc == 1) return f32v::launch<1>(p, grid, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

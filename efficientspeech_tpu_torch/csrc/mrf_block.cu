@@ -42,25 +42,50 @@
 // SNR >= 35 dB.
 //
 // The float32 variant (W_all float32, the serving dtype of --precision
-// f32) multiplies float32 operands into float32 sums on the CUDA cores
-// (FFMA), nothing rounded to bf16 or TF32: at 2,048 frames ~252 GFLOP
-// against 67 TFLOP/s of float32, so operations bound it.  Its activation
-// buffer is float32 too, so a tile holds at most 176 rows with its halos
-// (192-row buffers: v and the activation, 101 KB each): every stage keeps
-// the bf16 variant's tile height (stage 0: 64, H = 33; stages 1-3: 128).
-// Each op's weights stream from L2 through shared memory in panels of 16
-// rows (8 KB), double-buffered through registers; each of 256 threads
-// accumulates up to 11 row groups (rows ty + 16 i) x 8 columns (4 tx +
-// 64 g) of the conv output in registers, reading its rows' activations as
-// float4 along k, until every thread has read the activation buffer,
-// which is then rewritten in place, as in the bf16 variant.  The number
-// of row groups is a template constant (one instantiation per count), so
-// the inner loop carries no predicates.  Held to the plain version at
-// SNR >= 90 dB.
+// f32) keeps float32 accuracy on the tensor cores by 3xTF32 split
+// products (csrc/tf32x3.cuh): 3 x ~252 GFLOP at 2,048 frames against
+// 494.7 TFLOP/s of TF32, 1.53 ms, where float32 FFMA would need 3.76 ms.
+// wgmma takes TF32 operands K-major only, so each conv runs transposed,
+// conv^T = W^T act^T:
+//   * A is W^T from registers: each warp loads its 16 output channels x 8
+//     k rows of the op's W straight from L2 (row-major, 32-byte runs),
+//     four k-steps ahead of their use, and splits them in registers; the
+//     block's two warpgroups take 64 output channels each, so the block
+//     reads each weight once per tile and per op, and no warp fetches
+//     another's; two commit groups stay in flight (tf32x3::k_loop).
+//     What bounds it: those loads, 4 KB of W a k-step and SM against
+//     3 x 2 x 64 x N x 8 products; the same k loop reaches nearly the
+//     TF32 rate with A held in registers and falls well below it with A
+//     from L2 at N = 64 rows (probes/tf32_wgmma.py), so a tall tile is
+//     worth its halo;
+//   * B is the activation buffer, kept split (a hi and a lo copy) in the
+//     layout of tf32x3.cuh: rows 16 bytes apart within each chunk of 4
+//     channels, so tap j is the same descriptor started j rows further,
+//     and wgmma's N is the conv's output rows, in chunks of 64 and 16
+//     (16-row granularity: a conv computes at most 15 rows past its
+//     extent, which are never kept);
+//   * v, the residual stream, stays float32 in shared memory; the
+//     epilogue of each conv (bias, residual, the valid-row mask, v, and
+//     the activation split into its two copies) works from the
+//     accumulator registers once both warpgroups have finished reading
+//     the buffer, which is then rewritten in place;
+//   * the tile height per stage, the buffers' rows and offsets come from
+//     mrf_block.py::f32_plan (rows of a chunk = 1 mod 8, so the epilogue's
+//     stores meet 32 banks).
+// Two designs that share W through shared memory measured slower on the
+// H100 at every tile height tried: rows as wgmma's M with W^T split once
+// per block into a slot ring and a block barrier each k-step, and the
+// same with a producer warp and full/empty mbarriers (ptxas serialised
+// its wgmmas).
+// Held to the plain version at SNR >= 90 dB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+#include "tf32x3.cuh"
 
 using namespace nvcuda;
 
@@ -242,150 +267,147 @@ mrf_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ W,
 
 namespace f32v {
 
-constexpr int MAX_RG = 11;    // 16-row groups of a conv output: tm + 2H <= 176
-constexpr int LD = D + 4;     // float32 stride (528 B rows, 16-byte aligned)
-constexpr int KP = 16;        // weight rows per streamed panel
-constexpr int NT = 256;
-constexpr int PER = KP * D / 4 / NT;  // float4 a thread per panel
+constexpr int NT = 256;       // two warpgroups, 64 output channels each
+constexpr int LDV = D + 4;    // v's float32 stride: the epilogue meets 32 banks
+constexpr int MAX_N = 176;    // rows of a conv output: two 64-row and three
+                              // 16-row chunks
 
-__host__ __device__ constexpr size_t buf_bytes(int tm, int H) {
-  return (size_t)(tm + 2 * H + 16) * LD * 4;
+// the plan (mrf_block.py::f32_plan): tile rows, the halo, rows of a
+// channel chunk of the activation buffer (its stride r_alloc * 16 bytes),
+// byte offsets of the lo copy and of v
+struct Plan {
+  int tm, H, r_alloc, lo_off, v_off;
+};
+
+// the activation of value v, split, at buffer row r and channel c
+__device__ __forceinline__ void put_act(unsigned char* smem, const Plan& pl,
+                                        int r, int c, float v) {
+  uint32_t hi, lo;
+  tf32x3::split(v, hi, lo);
+  const int o = (c >> 2) * pl.r_alloc * 16 + r * 16 + (c & 3) * 4;
+  *reinterpret_cast<uint32_t*>(smem + o) = hi;
+  *reinterpret_cast<uint32_t*>(smem + pl.lo_off + o) = lo;
 }
 
-// acc[i] (i < NRG) += the conv of the activation rows from a, for the
-// thread's output rows a + w + 16 i + ty and columns 4 tx + 64 h: the
-// op's weights stream through `panel` (2 x KP x D floats) from L2, one
-// panel ahead in registers.  NRG, the conv's 16-row groups, is a
-// compile-time constant so the row loop carries no predicates; each
-// thread reads its rows' activations as float4 along k (4 steps of k a
-// load).  Starts and ends with a barrier: every thread is done reading
-// `act` when it returns.
-template <int NRG>
-__device__ __forceinline__ void conv_acc(const float* act, float* panel,
-                                         const float* __restrict__ Wop,
-                                         int w, int a,
-                                         float (&acc)[MAX_RG][8]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  // panel p holds the op's W rows [p KP, p KP + KP): tap p / (D / KP)
-  const int np = (2 * w + 1) * (D / KP);
-  const float4* w4 = reinterpret_cast<const float4*>(Wop);
-  float4* p4 = reinterpret_cast<float4*>(panel);
-  float4 pf[PER];
-#pragma unroll
-  for (int q = 0; q < PER; ++q) p4[tid + q * NT] = w4[tid + q * NT];
-  __syncthreads();
-  for (int p = 0; p < np; ++p) {
-    const int tap = p / (D / KP), k0 = (p % (D / KP)) * KP;
-    const float* cur = panel + (p & 1) * KP * D;
-    if (p + 1 < np) {
-#pragma unroll
-      for (int q = 0; q < PER; ++q)
-        pf[q] = w4[(size_t)(p + 1) * (KP * D / 4) + tid + q * NT];
-    }
-    const float* arow = act + (size_t)(a + ty + tap) * LD + k0;
-#pragma unroll
-    for (int k4 = 0; k4 < KP; k4 += 4) {
-      float4 av[NRG];
-#pragma unroll
-      for (int i = 0; i < NRG; ++i)
-        av[i] = *reinterpret_cast<const float4*>(arow + i * 16 * LD + k4);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* brow = cur + (k4 + q) * D + 4 * tx;
-        const float4 b0 = *reinterpret_cast<const float4*>(brow);
-        const float4 b1 = *reinterpret_cast<const float4*>(brow + 64);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < NRG; ++i) {
-          const float x = q == 0 ? av[i].x : q == 1 ? av[i].y
-                        : q == 2 ? av[i].z : av[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
-        }
-      }
-    }
-    if (p + 1 < np) {
-      float4* nxt = p4 + ((p + 1) & 1) * (KP * D / 4);
-#pragma unroll
-      for (int q = 0; q < PER; ++q) nxt[tid + q * NT] = pf[q];
-    }
-    __syncthreads();  // (the last one: every thread is done reading `act`)
-  }
-}
-
-// One folded conv over the activation rows [a, b) of `act`, writing rows
-// [a+w, b-w), as the bf16 conv_op.  second: the output is v's residual
-// update (v += conv), and v's new activation replaces `act`; otherwise the
-// activated output itself replaces `act`.
-__device__ void conv_op(bool second, float* V, float* act, float* panel,
+// One folded conv over the activation rows [a, b), writing rows
+// [a + w, b - w), as the bf16 conv_op.  SECOND: the output is v's
+// residual update (v += conv), and v's new activation replaces the
+// buffer's; otherwise the activated output itself replaces it.
+template <bool SECOND>
+__device__ void conv_op(unsigned char* smem, const Plan& pl,
                         const float* __restrict__ Wop,
                         const float* __restrict__ bias, int w, int a, int b,
                         int base, int valid, float slope) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int o0 = a + w;
-  const int olen = (b - a) - 2 * w;
-  const int nrg = (olen + 15) >> 4;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int o0 = a + w, end = b - w;
+  const int npad = (end - o0 + 15) & ~15;
+  const int n64 = min(npad >> 6, 2), n16 = (npad - 64 * n64) >> 4;
+  // A's rows g and g + 8 of the warp's 16 are output channels ca and
+  // ca + 1: each lane loads its two of a k row as 8 bytes
+  const int ca = 64 * wg + 16 * warp + 2 * g;
+  const float* wa = Wop + ca;
 
-  float acc[MAX_RG][8];
+  float acc64[2][32], acc16[3][8];
 #pragma unroll
-  for (int i = 0; i < MAX_RG; ++i)
+  for (int c = 0; c < 2; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  switch (nrg) {
-#define MRF_CASE(n) \
-    case n: conv_acc<n>(act, panel, Wop, w, a, acc); break;
-    MRF_CASE(1) MRF_CASE(2) MRF_CASE(3) MRF_CASE(4) MRF_CASE(5)
-    MRF_CASE(6) MRF_CASE(7) MRF_CASE(8) MRF_CASE(9) MRF_CASE(10)
-    MRF_CASE(11)
-#undef MRF_CASE
-  }
-  static_assert(MAX_RG == 11, "one case per row-group count");
+    for (int i = 0; i < 32; ++i) acc64[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc16[c][i] = 0.f;
+  const uint32_t b_hi = sm90::smem_u32(smem) + a * 16;
+  const uint64_t d_hi = tf32x3::desc(b_hi, pl.r_alloc * 16),
+                 d_lo = tf32x3::desc(b_hi + pl.lo_off, pl.r_alloc * 16);
+  const float* wt = wa + (size_t)t * D;
+  tf32x3::k_loop<4, 8>(
+      (2 * w + 1) * (D / 8),
+      [&](int s, float (&r)[4]) {  // k rows 8 s + t, 8 s + t + 4
+        const float* q0 = wt + (size_t)(8 * s) * D;
+        const float2 k0 = __ldg(reinterpret_cast<const float2*>(q0));
+        const float2 k4 = __ldg(reinterpret_cast<const float2*>(q0 + 4 * D));
+        r[0] = k0.x;
+        r[1] = k0.y;
+        r[2] = k4.x;
+        r[3] = k4.y;
+      },
+      [&](int s, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
+        // rows from tap s / 16, channels (s % 16) * 8 .., in 16-byte units
+        const uint32_t k = (s & 15) * 2 * pl.r_alloc + (s >> 4);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (c < n64)
+            tf32x3::mma3<64>(acc64[c], hi, lo, d_hi + k + 64 * c,
+                             d_lo + k + 64 * c, 1);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (c < n16) {
+            const uint32_t o = k + 64 * n64 + 16 * c;
+            tf32x3::mma3<16>(acc16[c], hi, lo, d_hi + o, d_lo + o, 1);
+          }
+      });
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sm90::reg_fence(acc64[c][i]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sm90::reg_fence(acc16[c][i]);
+  __syncthreads();  // both warpgroups are done reading the buffer
 
-  const int end = b - w;
+  // acc[4 j + 2 h + e] is output channel ca + h of row 8 j + 2 t + e of
+  // its chunk
+  float* V = reinterpret_cast<float*>(smem + pl.v_off);
+  const float bv[2] = {bias[ca], bias[ca + 1]};
+  auto put = [&](int n, int h, float acc) {
+    const int r = o0 + n;
+    if (r >= end) return;
+    const int gr = base + r, c = ca + h;
+    float v = acc + bv[h];
+    if (SECOND) v += V[r * LDV + c];
+    v = (gr >= 0 && gr < valid) ? v : 0.f;
+    if (SECOND) V[r * LDV + c] = v;
+    put_act(smem, pl, r, c, lrelu(v, slope));
+  };
 #pragma unroll
-  for (int i = 0; i < MAX_RG; ++i) {
-    const int r = o0 + i * 16 + ty;
-    if (i >= nrg || r >= end) continue;
-    const int g = base + r;
-    const bool keep = g >= 0 && g < valid;
+  for (int c = 0; c < 2; ++c)
+    if (c < n64)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = 64 * h + 4 * tx;
-      float v[4];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][4 * h + j] + bias[c + j];
-        if (second) v[j] += V[(size_t)r * LD + c + j];
-        v[j] = keep ? v[j] : 0.f;
-      }
-      if (second)
-        *reinterpret_cast<float4*>(V + (size_t)r * LD + c) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(act + (size_t)r * LD + c) =
-          make_float4(lrelu(v[0], slope), lrelu(v[1], slope),
-                      lrelu(v[2], slope), lrelu(v[3], slope));
-    }
-  }
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            put(64 * c + 8 * j + 2 * t + e, h, acc64[c][4 * j + 2 * h + e]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    if (c < n16)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            put(64 * n64 + 16 * c + 8 * j + 2 * t + e, h,
+                acc16[c][4 * j + 2 * h + e]);
+  sm90::fence_proxy_async();  // the new buffer, before wgmma reads it
   __syncthreads();
 }
 
 __global__ void __launch_bounds__(NT, 1)
 mrf_kernel(const float* __restrict__ x, const float* __restrict__ W,
            const float* __restrict__ b_all, float* __restrict__ out,
-           const int* __restrict__ valid_ptr, int T, int H, int tm,
+           const int* __restrict__ valid_ptr, int T, const Plan pl,
            MrfOps ops, float inv_nk, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = tm + 2 * H + 16;
-  float* V = reinterpret_cast<float*>(smem);
-  float* act = reinterpret_cast<float*>(smem + buf_bytes(tm, H));
-  float* panel = reinterpret_cast<float*>(smem + 2 * buf_bytes(tm, H));
-
   const int tid = threadIdx.x;
+  const int tm = pl.tm, H = pl.H;
   const int row0 = blockIdx.x * tm;
   const int base = row0 - H;  // global row of buffer row 0
-  const int valid = *valid_ptr;
+  const int valid = min(max(*valid_ptr, 0), T);
+  float* V = reinterpret_cast<float*>(smem + pl.v_off);
 
   if (row0 >= valid) {  // every row of the tile is masked: write zeros only
     for (int i = tid; i < tm * D; i += NT)
@@ -393,55 +415,70 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ W,
     return;
   }
 
-  // rows past a chain's extent are read (never kept) by the last partial
-  // row group: start them at zero so they stay finite
-  for (int i = tid; i < rows * LD; i += NT) V[i] = act[i] = 0.f;
+  // rows past a conv's extent are read (never kept) by its last chunk:
+  // start the buffer at zero so they stay finite
+  for (int i = tid; i < 2 * pl.lo_off / 16; i += NT)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
+  const uint32_t chunk = pl.r_alloc * 16;
   for (int j = 0; j < ops.n_chains; ++j) {
     int M = 0;
     for (int m = 0; m < ops.n_ops[j]; ++m) M += ops.w[j][m];
     int a = H - M, b = H + tm + M;
 
-    // v := x (masked) over the chain's extent, and its activation
+    // v := x (masked) over the chain's extent, and its activation, split
+#pragma unroll 4
     for (int i = tid; i < (b - a) * (D / 4); i += NT) {
       const int r = a + i / (D / 4), c4 = i % (D / 4);
-      const int g = base + r;
+      const int gr = base + r;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (g >= 0 && g < T && g < valid)
-        v = reinterpret_cast<const float4*>(x + (size_t)g * D)[c4];
-      reinterpret_cast<float4*>(V + (size_t)r * LD)[c4] = v;
-      reinterpret_cast<float4*>(act + (size_t)r * LD)[c4] =
+      if (gr >= 0 && gr < valid)
+        v = __ldg(reinterpret_cast<const float4*>(x + (size_t)gr * D) + c4);
+      *reinterpret_cast<float4*>(V + r * LDV + c4 * 4) = v;
+      float4 lo;
+      const float4 hi = tf32x3::split4(
           make_float4(lrelu(v.x, slope), lrelu(v.y, slope),
-                      lrelu(v.z, slope), lrelu(v.w, slope));
+                      lrelu(v.z, slope), lrelu(v.w, slope)), lo);
+      unsigned char* dst = smem + c4 * chunk + r * 16;
+      *reinterpret_cast<float4*>(dst) = hi;
+      *reinterpret_cast<float4*>(dst + pl.lo_off) = lo;
     }
+    sm90::fence_proxy_async();
     __syncthreads();
 
     for (int m = 0; m + 1 < ops.n_ops[j]; m += 2) {
       const int w1 = ops.w[j][m], w2 = ops.w[j][m + 1];
-      conv_op(false, V, act, panel, W + (size_t)ops.woff[j][m] * D,
-              b_all + (size_t)ops.bidx[j][m] * D, w1, a, b, base, valid,
-              slope);
+      conv_op<false>(smem, pl, W + (size_t)ops.woff[j][m] * D,
+                     b_all + (size_t)ops.bidx[j][m] * D, w1, a, b, base,
+                     valid, slope);
       a += w1;
       b -= w1;
-      conv_op(true, V, act, panel, W + (size_t)ops.woff[j][m + 1] * D,
-              b_all + (size_t)ops.bidx[j][m + 1] * D, w2, a, b, base, valid,
-              slope);
+      conv_op<true>(smem, pl, W + (size_t)ops.woff[j][m + 1] * D,
+                    b_all + (size_t)ops.bidx[j][m + 1] * D, w2, a, b, base,
+                    valid, slope);
       a += w2;
       b -= w2;
     }
 
     // a == H and b == H + tm: fold the chain's centre rows into the sum
     const bool first = j == 0, last = j == ops.n_chains - 1;
-    for (int i = tid; i < tm * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int g = row0 + r;
-      if (g >= T) continue;
-      const size_t o = (size_t)g * D + c;
-      float s = V[(size_t)(H + r) * LD + c];
-      if (!first) s = out[o] + s;
-      if (last) s = g < valid ? s * inv_nk : 0.f;
-      out[o] = s;
+#pragma unroll 4
+    for (int i = tid; i < tm * (D / 4); i += NT) {
+      const int r = i / (D / 4), c4 = i % (D / 4);
+      const int gr = row0 + r;
+      if (gr >= T) continue;
+      float4* o = reinterpret_cast<float4*>(out + (size_t)gr * D) + c4;
+      float4 s = *reinterpret_cast<const float4*>(V + (H + r) * LDV + c4 * 4);
+      if (!first) {
+        const float4 u = *o;
+        s.x += u.x; s.y += u.y; s.z += u.z; s.w += u.w;
+      }
+      if (last) {
+        const float k = gr < valid ? inv_nk : 0.f;
+        s.x *= k; s.y *= k; s.z *= k; s.w *= k;
+      }
+      *o = s;
     }
     __syncthreads();
   }
@@ -451,67 +488,88 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ W,
 
 }  // namespace
 
-extern "C" {
+namespace {
 
-const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Rows a tile with both halos may span: bf16 (f32 = 0) 192, float32 176.
-int mrf_max_rows(int f32) { return (f32 ? f32v::MAX_RG : MAX_RB) * 16; }
-
-int mrf_smem_bytes(int tm, int H, int f32) {
-  if (f32)
-    return static_cast<int>(2 * f32v::buf_bytes(tm, H) +
-                            2 * f32v::KP * D * sizeof(float));
-  const size_t rows = tm + 2 * H + 16;
-  return static_cast<int>(rows * LDV * 4 + rows * LDA * 2 +
-                          NWARP * 256 * sizeof(float));
-}
-
-// spec: n_chains, then per chain n_ops followed by (w, woff, bidx) per op.
-// W: bf16 (f32 = 0) or float32 (f32 = 1); x, b_all and out float32.
-int mrf_launch(const void* x, const void* W, const void* b_all, void* out,
-               const void* valid, int T, int H, int tm, const int* spec,
-               int num_kernels, float slope, int f32, void* stream) {
-  MrfOps ops = {};
+// spec: n_chains, then per chain n_ops followed by (w, woff, bidx) per op
+bool parse_spec(const int* spec, MrfOps& ops) {
+  ops = {};
   int p = 0;
   ops.n_chains = spec[p++];
-  if (ops.n_chains < 1 || ops.n_chains > MAX_CHAINS)
-    return cudaErrorInvalidValue;
+  if (ops.n_chains < 1 || ops.n_chains > MAX_CHAINS) return false;
   for (int j = 0; j < ops.n_chains; ++j) {
     ops.n_ops[j] = spec[p++];
     if (ops.n_ops[j] < 2 || ops.n_ops[j] > MAX_OPS || ops.n_ops[j] % 2)
-      return cudaErrorInvalidValue;
+      return false;
     for (int m = 0; m < ops.n_ops[j]; ++m) {
       ops.w[j][m] = spec[p++];
       ops.woff[j][m] = spec[p++];
       ops.bidx[j][m] = spec[p++];
     }
   }
-  if (tm % 16 || tm + 2 * H > mrf_max_rows(f32)) return cudaErrorInvalidValue;
-  const int smem = mrf_smem_bytes(tm, H, f32);
-  dim3 grid((T + tm - 1) / tm);
-  if (f32) {
-    cudaError_t e = cudaFuncSetAttribute(
-        f32v::mrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    f32v::mrf_kernel<<<grid, f32v::NT, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(W),
-        static_cast<const float*>(b_all), static_cast<float*>(out),
-        static_cast<const int*>(valid), T, H, tm, ops, 1.0f / num_kernels,
-        slope);
-    return cudaGetLastError();
-  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Rows a bf16 tile with both halos may span.
+int mrf_max_rows() { return MAX_RB * 16; }
+
+int mrf_smem_bytes(int tm, int H) {
+  const size_t rows = tm + 2 * H + 16;
+  return static_cast<int>(rows * LDV * 4 + rows * LDA * 2 +
+                          NWARP * 256 * sizeof(float));
+}
+
+// bf16 W_all; x, b_all and out float32.
+int mrf_launch(const void* x, const void* W, const void* b_all, void* out,
+               const void* valid, int T, int H, int tm, const int* spec,
+               int num_kernels, float slope, void* stream) {
+  MrfOps ops;
+  if (!parse_spec(spec, ops)) return cudaErrorInvalidValue;
+  if (tm % 16 || tm + 2 * H > mrf_max_rows()) return cudaErrorInvalidValue;
+  const int smem = mrf_smem_bytes(tm, H);
   cudaError_t e = cudaFuncSetAttribute(
       mrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  mrf_kernel<<<grid, NWARP * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  mrf_kernel<<<(T + tm - 1) / tm, NWARP * 32, smem,
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(W),
       static_cast<const float*>(b_all), static_cast<float*>(out),
       static_cast<const int*>(valid), T, H, tm, ops, 1.0f / num_kernels,
       slope);
+  return cudaGetLastError();
+}
+
+// float32 W_all; x, b_all and out float32.  The plan (tile rows tm, rows
+// of a channel chunk, the lo copy's and v's byte offsets, shared memory)
+// comes from mrf_block.py::f32_plan.
+int mrf_f32_launch(const void* x, const void* W, const void* b_all,
+                   void* out, const void* valid, int T, int H, int tm,
+                   int r_alloc, int lo_off, int v_off, int smem,
+                   const int* spec, int num_kernels, float slope,
+                   void* stream) {
+  MrfOps ops;
+  if (!parse_spec(spec, ops)) return cudaErrorInvalidValue;
+  const f32v::Plan pl{tm, H, r_alloc, lo_off, v_off};
+  if (tm % 16 || tm + 2 * H - 2 > f32v::MAX_N ||
+      r_alloc < tm + 2 * H + 15 || lo_off < (D / 4) * r_alloc * 16 ||
+      v_off < 2 * lo_off || v_off % 16 ||
+      smem < v_off + (tm + 2 * H) * f32v::LDV * 4)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      f32v::mrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  f32v::mrf_kernel<<<(T + tm - 1) / tm, f32v::NT, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(W),
+      static_cast<const float*>(b_all), static_cast<float*>(out),
+      static_cast<const int*>(valid), T, pl, ops, 1.0f / num_kernels, slope);
   return cudaGetLastError();
 }
 

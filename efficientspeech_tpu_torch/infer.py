@@ -283,8 +283,10 @@ def build_synthesizer(preset: str = "tiny",
 
     ``hifigan_cfg`` / ``hifigan_config`` (a config.json path) choose the
     vocoder's shape, default the LJ_V2 widths.  ``bench_duration_bias``
-    sets the duration head's bias (random weights otherwise predict ~0
-    frames).  ``device`` defaults to the card and raises without one."""
+    sets the duration head's bias of a random init only (random weights
+    otherwise predict ~0 frames); loaded ``params`` keep their own, as in
+    the JAX package.  ``device`` defaults to the card and raises without
+    one."""
     device = resolve_device(device)
     overrides = dict(model_overrides or {})
     if stats is not None:
@@ -299,8 +301,8 @@ def build_synthesizer(preset: str = "tiny",
         load_jax_params(model, params)
     else:
         init_params(model, seed)
-    if bench_duration_bias is not None:
-        set_duration_bias(model, bench_duration_bias)
+        if bench_duration_bias is not None:
+            set_duration_bias(model, bench_duration_bias)
     return Synthesizer(cfg, hifigan_cfg, model,
                        preprocess_cfg=preprocess_cfg, dtype=dtype,
                        transfer=transfer, vocoder_mode=vocoder_mode,

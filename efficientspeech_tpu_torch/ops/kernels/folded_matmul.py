@@ -7,10 +7,10 @@
 ``act`` is an optional leaky-relu; rows outside [0, T) read as zero.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The kernel has two variants, chosen by W's dtype: bf16 W
-multiplies in bf16 with float32 accumulation, float32 W in float32 (see
-the source's notes on numerics); the plain version multiplies in float32.
-The bf16 variant's tiling is decided here, by ``plan``, and handed to the
-launch.
+multiplies in bf16 with float32 accumulation, float32 W by 3xTF32 split
+products on the tensor cores, held to float32 (see the sources' notes on
+numerics); the plain version multiplies in float32.  Each variant's
+tiling is decided here (``plan``, ``f32_plan``) and handed to the launch.
 """
 
 import ctypes
@@ -156,18 +156,68 @@ def plan(t: int, d_in: int, d_out: int, w: int, sms: int = SMS_H100) -> Plan:
                 bar_off, smem)
 
 
-def f32_smem_bytes(d_in: int, w: int) -> int:
-    """Shared memory of the float32 kernel (csrc: f32v::smem_bytes at the
-    wide tile): the float32 x tile with its halo, two 16-row W chunks."""
-    return _align((64 + 2 * w) * (d_in + 4) * 4, 16) + 2 * 16 * 128 * 4
+class F32Plan(NamedTuple):
+    """How the float32 kernel tiles one call: a block of two warpgroups
+    covers ``tile_rows`` rows × ``tn`` columns of one of ``n_panels``
+    panels (``grid`` blocks).  For ``tn`` = 128 each warpgroup takes 64
+    columns over all the rows; a narrower panel (padded to wgmma's 64) is
+    taken by both warpgroups over the two halves of the rows.  ``nc``
+    64-row chunks a warpgroup.  Shared memory holds the split x tile with
+    its halo, a hi copy at 0 and a lo copy at ``lo_off``, each in chunks
+    of 4 channels of ``r_alloc`` rows (16 bytes a row; ``r_alloc`` odd, so
+    the staging stores meet distinct banks); the output tile, rows tn + 4
+    floats apart, passes through the same memory after the products;
+    ``smem`` bytes in all."""
+    tn: int
+    nc: int
+    tile_rows: int
+    n_panels: int
+    grid: int
+    r_alloc: int
+    lo_off: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(t: int, d_in: int, d_out: int, w: int,
+             sms: int = SMS_H100) -> F32Plan:
+    """The float32 kernel's tile plan for x (t, d_in) → (t, d_out) with a
+    2w+1-tap window on ``sms`` SMs; raises ValueError for a shape the
+    kernel does not take.  Two 64-row chunks a warpgroup where that still
+    gives a block to every SM, else one; the first that fits a block's
+    shared memory."""
+    if d_in <= 0 or d_in % 32:
+        raise ValueError(f"folded_matmul: D_in {d_in} must be a positive "
+                         "multiple of 32")
+    if d_out <= 0 or d_out % 16:
+        raise ValueError(f"folded_matmul: D_out {d_out} must be a positive "
+                         "multiple of 16")
+    if w < 0:
+        raise ValueError(f"folded_matmul: w {w} < 0")
+    tn = next(n for n in (128, 64, 32, 16) if d_out % n == 0)
+    n_panels = d_out // tn
+    fits = []
+    for nc in (2, 1):
+        tile_rows = 64 * nc * (1 if tn == 128 else 2)
+        r_alloc = (tile_rows + 2 * w) | 1
+        lo_off = _align(d_in // 4 * r_alloc * 16, 128)
+        smem = max(2 * lo_off, tile_rows * (tn + 4) * 4)
+        if smem <= SMEM_LIMIT:
+            grid = -(-t // tile_rows) * n_panels
+            fits.append(F32Plan(tn, nc, tile_rows, n_panels, grid, r_alloc,
+                                lo_off, smem))
+    if not fits:
+        raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs more "
+                         "shared memory than a block has")
+    return next((pl for pl in fits if pl.grid >= sms), fits[-1])
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "folded_matmul_bf16_launch": (
         [_P] * 7 + [_I] * 5 + [_F, _I, _F] + [_I] * 13 + [_P], _I),
-    "folded_matmul_f32_launch": ([_P] * 7 + [_I] * 5 + [_F, _I, _F, _P],
-                                 _I),
+    "folded_matmul_f32_launch": (
+        [_P] * 7 + [_I] * 5 + [_F, _I, _F] + [_I] * 6 + [_P], _I),
 }
 
 
@@ -187,7 +237,7 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     so the host never waits for it).
 
     On CUDA: x, residual, accum float32; W bf16 or float32 (the kernel's
-    variant); b float32; D_out a multiple of 16, D_in of 64 (bf16) or 16
+    variant); b float32; D_out a multiple of 16, D_in of 64 (bf16) or 32
     (float32)."""
     if x.device.type == "cpu":
         return folded_matmul_plain(x, W, b, w, valid, residual, accum,
@@ -202,16 +252,8 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
         raise ValueError(f"folded_matmul: W is {W.dtype}, not one of "
                          f"{DTYPES}")
     f32 = W.dtype == torch.float32
-    if f32:
-        if d_in % 16 or d_out % 16:
-            raise ValueError(f"folded_matmul: D_in {d_in} and D_out {d_out} "
-                             "must be multiples of 16")
-        if f32_smem_bytes(d_in, w) > SMEM_LIMIT:
-            raise ValueError(f"folded_matmul: D_in {d_in} with w {w} needs "
-                             "more shared memory than a block has")
-    else:
-        pl = plan(t, d_in, d_out, w,
-                  torch.cuda.get_device_properties(dev).multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = (f32_plan if f32 else plan)(t, d_in, d_out, w, sms)
     build.check_tensor("x", x, torch.float32, (t, d_in), dev)
     build.check_tensor("W", W, W.dtype, (n_win * d_in, d_out), dev)
     build.check_tensor("b", b, torch.float32, (d_out,), dev)
@@ -230,7 +272,9 @@ def folded_matmul(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, w: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if f32:
-            err = lib.folded_matmul_f32_launch(*args, stream)
+            err = lib.folded_matmul_f32_launch(
+                *args, pl.tn, pl.nc, pl.tile_rows, pl.r_alloc, pl.lo_off,
+                pl.smem, stream)
         else:
             err = lib.folded_matmul_bf16_launch(
                 *args, pl.tm, pl.tn, pl.n_wg, int(pl.resident), pl.bpp,

@@ -10,11 +10,14 @@ For each resblock j (a chain of (conv1, conv2) pairs):
 with every conv output masked to rows [0, valid).  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.  The kernel
 has two variants, chosen by W_all's dtype: bf16 (bf16 products, float32
-sums) and float32 (float32 throughout).
+sums) and float32 (3xTF32 split products on the tensor cores, held to
+float32; its tiling is decided here, by ``f32_plan``).
 """
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import functools
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -89,10 +92,12 @@ def mrf_fused_plain(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _I,
-                                          _P], _I),
-    "mrf_max_rows": ([_I], _I),
-    "mrf_smem_bytes": ([_I, _I, _I], _I),
+    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _P],
+                   _I),
+    "mrf_f32_launch": ([_P] * 5 + [_I] * 7 + [ctypes.POINTER(_I), _I, _F,
+                                              _P], _I),
+    "mrf_max_rows": ([], _I),
+    "mrf_smem_bytes": ([_I, _I], _I),
 }
 
 
@@ -101,15 +106,88 @@ def _lib():
 
 
 def tile_rows(H: int, max_rows: int = 192) -> int:
-    """Rows per block.  128 where the tile plus both halos fits the
-    kernel's ``max_rows`` (``mrf_max_rows``: 192 in bf16, 176 in float32;
-    stages 1-3: H = 19/10/7, halo recompute ≤ 30%); 64 at stage 0 (H = 33:
-    128 + 66 rows would not fit), which at 2,048 frames also gives 128
-    blocks, one wave on the card's 132 SMs."""
+    """Rows per block of the bf16 kernel.  128 where the tile plus both
+    halos fits the kernel's ``max_rows`` (``mrf_max_rows``, 192; stages
+    1-3: H = 19/10/7, halo recompute ≤ 30%); 64 at stage 0 (H = 33: 128 +
+    66 rows would not fit), which at 2,048 frames also gives 128 blocks,
+    one wave on the card's 132 SMs."""
     for tm in (128, 64, 32, 16):
         if tm + 2 * H <= max_rows:
             return tm
     raise ValueError(f"MRF halo {H} too wide for the kernel's tile")
+
+
+SMEM_LIMIT = 227 * 1024
+SMS_H100 = 132
+F32_LDV = D + 4        # v's float32 stride (csrc: f32v::LDV)
+F32_MAX_N = 176        # rows of one conv's output (csrc: f32v::MAX_N)
+
+
+# a conv's k-step costs at least as much as F32_MIN_ROWS output rows: each
+# step loads the op's 8 x 128 weights from L2, which the tensor cores' work
+# on fewer rows does not cover (measured on the H100)
+F32_MIN_ROWS = 64
+
+
+class F32Plan(NamedTuple):
+    """How the float32 kernel tiles one stage: ``tm`` rows a block (one
+    block per tile); the activation buffer, split into a hi copy at 0 and
+    a lo copy at ``lo_off``, in chunks of 4 channels of ``r_alloc`` rows
+    (16 bytes a row; r_alloc = 1 mod 8); v, float32, (tm + 2H) rows of
+    ``F32_LDV`` floats at ``v_off``; ``smem`` bytes in all.  ``cost``: a
+    tile's k-steps weighted by their rows (each conv's rows rounded up to
+    16, at least F32_MIN_ROWS), times the tiles a SM takes (at least
+    one)."""
+    tm: int
+    r_alloc: int
+    lo_off: int
+    v_off: int
+    smem: int
+    cost: float
+
+
+def _f32_layout(tm: int, H: int) -> Tuple[int, int, int, int]:
+    r_alloc = tm + 2 * H + 15
+    r_alloc += (1 - r_alloc) % 8
+    lo_off = D // 4 * r_alloc * 16
+    v_off = 2 * lo_off
+    return r_alloc, lo_off, v_off, v_off + (tm + 2 * H) * F32_LDV * 4
+
+
+@functools.lru_cache(maxsize=64)
+def f32_plan(widths: Tuple[Tuple[int, ...], ...], t: int,
+             tm: Optional[int] = None, sms: int = SMS_H100) -> F32Plan:
+    """The float32 kernel's plan for a stage of T = ``t`` rows whose
+    chains have the window half-widths ``widths`` (one tuple per chain, in
+    execution order).  Without ``tm``, the tile height (a multiple of 16)
+    that fits a block's shared memory and the kernel's conv rows at the
+    least ``cost``: a tall tile reads each weight for more rows and
+    recomputes less halo, a short one spreads a short stage over more
+    SMs.  Raises ValueError where none fits."""
+    H = max(sum(c) for c in widths)
+    best = None
+    for cand in ((tm,) if tm is not None else range(16, 257, 16)):
+        r_alloc, lo_off, v_off, smem = _f32_layout(cand, H)
+        if (cand % 16 or cand <= 0 or smem > SMEM_LIMIT
+                or cand + 2 * H - 2 > F32_MAX_N):
+            continue
+        rows = 0
+        for chain in widths:
+            extent = cand + 2 * sum(chain)
+            for w in chain:
+                extent -= 2 * w
+                rows += max(-(-extent // 16) * 16, F32_MIN_ROWS) * (2 * w + 1)
+        cost = rows * max(-(-t // cand) / sms, 1.0)
+        if best is None or cost < best.cost:
+            best = F32Plan(cand, r_alloc, lo_off, v_off, smem, cost)
+    if best is None:
+        raise ValueError(f"mrf_fused: no float32 tile fits halo {H}"
+                         + ("" if tm is None else f" at tm {tm}"))
+    return best
+
+
+def chain_widths(chains: Chains) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(op[0] for op in chain) for chain in chains)
 
 
 def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
@@ -122,7 +200,8 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     tensor on the card).
 
     On CUDA: x float32, W_all bf16 or float32 (the kernel's variant),
-    b_all float32; ``tm`` defaults to ``tile_rows(H)``."""
+    b_all float32; ``tm`` defaults to ``tile_rows(H)`` (bf16) or
+    ``f32_plan``'s choice (float32)."""
     if x.device.type == "cpu":
         return mrf_fused_plain(x, chains, W_all, b_all, H, valid,
                                num_kernels, tm, lrelu_slope)
@@ -135,19 +214,24 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     if W_all.dtype not in DTYPES:
         raise ValueError(f"mrf_fused: W_all is {W_all.dtype}, not one of "
                          f"{DTYPES}")
-    f32 = int(W_all.dtype == torch.float32)
+    f32 = W_all.dtype == torch.float32
     build.check_tensor("x", x, torch.float32, (t, D), dev)
     build.check_tensor("W_all", W_all, W_all.dtype, (rows, D), dev)
     build.check_tensor("b_all", b_all, torch.float32, (n_ops, D), dev)
     build.check_valid("mrf_fused", valid, dev)
     lib = _lib()
-    max_rows = lib.mrf_max_rows(f32)
-    tm = tile_rows(H, max_rows) if tm is None else tm
-    if tm % 16 or tm + 2 * H > max_rows:
-        raise ValueError(f"mrf_fused: tile {tm} with halo {H} does not fit")
-    if lib.mrf_smem_bytes(tm, H, f32) > 227 * 1024:
-        raise ValueError(f"mrf_fused: tile {tm} with halo {H} needs more "
-                         "shared memory than a block has")
+    if f32:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pl = f32_plan(chain_widths(chains), t, tm, sms)
+    else:
+        max_rows = lib.mrf_max_rows()
+        tm = tile_rows(H, max_rows) if tm is None else tm
+        if tm % 16 or tm + 2 * H > max_rows:
+            raise ValueError(f"mrf_fused: tile {tm} with halo {H} does not "
+                             "fit")
+        if lib.mrf_smem_bytes(tm, H) > SMEM_LIMIT:
+            raise ValueError(f"mrf_fused: tile {tm} with halo {H} needs "
+                             "more shared memory than a block has")
     spec = [len(chains)]
     for chain in chains:
         spec.append(len(chain))
@@ -155,12 +239,17 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
             spec += [w, off, bi]
     spec_arr = (_I * len(spec))(*spec)
     out = torch.empty((t, D), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), W_all.data_ptr(), b_all.data_ptr(),
+            out.data_ptr(), valid.data_ptr(), t, H)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mrf_launch(x.data_ptr(), W_all.data_ptr(),
-                             b_all.data_ptr(), out.data_ptr(),
-                             valid.data_ptr(), t, H, tm, spec_arr,
-                             num_kernels, float(lrelu_slope), f32, stream)
+        if f32:
+            err = lib.mrf_f32_launch(*args, pl.tm, pl.r_alloc, pl.lo_off,
+                                     pl.v_off, pl.smem, spec_arr,
+                                     num_kernels, float(lrelu_slope), stream)
+        else:
+            err = lib.mrf_launch(*args, tm, spec_arr, num_kernels,
+                                 float(lrelu_slope), stream)
     build.check(lib, err, "mrf_fused")
     launches[W_all.dtype] += 1
     return out

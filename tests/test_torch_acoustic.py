@@ -124,3 +124,51 @@ def test_phoneme2mel_bf16_matches_jax():
     err = np.abs(got["mel"].float().numpy()
                  - np.asarray(want["mel"], np.float32)).max()
     assert err <= 0.06, err
+
+
+@pytest.mark.parametrize("with_ids", [False, True], ids=["no-ids", "ids"])
+def test_phoneme2mel_multispeaker_matches_jax(with_ids):
+    """A three-speaker acoustic model (the speaker table added to the fused
+    encoder features), with speaker ids per row and without (every row
+    then speaks as speaker 0), against the JAX model on the same
+    parameters: mel_len and rounded durations equal, the mel at the
+    single-speaker test's tolerance (rtol 1e-3, atol 2e-4; float32 in
+    both, sums in another order)."""
+    jcfg = dataclasses.replace(JaxModelConfig.preset("tiny"),
+                               max_phoneme_len=BUCKET, max_mel_len=FRAMES,
+                               n_speakers=3)
+    jmodel = JaxP2M(jcfg)
+    rng = np.random.default_rng(13)
+    phoneme = np.zeros((2, BUCKET), np.int32)
+    phoneme[0, :13] = rng.integers(1, 140, 13)
+    phoneme[1, :10] = rng.integers(1, 140, 10)
+    pad = phoneme == 0
+    speaker = np.array([2, 1], np.int32) if with_ids else None
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(phoneme), jnp.asarray(pad),
+        train=False)["params"])
+    params = _random_tree(shapes, seed=5)
+    params["encoder"]["duration_decoder"]["linear"]["bias"] = np.array(
+        [3.3], np.float32)
+    want = jmodel.apply({"params": params}, jnp.asarray(phoneme),
+                        jnp.asarray(pad),
+                        speaker=None if speaker is None
+                        else jnp.asarray(speaker), train=False)
+
+    model = Phoneme2Mel(dataclasses.replace(ModelConfig.preset("tiny"),
+                                            n_speakers=3))
+    load_jax_params(model, params)
+    assert model.encoder.speaker_embedding.shape[0] == 3
+    with torch.no_grad():
+        got = model(torch.from_numpy(phoneme), torch.from_numpy(pad),
+                    max_mel_len=FRAMES,
+                    speaker=None if speaker is None
+                    else torch.from_numpy(speaker).long())
+    np.testing.assert_array_equal(got["mel_len"].numpy(),
+                                  np.asarray(want["mel_len"]))
+    assert int(got["mel_len"].min()) > 0
+    dur = lambda d: np.maximum(np.round(np.asarray(d)[..., 0]), 0) * ~pad
+    np.testing.assert_array_equal(dur(got["duration"].numpy()),
+                                  dur(want["duration"]))
+    np.testing.assert_allclose(got["mel"].numpy(), np.asarray(want["mel"]),
+                               rtol=1e-3, atol=2e-4)

@@ -41,8 +41,9 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
 
 
 # bf16 kernels against float32 plain versions: bf16 operand rounding;
-# float32 kernels: float32 sums in another order (TF32 would land near the
-# bf16 figures, so this bar also shows that no product ran in TF32)
+# float32 kernels: float32 accuracy (3xTF32 split products in K1 and
+# K2, the CUDA cores in K3 and K4), sums in another order; one TF32
+# product would land near the bf16 figures, so this bar shows none did
 SNR_BAR = {torch.bfloat16: 35.0, torch.float32: 90.0}
 
 
@@ -88,29 +89,29 @@ def test_folded_matmul_kernel(card, request, dtype, t, d_out, w, extras,
     assert not got[t - 137:].any()
 
 
-def _k1_bf16_case(card, t, d_out, w, valid_rows, extras=False, seed=0):
-    """K1 bf16 on random inputs against its plain version: one launch,
-    SNR >= 35 dB over the valid rows, rows at or beyond valid exactly
-    zero."""
+def _k1_case(card, dtype, t, d_out, w, valid_rows, extras=False, seed=0):
+    """K1 with W in ``dtype`` on random inputs against its plain version:
+    one launch of that variant, SNR >= 35 dB (bf16) or 90 dB (float32,
+    3xTF32) over the valid rows, rows at or beyond valid exactly zero."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(t, 128, generator=g).to(card)
     W = (torch.randn((2 * w + 1) * 128, d_out, generator=g) * 0.05
-         ).to(card, torch.bfloat16)
+         ).to(card, dtype)
     b = torch.randn(d_out, generator=g).to(card)
     res = torch.randn(t, d_out, generator=g).to(card) if extras else None
     acc = torch.randn(t, d_out, generator=g).to(card) if extras else None
     valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
     kw = dict(residual=res, accum=acc, out_scale=1 / 3 if extras else None,
               pre_lrelu=True, lrelu_slope=0.01 if d_out == 16 else 0.1)
-    before = fm.launches[torch.bfloat16]
+    before = fm.launches[dtype]
     got = fm.folded_matmul(x, W, b, w, valid, **kw)
     want = fm.folded_matmul_plain(x, W, b, w, valid, **kw)
     torch.cuda.synchronize()
-    assert fm.launches[torch.bfloat16] == before + 1
+    assert fm.launches[dtype] == before + 1
     assert torch.isfinite(got).all()
     assert not got[valid_rows:].any()
     if valid_rows > 0:
-        assert snr_db(want[:valid_rows], got[:valid_rows]) >= 35.0
+        assert snr_db(want[:valid_rows], got[:valid_rows]) >= SNR_BAR[dtype]
 
 
 @pytest.mark.parametrize("key", ["up0", "up1", "up2", "up3", "post"])
@@ -119,7 +120,7 @@ def test_folded_matmul_bf16_main_path_shapes(card, key):
     ops, _ = kernel_op_shapes(HifiGanConfig(), 2048)
     (t, d_in, d_out, w), = [op[1:] for op in ops if op[0] == key]
     assert d_in == 128
-    _k1_bf16_case(card, t, d_out, w, t - t // 16)
+    _k1_case(card, torch.bfloat16, t, d_out, w, t - t // 16)
 
 
 @pytest.mark.parametrize("t,d_out,w,valid_rows,extras", [
@@ -135,7 +136,8 @@ def test_folded_matmul_bf16_edges(card, t, d_out, w, valid_rows, extras):
     """K1 bf16 at the edges of its tile plan: a ragged last tile, every
     row or no row valid, the probe's resident w = 2 panel, the streamed
     w = 13 panel with every epilogue operand, and narrower panels."""
-    _k1_bf16_case(card, t, d_out, w, valid_rows, extras, seed=t + w)
+    _k1_case(card, torch.bfloat16, t, d_out, w, valid_rows, extras,
+             seed=t + w)
 
 
 def test_folded_matmul_bf16_refuses(card):
@@ -148,6 +150,62 @@ def test_folded_matmul_bf16_refuses(card):
     with pytest.raises(ValueError, match="multiple of 64"):
         fm.folded_matmul(x, W, b, 1, valid)
     assert fm.launches == before
+
+
+@pytest.mark.parametrize("key", ["up0", "up1", "up2", "up3", "post"])
+def test_folded_matmul_f32_main_path_shapes(card, key):
+    """K1 float32 at each op shape of the serving path for 2,048 frames:
+    one 64-row chunk a warpgroup (up0), two (up1-up3), and the post conv's
+    16-column panel split over the rows."""
+    ops, _ = kernel_op_shapes(HifiGanConfig(), 2048)
+    (t, d_in, d_out, w), = [op[1:] for op in ops if op[0] == key]
+    assert d_in == 128
+    _k1_case(card, torch.float32, t, d_out, w, t - t // 16)
+
+
+@pytest.mark.parametrize("t,d_out,w,valid_rows,extras", [
+    pytest.param(1000, 128, 1, 1000 - 137, False, id="T-not-tile-multiple"),
+    pytest.param(777, 16, 1, 777 - 5, False, id="T-not-tile-multiple-post"),
+    pytest.param(4096, 512, 1, 0, False, id="valid-0"),
+    pytest.param(3000, 128, 1, 3000, False, id="valid-T"),
+    pytest.param(4096, 128, 2, 4096 - 300, False, id="w2"),
+    pytest.param(1000, 128, 13, 1000 - 137, True, id="w13-res-acc-scale"),
+    pytest.param(500, 64, 1, 431, False, id="d_out-64"),
+    pytest.param(500, 32, 3, 431, True, id="d_out-32")])
+def test_folded_matmul_f32_edges(card, t, d_out, w, valid_rows, extras):
+    """K1 float32 at the edges of its tile plan: a ragged last tile, every
+    row or no row valid, wider windows with every epilogue operand, and
+    the 64- and 32-column panels split over the rows."""
+    _k1_case(card, torch.float32, t, d_out, w, valid_rows, extras,
+             seed=t + w)
+
+
+@pytest.mark.parametrize("stage,t,valid_rows,tm", [
+    pytest.param(0, 8192, 8192 - 512, None, id="stage0-2048-frames"),
+    pytest.param(1, 32768, 32768 - 2048, None, id="stage1-2048-frames"),
+    pytest.param(2, 32768, 32768 - 2048, None, id="stage2-2048-frames"),
+    pytest.param(3, 32768, 32768 - 2048, None, id="stage3-2048-frames"),
+    pytest.param(1, 3000, 0, None, id="valid-0"),
+    pytest.param(2, 3000, 3000, None, id="valid-T"),
+    pytest.param(0, 1000, 1000 - 229, 32, id="stage0-tm32"),
+    pytest.param(3, 1000, 1000 - 229, 112, id="stage3-tm112")])
+def test_mrf_f32_kernel_plans(card, folded_f32, stage, t, valid_rows, tm):
+    """K2 float32 (3xTF32) at the main path's stage lengths and at other
+    tile heights of its plan: SNR >= 90 dB over the valid rows, rows at
+    or beyond valid exactly zero."""
+    chains, W_all, b_all, H = folded_f32[1][stage]
+    x = torch.randn(t, 128, generator=torch.Generator().manual_seed(t)
+                    ).to(card)
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
+    before = mrf_block.launches[torch.float32]
+    got = mrf_block.mrf_fused(x, chains, W_all, b_all, H, valid, 3, tm=tm)
+    want = mrf_block.mrf_fused_plain(x, chains, W_all, b_all, H, valid, 3)
+    torch.cuda.synchronize()
+    assert mrf_block.launches[torch.float32] == before + 1
+    assert torch.isfinite(got).all()
+    assert not got[valid_rows:].any()
+    if valid_rows > 0:
+        assert snr_db(want[:valid_rows], got[:valid_rows]) >= 90.0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

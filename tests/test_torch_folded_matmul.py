@@ -106,3 +106,59 @@ def test_bf16_plan_refuses(d_in, d_out, w, match):
     wrapper makes before it launches anything."""
     with pytest.raises(ValueError, match=match):
         fm.plan(4096, d_in, d_out, w)
+
+
+@pytest.mark.parametrize("t,d_in,d_out,w,tn,nc", [
+    pytest.param(2048, 128, 512, 1, 128, 1, id="up0-2048"),
+    pytest.param(8192, 128, 512, 1, 128, 2, id="up1-2048"),
+    pytest.param(32768, 128, 128, 1, 128, 2, id="up2-2048"),
+    pytest.param(32768, 128, 16, 1, 16, 1, id="post-2048"),
+    # two chunks of both warpgroups' rows would need 263 KB
+    pytest.param(65536, 128, 16, 1, 16, 1, id="post-4096"),
+    pytest.param(8192, 128, 128, 13, 128, 1, id="w13"),
+    pytest.param(500, 128, 64, 1, 64, 1, id="d_out-64"),
+    pytest.param(500, 128, 32, 3, 32, 1, id="d_out-32"),
+    pytest.param(777, 128, 16, 1, 16, 1, id="post-ragged")])
+def test_f32_plan_fits_and_covers_every_row(t, d_in, d_out, w, tn, nc):
+    """The float32 kernel's tile plan: the panel width and 64-row chunks
+    a warpgroup as intended (two only where they fit and the grid still
+    gives every SM a block); the split x tile, hi and
+    lo, and then the output tile inside a block's 227 KB, with every row a
+    warpgroup's taps read;
+    chunks of an odd row count; every (row, column) owned by exactly one
+    (block, warpgroup)."""
+    p = fm.f32_plan(t, d_in, d_out, w)
+    assert (p.tn, p.nc) == (tn, nc)
+    assert p.smem <= 227 * 1024
+    assert p.smem == max(2 * p.lo_off, p.tile_rows * (p.tn + 4) * 4)
+    assert p.lo_off % 128 == 0 and p.lo_off >= d_in // 4 * p.r_alloc * 16
+    assert p.r_alloc % 2 == 1 and p.r_alloc >= p.tile_rows + 2 * w
+    split = p.tn < 128
+    assert p.tile_rows == 64 * p.nc * (2 if split else 1)
+    assert p.n_panels * p.tn == d_out
+    assert p.grid == -(-t // p.tile_rows) * p.n_panels
+    if p.nc == 2:
+        assert p.grid >= fm.SMS_H100
+    owned = []
+    for blk in range(p.grid):
+        col0 = blk % p.n_panels * p.tn
+        row0 = blk // p.n_panels * p.tile_rows
+        for wg in range(2):
+            rg = 64 * p.nc * wg if split else 0
+            cols = range(p.tn) if split else range(64 * wg, 64 * wg + 64)
+            # the taps of this warpgroup read tile rows rg .. rg + N - 1
+            # + 2w, all inside the staged tile
+            assert rg + 64 * p.nc - 1 + 2 * w < p.tile_rows + 2 * w
+            owned += [(row0 + rg + r, col0 + c) for r in range(64 * p.nc)
+                      if row0 + rg + r < t for c in cols if c < p.tn]
+    assert len(owned) == len(set(owned)) == t * d_out
+
+
+@pytest.mark.parametrize("d_in,d_out,w,match", [
+    (80, 128, 1, "multiple of 32"), (128, 24, 1, "multiple of 16"),
+    (128, 128, -1, "w -1"), (128, 128, 120, "shared memory")])
+def test_f32_plan_refuses(d_in, d_out, w, match):
+    """A shape the float32 kernel does not take raises in the plan, which
+    the wrapper makes before it launches anything."""
+    with pytest.raises(ValueError, match=match):
+        fm.f32_plan(4096, d_in, d_out, w)

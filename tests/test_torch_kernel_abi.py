@@ -11,9 +11,12 @@ import pytest
 
 from efficientspeech_tpu_torch.ops.kernels import build
 
-MODULES = {"folded_matmul": "folded_matmul", "mrf_block": "mrf_block",
-           "layer_norm": "layer_norm", "decoder_block": "decoder_block",
-           "int8_window": "int8_window"}
+MODULES = {"folded_matmul": "ops.kernels.folded_matmul",
+           "mrf_block": "ops.kernels.mrf_block",
+           "layer_norm": "ops.kernels.layer_norm",
+           "decoder_block": "ops.kernels.decoder_block",
+           "int8_window": "ops.kernels.int8_window",
+           "tf32_probe": "probes.tf32_wgmma"}
 
 
 def _c_params(source: str, fn: str):
@@ -35,7 +38,7 @@ def _kind(c_type) -> str:
 @pytest.mark.parametrize("name", sorted(MODULES))
 def test_wrapper_signatures_match_sources(name):
     module = importlib.import_module(
-        f"efficientspeech_tpu_torch.ops.kernels.{MODULES[name]}")
+        f"efficientspeech_tpu_torch.{MODULES[name]}")
     source = (build.CSRC / f"{name}.cu").read_text()
     assert name in build.SOURCES
     for fn, (argtypes, _) in module._SIGNATURES.items():

@@ -61,3 +61,62 @@ def test_mrf_plain_matches_pallas(folded, stage, t, valid):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
     assert not got[valid:].any()
+
+
+STAGE_WIDTHS = {  # the default config's chains, by stage
+    0: ((1, 1, 2, 1, 3, 1), (2, 2, 5, 2, 8, 2), (3, 3, 8, 3, 13, 3)),
+    1: ((1, 1, 1, 1, 2, 1), (1, 1, 3, 1, 4, 1), (2, 2, 4, 2, 7, 2)),
+    2: ((1, 1, 1, 1, 1, 1), (1, 1, 2, 1, 2, 1), (1, 1, 2, 1, 4, 1)),
+    3: ((1, 1, 1, 1, 1, 1), (1, 1, 1, 1, 1, 1), (1, 1, 1, 1, 2, 1))}
+
+
+def test_stage_widths_are_the_default_configs(folded):
+    cfg, arrays, meta = folded
+    for stage, widths in STAGE_WIDTHS.items():
+        chains, _, _, _ = jax_build_mrf_spec(
+            arrays, meta["widths"], stage, cfg.resblock_dilation_sizes)
+        assert mrf_block.chain_widths(chains) == widths
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("t,tm", [(8192, None), (32768, None),
+                                  (1000, None), (1000, 16), (1000, 32)])
+def test_f32_plan_fits_every_conv(stage, t, tm):
+    """The float32 kernel's plan at every stage: shared memory (the split
+    activation buffer and float32 v) inside a block's 227 KB, regions in
+    order and 16-byte aligned; every conv's output, rounded up to the
+    kernel's 16-row chunks, at most two 64-row and three 16-row chunks;
+    every row any conv's taps read (past its extent by up to 15 rows)
+    inside the buffer; rows of a chunk = 1 mod 8; and the tiles cover
+    every row once."""
+    widths = STAGE_WIDTHS[stage]
+    H = max(sum(c) for c in widths)
+    p = mrf_block.f32_plan(widths, t, tm)
+    if tm is not None:
+        assert p.tm == tm
+    assert p.tm % 16 == 0 and p.tm > 0
+    assert p.smem <= 227 * 1024
+    assert p.lo_off == 32 * p.r_alloc * 16 and p.v_off == 2 * p.lo_off
+    assert p.v_off % 16 == 0
+    assert p.smem == p.v_off + (p.tm + 2 * H) * mrf_block.F32_LDV * 4
+    assert p.r_alloc % 8 == 1
+    for chain in widths:
+        a, b = H - sum(chain), H + p.tm + sum(chain)
+        assert a >= 0
+        for w in chain:
+            npad = -(-(b - a - 2 * w) // 16) * 16
+            n64 = min(npad // 64, 2)
+            assert (npad - 64 * n64) // 16 <= 3
+            assert a + 2 * w + npad <= p.r_alloc   # the last tap's rows
+            a, b = a + w, b - w
+        assert (a, b) == (H, H + p.tm)
+    tiles = -(-t // p.tm)
+    assert sorted(r for i in range(tiles) for r in range(
+        i * p.tm, min(i * p.tm + p.tm, t))) == list(range(t))
+
+
+def test_f32_plan_refuses_a_tile_that_does_not_fit():
+    with pytest.raises(ValueError, match="no float32 tile"):
+        mrf_block.f32_plan(STAGE_WIDTHS[0], 8192, tm=128)
+    with pytest.raises(ValueError, match="no float32 tile"):
+        mrf_block.f32_plan(((60, 60),), 8192)

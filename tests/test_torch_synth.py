@@ -221,3 +221,33 @@ def test_bf16_synthesizer_keeps_norms_f32_and_matches_jax(synths):
     err = np.abs(got["mel"].float().numpy()
                  - np.asarray(want["mel"], np.float32)).max()
     assert err <= 0.06, err
+
+
+
+def _duration_bias(synth) -> float:
+    return float(synth.acoustic.encoder.duration_decoder.linear.bias
+                 .reshape(()))
+
+
+def test_loaded_params_keep_their_duration_bias(synths):
+    """``bench_duration_bias`` sets the duration head of a random init
+    only, as in the JAX package's build_synthesizer: parameters from the
+    JAX init with their own duration bias (2.5) keep it when built with
+    ``bench_duration_bias=4.0``; a seeded build still gets 4.0."""
+    jsynth, _ = synths
+    p2m = jax.tree_util.tree_map(np.asarray, jsynth.params["phoneme2mel"])
+    assert float(p2m["encoder"]["duration_decoder"]["linear"]["bias"][0]) \
+        == 4.0
+    p2m["encoder"]["duration_decoder"]["linear"]["bias"] = np.array(
+        [2.5], np.float32)
+    loaded = build_synthesizer(
+        preset="tiny", params=dict(jsynth.params, phoneme2mel=p2m),
+        hifigan_cfg=HifiGanConfig(**SMALL_HIFIGAN), dtype=torch.float32,
+        bench_duration_bias=4.0, transfer="f32", vocoder_mode="folded",
+        device="cpu")
+    assert _duration_bias(loaded) == 2.5
+    seeded = build_synthesizer(
+        preset="tiny", hifigan_cfg=HifiGanConfig(**SMALL_HIFIGAN),
+        dtype=torch.float32, bench_duration_bias=4.0, transfer="f32",
+        vocoder_mode="folded", device="cpu")
+    assert _duration_bias(seeded) == 4.0

@@ -103,3 +103,68 @@ def test_plain_path_matches_conv_generator(vocoder):
                                atol=2e-4)
     np.testing.assert_allclose(conv.numpy(), np.asarray(ref), rtol=2e-4,
                                atol=2e-4)
+
+
+# the LJ_V3 layout (resblock "2": one residual conv per dilation, three
+# upsample stages x8 x8 x4) at a quarter of its 256 initial channels
+V3_SMALL = dict(resblock="2", upsample_rates=(8, 8, 4),
+                upsample_kernel_sizes=(16, 16, 8),
+                upsample_initial_channel=64, resblock_kernel_sizes=(3, 5, 7),
+                resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+
+
+@pytest.fixture(scope="module")
+def vocoder_v3():
+    """A ResBlock "2" generator from seeded parameters, the JAX conv
+    generator's and folded (XLA) path's waveforms at valid = 9 of 12
+    frames."""
+    cfg = JaxHifiGanConfig(**V3_SMALL)
+    shapes = jax.eval_shape(lambda: JaxGen(cfg).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 4, 80)))["params"])
+    rng = np.random.default_rng(23)
+
+    def leaf(path, s):
+        if path[-1].key == "bias":
+            return (rng.standard_normal(s.shape) * 0.1).astype(np.float32)
+        bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    gen = HifiGanGenerator(HifiGanConfig(**V3_SMALL))
+    load_jax_params(gen, params)
+    t, valid = 12, 9
+    mel = rng.normal(-3, 2, size=(1, t, 80)).astype(np.float32)
+    mel[0, valid:] = 0
+    vl = jnp.asarray([valid])
+    ref = JaxGen(cfg).apply({"params": params}, jnp.asarray(mel),
+                            valid_len=vl)
+    j_arrays, j_meta = fold_hifigan_device(params, cfg, dtype=jnp.float32)
+    folded = jax_folded_plan_apply(j_arrays, j_meta, cfg, jnp.asarray(mel),
+                                   vl, dtype=jnp.float32)
+    return gen, mel, valid, np.asarray(ref), np.asarray(folded)
+
+
+@pytest.mark.parametrize("path", ["conv", "folded", "folded_kernel"])
+def test_resblock2_matches_jax(vocoder_v3, path):
+    """The LJ_V3-layout vocoder against JAX's on the same parameters: the
+    port's conv generator against the JAX conv generator, its folded plain
+    path and its kernel path (plain versions on the CPU; fuse_mrf inert
+    for resblock "2", so K1 runs every conv) against the JAX folded path
+    and the JAX conv generator, at the folded tests' tolerance (rtol and
+    atol 2e-4: float32 sums in another order and over folded weights)."""
+    gen, mel, valid, ref, folded = vocoder_v3
+    before = (dict(folded_matmul.launches), dict(mrf_block.launches))
+    with torch.no_grad():
+        if path == "conv":
+            got = gen(torch.from_numpy(mel), torch.tensor([valid]))
+        else:
+            arrays, meta = fold_hifigan(gen, torch.float32)
+            got = folded_plan_apply(
+                arrays, meta, gen.cfg, torch.from_numpy(mel),
+                torch.tensor([valid]), dtype=torch.float32,
+                use_kernel=path == "folded_kernel", fuse_mrf=True)
+    assert (folded_matmul.launches, mrf_block.launches) == before
+    assert got.shape == ref.shape
+    want = ref if path == "conv" else folded
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
