@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure exits non-zero):
                power limit; TF32 is switched off for cuBLAS and cuDNN;
   2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel,
                and prints the registers and spills (-Xptxas -v) of the
-               kernels of folded_matmul.cu and mrf_block.cu;
+               kernels of folded_matmul.cu and mrf_block.cu (a spill or a
+               serialised wgmma in mrf_block.cu fails the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
@@ -16,7 +17,8 @@ Phases (each prints its lines; any failure exits non-zero):
                main path's ops also with the L2 cache flushed before each
                call);
   4. K2      - mrf_fused for the four vocoder stages at 2,048 frames, the
-               same way;
+               same way, each with its tile plan (bf16: the tile, the
+               weight ring's slots and each conv's wgmma N);
   5. slice   - the synthesizer (tiny acoustic model, LJ_V2-width vocoder,
                random weights from seed 0, bf16, vocoder_mode
                "folded_kernel"): one long request (>= 2,048 speculative
@@ -134,6 +136,14 @@ DESIGNS = {
     "folded_matmul_f32": "Hopper redesign: 3xTF32 split products on wgmma, "
                          "transposed (W^T from L2 through registers as A, "
                          "the split x tile as K-major B), two warpgroups",
+    "mrf_fused": "Hopper redesign: transposed conv on wgmma (output "
+                 "channels as M, a warpgroup each half; conv rows as N in "
+                 "one instruction; input channels as K), A the tap's W "
+                 "slice from a TMA-fed ring of 128-byte-swizzled "
+                 "shared-memory slots with full/empty mbarriers, running "
+                 "across ops; B the bf16 activation buffer K-major; "
+                 "stmatrix epilogue; v float32 in shared memory; tile plan "
+                 "in Python",
     "mrf_fused_f32": "Hopper redesign: 3xTF32 split products on wgmma, "
                      "transposed (W^T from L2 through registers as A, the "
                      "split activation buffer as K-major B, 16-row output "
@@ -228,8 +238,10 @@ def phase_device() -> str:
     return card
 
 
-# the sources whose registers and spills the build phase prints
+# the sources whose registers and spills the build phase prints, and
+# those of them where a spill or a serialised wgmma fails the phase
 PTXAS_SOURCES = ("folded_matmul", "mrf_block")
+PTXAS_STRICT = ("mrf_block",)
 
 
 def ptxas_lines(log: str):
@@ -282,6 +294,14 @@ def phase_build(card: str):
         for kernel, regs, stores, loads in ptxas_lines(log):
             print(f"[ptxas] {name}.cu {kernel}: {regs} registers, spill "
                   f"stores {stores} B, spill loads {loads} B")
+            if name in PTXAS_STRICT and (stores, loads) != ("0", "0"):
+                fail(f"{name}.cu {kernel} spills registers")
+        serialised = [line.strip() for line in log.splitlines()
+                      if re.search(r"wgmma.*serializ", line)]
+        for line in serialised:
+            print(f"[ptxas] {name}.cu: {line}")
+        if name in PTXAS_STRICT and serialised:
+            fail(f"ptxas serialises the wgmmas of {name}.cu")
 
 
 def phase_k1(synth, card: str):
@@ -411,10 +431,14 @@ def phase_k2(synth, card: str):
         nbytes = (2 * t * 128 * 4 + W_all.numel() * W_all.element_size()
                   + b_all.numel() * 4)
         b_ms, by, ffma_ms = product_bound(flops, nbytes, dt)
-        tile = (mrf_block.f32_plan(mrf_block.chain_widths(chains), t).tm
-                if dt == torch.float32
-                else mrf_block.tile_rows(H, mrf_block._lib().mrf_max_rows()))
-        print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, tile {tile} "
+        widths = mrf_block.chain_widths(chains)
+        if dt == torch.float32:
+            tile = f"tile {mrf_block.f32_plan(widths, t).tm}"
+        else:
+            pl = mrf_block.bf16_plan(widths, t)
+            tile = (f"tile {pl.tm}, slots {pl.slots}, N chunks "
+                    f"{'/'.join(','.join(map(str, c)) for c in pl.chunks)}")
+        print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, {tile} "
               f"| {flops / 1e9:.1f} GFLOP | SNR {snr:.1f} dB (tol >= {bar}) "
               f"max_abs_err {err:.3g} | kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} library_ms null bound_ms {b_ms:.4f} ({by})"

@@ -13,29 +13,61 @@
 // where conv(a)[t] = sum_{i<2w+1} a[t-w+i] @ W[i] + b and mask zeroes every
 // row outside [0, valid).
 //
-// What bounds it on an H100: arithmetic.  At 2,048 mel frames the four
-// stages do ~268 GFLOP against ~16 MB of activations read and written per
-// stage, thousands of FLOP per byte, far right of the bf16 ridge.  The
-// Pallas version keeps all 18 folded weight matrices resident in VMEM (up
-// to 4.7 MB); a block here has at most 227 KB of shared memory, less than
-// even one op's weights (27 taps x 32 KB).  So:
-//   * weights stream from L2 one tap slice at a time: each warp loads the
-//     8 bf16 WMMA B fragments of its 16 columns for one tap (4 KB), then
-//     reuses them across every row block of the tile;
-//   * shared memory holds only the chain state of one tile with its halo:
-//     v in float32 (the residual stream keeps full precision) and one bf16
-//     buffer with the next conv's activated input, (tm + 2H + 16) rows each;
-//   * the conv output stays in the warps' accumulator fragments until every
-//     warp has finished reading the activation buffer, so the buffer is
-//     rewritten in place (no second activation buffer);
+// What bounds it on an H100: arithmetic, and the weights' bytes from L2.
+// At 2,048 mel frames the four stages do ~252 GFLOP of useful products
+// (0.25 ms at the bf16 peak) against ~16 MB of activations read and
+// written per stage.  The Pallas version keeps all 18 folded weight
+// matrices resident in VMEM (up to 4.7 MB); a block here has at most 227
+// KB of shared memory, less than one op's weights (27 taps x 32 KB), so
+// each block streams the stage's weights once per tile of rows, 32 KB a
+// tap, while the tensor cores work on the taps before.
+//
+// bf16 variant (W_all bf16; the serving dtype of bf16 requests).  Each
+// conv runs transposed, conv^T = W^T act^T, on wgmma (bf16 x bf16 ->
+// float32, both operands from shared memory):
+//   * M is the output channel: the block's two warpgroups take 64
+//     channels each.  N is the conv's output rows, one instruction of
+//     up to 192 rows rounded up to 16 (the extent shrinks by 2w a conv;
+//     rows as M would round every extent up to 64).  K is the input
+//     channel, 8 k-steps of 16 a tap.
+//   * A is the tap's W slice, 128 x 128 bf16 = 32 KB, in W's own
+//     row-major (k, n) order: wgmma reads it MN-major (its transpose
+//     bit) from a ring of 2-4 slots in the 128-byte swizzle
+//     (slice_offset; the TMA unit's own swizzle, so the tensor map and
+//     the descriptor agree).  A ninth warp, the producer, loads each
+//     slice by two TMA boxes as soon as the 8 consumer warps have
+//     released the slice `slots` before it (an empty mbarrier a slot;
+//     its full mbarrier counts the bytes in); with the loads issued by a
+//     consumer thread, that thread's waits held up its warpgroup's next
+//     wgmma and the kernel ran 9% slower.
+//     The slices run in W_all's row order, which is the order the chains
+//     execute, so the ring runs across ops: the next conv's first taps
+//     are in flight during this conv's epilogue.  One commit group a tap
+//     stays in flight while the next is issued.
+//   * B is the activation buffer: bf16, leaky-relu applied, in the
+//     no-swizzle K-major layout of tf32x3.cuh (chunks of 8 channels with
+//     rows 16 bytes apart), so tap j is the same descriptor started j
+//     rows further and no shifted copies are made; both warpgroups read
+//     it once a tap.  A conv computes up to 15 rows past its extent,
+//     which are never kept; the buffer starts at zero so they stay finite.
+//   * v, the residual stream, stays float32 in shared memory, rows of
+//     128 floats with 8-float groups XORed by the row (v_index), so both
+//     the epilogue and the row-wise passes meet 32 banks.  The epilogue
+//     (bias, residual, the [0, valid) row mask, v, and the activation)
+//     works from the accumulators once both warpgroups have finished
+//     reading the buffer, which is then rewritten in place, 8 channels of
+//     a row at a time by stmatrix.
 //   * x is re-read from device memory (L2-resident) at the start of each
 //     resblock chain, and the resblock sum accumulates in the block's own
-//     output tile in device memory.
+//     output tile in device memory; both passes issue all of a thread's
+//     loads before its stores.
 // Each chain recomputes a halo of M rows per side (M = the sum of its
-// window half-widths, H = max M); the tile height is chosen per stage by
-// the wrapper (see mrf_block.py).  `valid` is read from device memory; a
-// tile whose rows all lie at or beyond it (the speculative buffer's tail)
-// only writes zeros.
+// window half-widths, H = max M).  The tile height per stage, the ring's
+// slots and the shared-memory offsets come from mrf_block.py::bf16_plan
+// (one block a SM: 64-row tiles at stage 0 and 128 at stages 1-3 for
+// 2,048 frames, each stage in whole waves).  `valid` is read from device
+// memory; a tile whose rows all lie at or beyond it (the speculative
+// buffer's tail) only writes zeros.
 //
 // Numerics: bf16 x bf16 products with f32 accumulation (the TPU's MXU
 // arithmetic), f32 residual stream.  Held to the plain float32 version at
@@ -79,23 +111,18 @@
 // its wgmmas).
 // Held to the plain version at SNR >= 90 dB.
 
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
 constexpr int D = 128;          // folded width of every stage
-constexpr int NWARP = D / 16;   // one warp per 16 output columns
-constexpr int MAX_RB = 12;      // row blocks per conv output: tm + 2H <= 192
-constexpr int LDV = D + 8;      // f32 stride (544 B, 32-byte aligned rows)
-constexpr int LDA = D + 16;     // bf16 stride (288 B, 32-byte aligned rows)
 constexpr int MAX_CHAINS = 4;
 constexpr int MAX_OPS = 8;
 
@@ -111,159 +138,383 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : v * slope;
 }
 
-// One folded conv over the activation rows [a, b) of `act`, writing rows
-// [a+w, b-w).  SECOND: the output is v's residual update (v += conv), and
-// v's new activation replaces `act`; otherwise the activated output itself
-// replaces `act`.
-template <bool SECOND>
-__device__ void conv_op(float* V, __nv_bfloat16* act, float* staging,
-                        const __nv_bfloat16* __restrict__ Wop,
-                        const float* __restrict__ bias, int w, int a, int b,
-                        int base, int valid, float slope) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = warp * 16;
-  const int o0 = a + w;
-  const int olen = (b - a) - 2 * w;
-  const int nrb = (olen + 15) >> 4;
+namespace bf16v {
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAX_RB];
-#pragma unroll
-  for (int rb = 0; rb < MAX_RB; ++rb) {
-    if (rb < nrb) {
-      if (SECOND)
-        wmma::load_matrix_sync(acc[rb], V + (size_t)(o0 + rb * 16) * LDV + col,
-                               LDV, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[rb], 0.f);
-    }
-  }
+constexpr int NT = 256;            // two warpgroups, 64 output channels each
+constexpr int NT_ALL = NT + 32;    // and the producer warp
+constexpr int MAX_TM = 128;        // rows of a tile (taller measured slower)
+constexpr int MAX_N = 192;         // rows of a conv output: MAX_TM with a
+                                   // halo of 33 (stage 0)
+constexpr int SLICE = D * D * 2;   // one tap's W slice: 32 KB of bf16
+constexpr int MAX_SLOTS = 4;
 
-  const int n_win = 2 * w + 1;
-  for (int tap = 0; tap < n_win; ++tap) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        bf[D / 16];
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      wmma::load_matrix_sync(bf[k], Wop + (size_t)(tap * D + k * 16) * D + col,
-                             D);
-#pragma unroll
-    for (int rb = 0; rb < MAX_RB; ++rb) {
-      if (rb < nrb) {
-        const __nv_bfloat16* arow = act + (size_t)(a + rb * 16 + tap) * LDA;
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> af;
-          wmma::load_matrix_sync(af, arow + k * 16, LDA);
-          wmma::mma_sync(acc[rb], af, bf[k], acc[rb]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done reading `act`
+// the plan (mrf_block.py::bf16_plan): tile rows, the halo, ring slots,
+// rows of a channel chunk of the activation buffer (its stride r_alloc *
+// 16 bytes), byte offsets of the buffer, of v and of the slots' full and
+// empty mbarriers from the 1024-byte aligned base (the ring at 0)
+struct Plan {
+  int tm, H, slots, r_alloc, buf_off, v_off, bar_off;
+};
 
-  float* st = staging + warp * 256;
-  const int end = b - w;
-#pragma unroll
-  for (int rb = 0; rb < MAX_RB; ++rb) {
-    if (rb < nrb) {
-      wmma::store_matrix_sync(st, acc[rb], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = o0 + rb * 16 + (e >> 4), c = col + (e & 15);
-        if (r >= end) continue;
-        const int g = base + r;
-        float v = st[e] + bias[c];
-        v = (g >= 0 && g < valid) ? v : 0.f;
-        if (SECOND) V[(size_t)r * LDV + c] = v;
-        act[(size_t)r * LDA + c] = __float2bfloat16_rn(lrelu(v, slope));
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
+// Byte offset, in a ring slot, of the 16-byte chunk holding W's columns
+// n .. n + 7 of k row k: wgmma's MN-major layout with the 128-byte
+// swizzle, atoms of 8 k rows x 64 columns, 16-byte chunks XORed with the
+// row; the 64-column halves (one a warpgroup) 16 KB apart.  Needs a
+// 1024-byte aligned slot.
+__device__ __forceinline__ uint32_t slice_offset(int k, int n) {
+  const uint32_t o = k * 128 + (n % 64) * 2;
+  return (n / 64) * (D * 128) + (o ^ ((k & 7) << 4));
 }
 
-__global__ void __launch_bounds__(NWARP * 32, 1)
-mrf_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ W,
-           const float* __restrict__ b_all, float* __restrict__ out,
-           const int* __restrict__ valid_ptr, int T, int H, int tm,
-           MrfOps ops, float inv_nk, float slope) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = tm + 2 * H + 16;
-  float* V = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* act =
-      reinterpret_cast<__nv_bfloat16*>(smem + (size_t)rows * LDV * 4);
-  float* staging = reinterpret_cast<float*>(
-      smem + (size_t)rows * LDV * 4 + (size_t)rows * LDA * 2);
+// descriptor of A (64 output channels from 64 wg x 16 k rows from k0, a
+// multiple of 16) in a slot at shared address `slot`: column atoms 16 KB
+// apart (leading byte offset), 8-row groups 1 KB apart (stride byte
+// offset), 128-byte swizzle
+__device__ __forceinline__ uint64_t slice_desc(uint32_t slot, int wg,
+                                               int k0) {
+  const uint32_t addr = slot + slice_offset(k0, 64 * wg);
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((D * 128) >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
 
+// D (64 x N, float32) += A (64 x 16 bf16, descriptor `da`, MN-major) * B
+// (16 x N bf16, descriptor `db`, K-major); D = A * B when !accumulate.
+// One overload per N (a multiple of 16), picked by the accumulator
+// array's size N / 2.  D's layout: lane 4 g + t of warp q holds, for
+// each 8-column block j, rows 16 q + g (d[4 j], d[4 j + 1]) and 16 q + g
+// + 8 (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t and 8 j + 2 t + 1.
+#define MRF_WGMMA(N, REGS, OUTS, IA, IB, IP)                                 \
+  __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,   \
+                                           uint64_t db, int accumulate) {    \
+    asm volatile("{\n.reg .pred p;\n"                                        \
+                 "setp.ne.b32 p, " IP ", 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " \
+                 "{" REGS "}, " IA ", " IB ", p, 1, 1, 1, 0;\n}\n"           \
+                 : OUTS                                                      \
+                 : "l"(da), "l"(db), "r"(accumulate));                       \
+  }
+#define MRF_O8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MRF_OUT_16 MRF_O8(0)
+#define MRF_OUT_32 MRF_OUT_16, MRF_O8(8)
+#define MRF_OUT_48 MRF_OUT_32, MRF_O8(16)
+#define MRF_OUT_64 MRF_OUT_48, MRF_O8(24)
+#define MRF_OUT_80 MRF_OUT_64, MRF_O8(32)
+#define MRF_OUT_96 MRF_OUT_80, MRF_O8(40)
+#define MRF_OUT_112 MRF_OUT_96, MRF_O8(48)
+#define MRF_OUT_128 MRF_OUT_112, MRF_O8(56)
+#define MRF_OUT_144 MRF_OUT_128, MRF_O8(64)
+#define MRF_OUT_160 MRF_OUT_144, MRF_O8(72)
+#define MRF_OUT_176 MRF_OUT_160, MRF_O8(80)
+#define MRF_OUT_192 MRF_OUT_176, MRF_O8(88)
+#define MRF_REGS_16 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define MRF_REGS_32 MRF_REGS_16 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define MRF_REGS_48 MRF_REGS_32 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define MRF_REGS_64 MRF_REGS_48 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define MRF_REGS_80 MRF_REGS_64 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define MRF_REGS_96 MRF_REGS_80 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define MRF_REGS_112 MRF_REGS_96 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define MRF_REGS_128 MRF_REGS_112 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define MRF_REGS_144 MRF_REGS_128 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define MRF_REGS_160 MRF_REGS_144 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define MRF_REGS_176 MRF_REGS_160 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define MRF_REGS_192 MRF_REGS_176 ", %88, %89, %90, %91, %92, %93, %94, %95"
+MRF_WGMMA(16, MRF_REGS_16, MRF_OUT_16, "%8", "%9", "%10")
+MRF_WGMMA(32, MRF_REGS_32, MRF_OUT_32, "%16", "%17", "%18")
+MRF_WGMMA(48, MRF_REGS_48, MRF_OUT_48, "%24", "%25", "%26")
+MRF_WGMMA(64, MRF_REGS_64, MRF_OUT_64, "%32", "%33", "%34")
+MRF_WGMMA(80, MRF_REGS_80, MRF_OUT_80, "%40", "%41", "%42")
+MRF_WGMMA(96, MRF_REGS_96, MRF_OUT_96, "%48", "%49", "%50")
+MRF_WGMMA(112, MRF_REGS_112, MRF_OUT_112, "%56", "%57", "%58")
+MRF_WGMMA(128, MRF_REGS_128, MRF_OUT_128, "%64", "%65", "%66")
+MRF_WGMMA(144, MRF_REGS_144, MRF_OUT_144, "%72", "%73", "%74")
+MRF_WGMMA(160, MRF_REGS_160, MRF_OUT_160, "%80", "%81", "%82")
+MRF_WGMMA(176, MRF_REGS_176, MRF_OUT_176, "%88", "%89", "%90")
+MRF_WGMMA(192, MRF_REGS_192, MRF_OUT_192, "%96", "%97", "%98")
+
+// The weight ring: W_all's tap slices in row order, slice q in slot
+// q % slots.  Each slot has a full barrier (the producer's one arrival,
+// expecting the slice's bytes) and an empty barrier (one arrival from
+// each of the 8 consumer warps once its products have read the slot).
+// The producer warp's first thread loads a slice by the TMA unit as two
+// boxes of 64 columns in the 128-byte swizzle (the tensor map's, which is
+// slice_offset's).
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  const CUtensorMap* tmap;
+  int slots;
+
+  // producer: slice q into its slot, once every consumer warp has
+  // released the slice before it there
+  __device__ __forceinline__ void load(int q) const {
+    const int s = q % slots;
+    if (q >= slots) sm90::mbar_wait(&empty[s], (q / slots - 1) & 1);
+    sm90::mbar_expect_tx(&full[s], SLICE);
+    unsigned char* slot = base + (size_t)s * SLICE;
+    for (int h = 0; h < 2; ++h)
+      sm90::tma_load_2d(slot + h * (SLICE / 2), tmap, 64 * h, q * D,
+                        &full[s]);
+  }
+
+  // consumers: slice q has landed; its slot's shared address
+  __device__ __forceinline__ uint32_t wait(int q) const {
+    sm90::mbar_wait(&full[q % slots], (q / slots) & 1);
+    return sm90::smem_u32(base) + (q % slots) * SLICE;
+  }
+
+  // consumers (lane 0 of each warp): this warp is done with slice q
+  __device__ __forceinline__ void release(int q) const {
+    sm90::mbar_arrive(&empty[q % slots]);
+  }
+};
+
+// a barrier of the two consumer warpgroups (the producer warp runs apart)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(NT) : "memory");
+}
+
+// v's element (r, c): rows of 128 floats, the 8-float groups of a row
+// XORed with bits 1-2 of the row, so the epilogue's accesses (8
+// channels at rows 2 apart) and the row-wise float4 passes meet 32 banks
+__device__ __forceinline__ int v_index(int r, int c) {
+  return r * D + (c ^ (((r >> 1) & 3) << 3));
+}
+
+// One folded conv of N padded output rows over the activation rows
+// [a, b), writing rows [a + w, b - w); its taps are slices q, q + 1, ..
+// of the ring (q advances past them).  second: the output is v's
+// residual update (v += conv), and v's new activation replaces the
+// buffer's; otherwise the activated output itself replaces it.
+template <int N>
+__device__ __forceinline__ void conv_op(unsigned char* smem, const Plan& pl,
+                                        const Ring& ring, int& q,
+                                        const float* __restrict__ bias,
+                                        int w, int a, int b, int base,
+                                        int valid, float slope, bool second) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int o0 = a + w, end = b - w;
+  const uint32_t chunk = pl.r_alloc * 16;
+  const int c0 = 64 * wg + 16 * warp + g;  // this lane's output channels
+  const float bv[2] = {bias[c0], bias[c0 + 8]};   // c0 and c0 + 8
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  // B of k-step 0, tap 0: channels 0-15, rows a ..; k-step k starts 2 k
+  // chunks on, tap j j rows on (16-byte units in the descriptor)
+  const uint64_t db =
+      tf32x3::desc(sm90::smem_u32(smem + pl.buf_off) + a * 16, chunk);
+  for (int j = 0; j <= 2 * w; ++j, ++q) {
+    const uint32_t slot = ring.wait(q);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_ss(acc, slice_desc(slot, wg, 16 * k),
+               db + j + k * 2 * (chunk >> 4), 1);
+    sm90::wgmma_commit();
+    tf32x3::wait_group<1>();  // this warp is done with slice q - 1
+    if (q > 0 && lane == 0) ring.release(q - 1);
+  }
+  sm90::wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sm90::reg_fence(acc[i]);
+  consumers_sync();  // both warpgroups are done reading the buffer
+
+  // acc[4 j + 2 h + e] is output channel c0 + 8 h of output row 8 j +
+  // 2 t + e.  The activation goes out by stmatrix, transposed, 16 bytes
+  // (8 channels) a buffer row: matrix 2 i + h of a pair of 8-row blocks
+  // is channels 8 h .. of rows 8 i ..  Rows past the extent get zeros
+  // (never read).
+  float* V = reinterpret_cast<float*>(smem + pl.v_off);
+  unsigned char* st = smem + pl.buf_off +
+                      (8 * wg + 2 * warp + ((lane >> 3) & 1)) * chunk +
+                      (o0 + 8 * (lane >> 4) + (lane & 7)) * 16;
+#pragma unroll
+  for (int j = 0; j < N / 8; j += 2) {
+    uint32_t packed[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r0 = o0 + 8 * (j + i) + 2 * t;
+      bool keep[2], in[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        in[e] = r0 + e < end;
+        keep[e] = in[e] && (unsigned)(base + r0 + e) < (unsigned)valid;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[4 * (j + i) + 2 * h + e] + bv[h];
+          float* vp = V + v_index(r0 + e, c0 + 8 * h);
+          if (second && in[e]) v += *vp;
+          v = keep[e] ? v : 0.f;
+          if (second && in[e]) *vp = v;
+          y[e] = lrelu(v, slope);
+        }
+        const __nv_bfloat162 p2 = __floats2bfloat162_rn(y[0], y[1]);
+        packed[2 * i + h] = *reinterpret_cast<const uint32_t*>(&p2);
+      }
+    }
+    sm90::stmatrix_x4_trans(st + 8 * j * 16, packed);
+  }
+  sm90::fence_proxy_async();  // the new buffer, before wgmma reads it
+  consumers_sync();
+}
+
+// conv_op at the conv's output rows rounded up to 16
+__device__ __forceinline__ void conv(unsigned char* smem, const Plan& pl,
+                                     const Ring& ring, int& q,
+                                     const float* __restrict__ bias, int w,
+                                     int a, int b, int base, int valid,
+                                     float slope, bool second) {
+#define MRF_CONV(N)                                                   \
+  case N / 16:                                                        \
+    conv_op<N>(smem, pl, ring, q, bias, w, a, b, base, valid, slope, \
+               second);                                               \
+    break;
+  switch ((b - a - 2 * w + 15) / 16) {
+    MRF_CONV(16) MRF_CONV(32) MRF_CONV(48) MRF_CONV(64) MRF_CONV(80)
+    MRF_CONV(96) MRF_CONV(112) MRF_CONV(128) MRF_CONV(144) MRF_CONV(160)
+    MRF_CONV(176) MRF_CONV(192)
+  }
+#undef MRF_CONV
+}
+
+// float4s a thread moves at once in the row-wise passes (loads first)
+constexpr int PASS = 16;
+
+__global__ void __launch_bounds__(NT_ALL, 1)
+mrf_kernel(const __grid_constant__ CUtensorMap tmap,
+           const float* __restrict__ x, const float* __restrict__ b_all,
+           float* __restrict__ out, const int* __restrict__ valid_ptr, int T,
+           const Plan pl, MrfOps ops, int n_slices, float inv_nk,
+           float slope) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
+  const int tm = pl.tm, H = pl.H;
   const int row0 = blockIdx.x * tm;
   const int base = row0 - H;  // global row of buffer row 0
-  const int valid = *valid_ptr;
+  const int valid = min(max(*valid_ptr, 0), T);
+  float* V = reinterpret_cast<float*>(smem + pl.v_off);
+  unsigned char* act = smem + pl.buf_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + pl.bar_off);
+  uint64_t* empty = full + pl.slots;
 
   if (row0 >= valid) {  // every row of the tile is masked: write zeros only
-    for (int i = tid; i < tm * D; i += blockDim.x)
+    for (int i = tid; i < tm * D; i += NT_ALL)
       if (row0 + i / D < T) out[(size_t)row0 * D + i] = 0.f;
     return;
   }
 
-  // rows past a chain's extent are read (never kept) by the last partial
-  // row block: start them at zero so they stay finite
-  for (int i = tid; i < rows * LDV; i += blockDim.x) V[i] = 0.f;
-  for (int i = tid; i < rows * LDA; i += blockDim.x)
-    act[i] = __float2bfloat16_rn(0.f);
+  const Ring ring{smem, full, empty, &tmap, pl.slots};
+  if (tid == 0) {
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], NT / 32);
+    }
+    sm90::fence_mbar_init();
+  }
   __syncthreads();
+  if (tid >= NT) {  // the producer warp: every slice, in order
+    if (tid == NT)
+      for (int q = 0; q < n_slices; ++q) ring.load(q);
+    return;
+  }
+  // rows past a conv's extent are read (never kept) by its last 16 rows:
+  // start the buffer at zero so they stay finite
+  for (int i = tid; i < (D / 8) * pl.r_alloc; i += NT)
+    reinterpret_cast<float4*>(act)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  consumers_sync();
 
+  const uint32_t chunk = pl.r_alloc * 16;
+  int q = 0;  // the ring's next slice: the next conv's first tap
   for (int j = 0; j < ops.n_chains; ++j) {
     int M = 0;
     for (int m = 0; m < ops.n_ops[j]; ++m) M += ops.w[j][m];
     int a = H - M, b = H + tm + M;
 
     // v := x (masked) over the chain's extent, and its activation
-    for (int i = tid; i < (b - a) * (D / 4); i += blockDim.x) {
-      const int r = a + i / (D / 4), c4 = i % (D / 4);
-      const int g = base + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (g >= 0 && g < T && g < valid)
-        v = reinterpret_cast<const float4*>(x + (size_t)g * D)[c4];
-      reinterpret_cast<float4*>(V + (size_t)r * LDV)[c4] = v;
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(act + (size_t)r * LDA + c4 * 4);
-      dst[0] = __floats2bfloat162_rn(lrelu(v.x, slope), lrelu(v.y, slope));
-      dst[1] = __floats2bfloat162_rn(lrelu(v.z, slope), lrelu(v.w, slope));
+    const int n_in = (b - a) * (D / 4);
+    for (int i0 = tid; i0 < n_in; i0 += PASS * NT) {
+      float4 xv[PASS];
+#pragma unroll
+      for (int u = 0; u < PASS; ++u) {
+        const int i = i0 + u * NT, gr = base + a + i / (D / 4);
+        xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < n_in && gr >= 0 && gr < valid)
+          xv[u] = __ldg(reinterpret_cast<const float4*>(x + (size_t)gr * D) +
+                        i % (D / 4));
+      }
+#pragma unroll
+      for (int u = 0; u < PASS; ++u) {
+        const int i = i0 + u * NT, r = a + i / (D / 4), c4 = i % (D / 4);
+        if (i >= n_in) break;
+        const float4 v = xv[u];
+        *reinterpret_cast<float4*>(V + v_index(r, 4 * c4)) = v;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(lrelu(v.x, slope),
+                                                        lrelu(v.y, slope));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(lrelu(v.z, slope),
+                                                        lrelu(v.w, slope));
+        *reinterpret_cast<uint2*>(act + (c4 >> 1) * chunk + r * 16 +
+                                  (c4 & 1) * 8) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      }
     }
-    __syncthreads();
+    sm90::fence_proxy_async();
+    consumers_sync();
 
     for (int m = 0; m + 1 < ops.n_ops[j]; m += 2) {
       const int w1 = ops.w[j][m], w2 = ops.w[j][m + 1];
-      conv_op<false>(V, act, staging, W + (size_t)ops.woff[j][m] * D,
-                     b_all + (size_t)ops.bidx[j][m] * D, w1, a, b, base, valid,
-                     slope);
+      conv(smem, pl, ring, q, b_all + (size_t)ops.bidx[j][m] * D, w1, a, b,
+           base, valid, slope, false);
       a += w1;
       b -= w1;
-      conv_op<true>(V, act, staging, W + (size_t)ops.woff[j][m + 1] * D,
-                    b_all + (size_t)ops.bidx[j][m + 1] * D, w2, a, b, base,
-                    valid, slope);
+      conv(smem, pl, ring, q, b_all + (size_t)ops.bidx[j][m + 1] * D, w2, a,
+           b, base, valid, slope, true);
       a += w2;
       b -= w2;
     }
 
     // a == H and b == H + tm: fold the chain's centre rows into the sum
     const bool first = j == 0, last = j == ops.n_chains - 1;
-    for (int i = tid; i < tm * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      const int g = row0 + r;
-      if (g >= T) continue;
-      const size_t o = (size_t)g * D + c;
-      float s = V[(size_t)(H + r) * LDV + c];
-      if (!first) s = out[o] + s;
-      if (last) s = g < valid ? s * inv_nk : 0.f;
-      out[o] = s;
+    const int n_out = min(tm, T - row0) * (D / 4);
+    for (int i0 = tid; i0 < n_out; i0 += PASS * NT) {
+      float4 sum[PASS];
+#pragma unroll
+      for (int u = 0; u < PASS; ++u) {
+        const int i = i0 + u * NT;
+        sum[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!first && i < n_out)
+          sum[u] = reinterpret_cast<const float4*>(out + (size_t)row0 * D)[i];
+      }
+#pragma unroll
+      for (int u = 0; u < PASS; ++u) {
+        const int i = i0 + u * NT, r = i / (D / 4), c4 = i % (D / 4);
+        if (i >= n_out) break;
+        float4 s = *reinterpret_cast<const float4*>(V + v_index(H + r, 4 * c4));
+        s.x += sum[u].x; s.y += sum[u].y; s.z += sum[u].z; s.w += sum[u].w;
+        if (last) {
+          const float k = row0 + r < valid ? inv_nk : 0.f;
+          s.x *= k; s.y *= k; s.z *= k; s.w *= k;
+        }
+        reinterpret_cast<float4*>(out + (size_t)row0 * D)[i] = s;
+      }
     }
-    __syncthreads();
+    consumers_sync();
   }
 }
+
+}  // namespace bf16v
 
 namespace f32v {
 
@@ -509,6 +760,45 @@ bool parse_spec(const int* spec, MrfOps& ops) {
   return true;
 }
 
+// The tensor map of the bf16 W_all (rows x 128, row-major) in boxes of 128
+// k rows x 64 columns with the 128-byte swizzle: a box is half a tap
+// slice (one warpgroup's output channels), laid out as
+// bf16v::slice_offset lays it.  The driver's encoder is found through the
+// runtime, so nothing links against the driver library.
+cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {D, static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {D * 2};
+  const cuuint32_t box[2] = {64, D};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(W), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,32 +807,51 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rows a bf16 tile with both halos may span.
-int mrf_max_rows() { return MAX_RB * 16; }
-
-int mrf_smem_bytes(int tm, int H) {
-  const size_t rows = tm + 2 * H + 16;
-  return static_cast<int>(rows * LDV * 4 + rows * LDA * 2 +
-                          NWARP * 256 * sizeof(float));
-}
-
-// bf16 W_all; x, b_all and out float32.
+// bf16 W_all; x, b_all and out float32.  The plan (tile rows tm, ring
+// slots, rows of a channel chunk, the buffer's, v's and the barriers'
+// byte offsets, shared memory) comes from mrf_block.py::bf16_plan.
 int mrf_launch(const void* x, const void* W, const void* b_all, void* out,
-               const void* valid, int T, int H, int tm, const int* spec,
-               int num_kernels, float slope, void* stream) {
+               const void* valid, int T, int H, int tm, int slots,
+               int r_alloc, int buf_off, int v_off, int bar_off, int smem,
+               const int* spec, int num_kernels, float slope, void* stream) {
+  using namespace bf16v;
   MrfOps ops;
   if (!parse_spec(spec, ops)) return cudaErrorInvalidValue;
-  if (tm % 16 || tm + 2 * H > mrf_max_rows()) return cudaErrorInvalidValue;
-  const int smem = mrf_smem_bytes(tm, H);
-  cudaError_t e = cudaFuncSetAttribute(
-      mrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the ring streams W_all's tap slices in row order: the ops must be
+  // stacked in the order they run, and every conv's output rows fit one
+  // instruction
+  int rows = 0;
+  for (int j = 0; j < ops.n_chains; ++j) {
+    int M = 0;
+    for (int m = 0; m < ops.n_ops[j]; ++m) M += ops.w[j][m];
+    if (M > H) return cudaErrorInvalidValue;
+    int extent = tm + 2 * M;
+    for (int m = 0; m < ops.n_ops[j]; ++m) {
+      const int w = ops.w[j][m];
+      if (w < 0 || ops.woff[j][m] != rows) return cudaErrorInvalidValue;
+      rows += (2 * w + 1) * D;
+      extent -= 2 * w;
+      if (extent > MAX_N) return cudaErrorInvalidValue;
+    }
+  }
+  const Plan pl{tm, H, slots, r_alloc, buf_off, v_off, bar_off};
+  if (tm <= 0 || tm % 16 || tm > MAX_TM || slots < 2 || slots > MAX_SLOTS ||
+      buf_off < slots * SLICE || buf_off % 16 ||
+      r_alloc < tm + 2 * H + 15 || v_off < buf_off + (D / 8) * r_alloc * 16 ||
+      v_off % 16 || bar_off < v_off + (tm + 2 * H) * D * 4 || bar_off % 8 ||
+      smem < bar_off + 16 * slots + 1024)
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = w_tensor_map(&map, W, rows);
   if (e != cudaSuccess) return e;
-  mrf_kernel<<<(T + tm - 1) / tm, NWARP * 32, smem,
+  e = cudaFuncSetAttribute(mrf_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  mrf_kernel<<<(T + tm - 1) / tm, NT_ALL, smem,
                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(W),
-      static_cast<const float*>(b_all), static_cast<float*>(out),
-      static_cast<const int*>(valid), T, H, tm, ops, 1.0f / num_kernels,
-      slope);
+      map, static_cast<const float*>(x), static_cast<const float*>(b_all),
+      static_cast<float*>(out), static_cast<const int*>(valid), T, pl, ops,
+      rows / D, 1.0f / num_kernels, slope);
   return cudaGetLastError();
 }
 

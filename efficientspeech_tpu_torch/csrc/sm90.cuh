@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels of csrc/: mbarriers,
-// bulk asynchronous copies (the TMA unit's non-tensor mode), cp.async,
-// thread-block clusters and distributed shared memory, ldmatrix, and the
+// bulk asynchronous copies (the TMA unit's non-tensor and tensor modes),
+// cp.async, thread-block clusters and distributed shared memory, ldmatrix and stmatrix, and the
 // wgmma fence/commit/wait.  Each is one PTX instruction (PTX ISA 8.0);
 // nothing here allocates, launches or synchronises the host.
 
@@ -25,6 +25,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // makes the initialised barriers visible to the async proxy and the cluster
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // one arrival that also expects `bytes` of asynchronous copies
@@ -56,6 +62,17 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 2-D box of a tensor map (the TMA unit's tensor mode) into shared
+// memory at `dst`, completing on `bar`; c0 is the innermost coordinate
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(tmap), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -133,6 +150,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// the transpose of four 8 x 8 b16 matrices in the fragment layout of an
+// mma accumulator (lane 4 g + t holds row g, columns 2 t and 2 t + 1 of
+// matrix i in r[i], the lower column in the low half) to shared memory:
+// lane l gives the address of row l % 8 of matrix l / 8, which receives
+// that matrix's column l % 8 (16 bytes)
+__device__ __forceinline__ void stmatrix_x4_trans(void* p,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

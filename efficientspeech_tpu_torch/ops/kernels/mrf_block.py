@@ -10,8 +10,9 @@ For each resblock j (a chain of (conv1, conv2) pairs):
 with every conv output masked to rows [0, valid).  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.  The kernel
 has two variants, chosen by W_all's dtype: bf16 (bf16 products, float32
-sums) and float32 (3xTF32 split products on the tensor cores, held to
-float32; its tiling is decided here, by ``f32_plan``).
+sums; its tiling is decided here, by ``bf16_plan``) and float32 (3xTF32
+split products on the tensor cores, held to float32; tiled by
+``f32_plan``).
 """
 
 import ctypes
@@ -23,7 +24,7 @@ import torch
 
 from efficientspeech_tpu_torch.ops.kernels import build
 from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
-    leaky, mask_rows, window)
+    ALIGN_SLACK, leaky, mask_rows, window)
 
 LRELU_SLOPE = 0.1
 D = 128
@@ -92,29 +93,15 @@ def mrf_fused_plain(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mrf_launch": ([_P] * 5 + [_I] * 3 + [ctypes.POINTER(_I), _I, _F, _P],
+    "mrf_launch": ([_P] * 5 + [_I] * 9 + [ctypes.POINTER(_I), _I, _F, _P],
                    _I),
     "mrf_f32_launch": ([_P] * 5 + [_I] * 7 + [ctypes.POINTER(_I), _I, _F,
                                               _P], _I),
-    "mrf_max_rows": ([], _I),
-    "mrf_smem_bytes": ([_I, _I], _I),
 }
 
 
 def _lib():
     return build.load("mrf_block", _SIGNATURES)
-
-
-def tile_rows(H: int, max_rows: int = 192) -> int:
-    """Rows per block of the bf16 kernel.  128 where the tile plus both
-    halos fits the kernel's ``max_rows`` (``mrf_max_rows``, 192; stages
-    1-3: H = 19/10/7, halo recompute ≤ 30%); 64 at stage 0 (H = 33: 128 +
-    66 rows would not fit), which at 2,048 frames also gives 128 blocks,
-    one wave on the card's 132 SMs."""
-    for tm in (128, 64, 32, 16):
-        if tm + 2 * H <= max_rows:
-            return tm
-    raise ValueError(f"MRF halo {H} too wide for the kernel's tile")
 
 
 SMEM_LIMIT = 227 * 1024
@@ -190,6 +177,103 @@ def chain_widths(chains: Chains) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(op[0] for op in chain) for chain in chains)
 
 
+BF16_MAX_N = 192          # rows of one conv's output (csrc: bf16v::MAX_N)
+BF16_MAX_TM = 128         # rows of a tile (csrc: bf16v::MAX_TM): taller
+                          # ones measured slower at every stage
+SLICE_BYTES = D * D * 2   # one tap's W slice, a ring slot (csrc: bf16v::SLICE)
+MAX_SLOTS = 4             # csrc: bf16v::MAX_SLOTS
+
+# a tap costs its N output rows of products and, counted in rows of
+# products, BF16_TAP_ROWS for its own work: waiting for its W slice,
+# issuing, releasing the slot
+BF16_TAP_ROWS = 64
+
+
+class BF16Plan(NamedTuple):
+    """How the bf16 kernel tiles one stage: ``tm`` rows a block (one block
+    per tile).  Shared memory, from a 1024-byte aligned base: the weight
+    ring's ``slots`` slots of SLICE_BYTES at 0; the bf16 activation
+    buffer at ``buf_off``, in chunks of 8 channels of ``r_alloc`` rows (16
+    bytes a row; r_alloc = 1 mod 8); v, float32, (tm + 2H) rows of 128
+    floats at ``v_off``; the slots' full and empty mbarriers at
+    ``bar_off``; ``smem`` bytes in all, the alignment slack included.
+    ``chunks``: each conv's wgmma N (its output rows rounded up to 16),
+    per chain in execution order.  ``cost``: a tile's taps weighted by
+    their N plus BF16_TAP_ROWS, times the waves of tiles over the SMs
+    (one block a SM: a wave that is partly filled costs a whole one)."""
+    tm: int
+    slots: int
+    r_alloc: int
+    buf_off: int
+    v_off: int
+    bar_off: int
+    smem: int
+    chunks: Tuple[Tuple[int, ...], ...]
+    cost: int
+
+
+def bf16_chunks(widths: Tuple[Tuple[int, ...], ...],
+                tm: int) -> Tuple[Tuple[int, ...], ...]:
+    """Each conv's output rows at tile height ``tm``, rounded up to 16:
+    the N of its one wgmma a k-step."""
+    out = []
+    for chain in widths:
+        extent, ns = tm + 2 * sum(chain), []
+        for w in chain:
+            extent -= 2 * w
+            ns.append(-(-extent // 16) * 16)
+        out.append(tuple(ns))
+    return tuple(out)
+
+
+def _bf16_layout(tm: int, H: int, slots: int) -> Tuple[int, ...]:
+    r_alloc = tm + 2 * H + 15
+    r_alloc += (1 - r_alloc) % 8
+    buf_off = slots * SLICE_BYTES
+    v_off = buf_off + D // 8 * r_alloc * 16
+    bar_off = v_off + (tm + 2 * H) * D * 4
+    return (r_alloc, buf_off, v_off, bar_off,
+            bar_off + 16 * slots + ALIGN_SLACK)
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_plan(widths: Tuple[Tuple[int, ...], ...], t: int,
+              tm: Optional[int] = None, sms: int = SMS_H100) -> BF16Plan:
+    """The bf16 kernel's plan for a stage of T = ``t`` rows whose chains
+    have the window half-widths ``widths`` (one tuple per chain, in
+    execution order).  Without ``tm``, the tile height (a multiple of 16,
+    at most BF16_MAX_TM) whose convs fit one wgmma and whose buffers leave
+    a block's shared memory room for two ring slots or more, at the least
+    ``cost``: a tall tile reads each weight slice for more rows and
+    recomputes less halo, a short one spreads a stage over the SMs in
+    fewer or fuller waves; of equal costs, the one with more slots.  The
+    ring takes as many slots as fit, up to MAX_SLOTS.  Raises ValueError
+    where none fits."""
+    H = max(sum(c) for c in widths)
+    best = None
+    for cand in (tm,) if tm is not None else range(16, BF16_MAX_TM + 1, 16):
+        if cand % 16 or not 0 < cand <= BF16_MAX_TM:
+            continue
+        chunks = bf16_chunks(widths, cand)
+        if max(max(c) for c in chunks) > BF16_MAX_N:
+            continue
+        fits = [s for s in range(MAX_SLOTS, 1, -1)
+                if _bf16_layout(cand, H, s)[-1] <= SMEM_LIMIT]
+        if not fits:
+            continue
+        rows = sum((2 * w + 1) * (n + BF16_TAP_ROWS)
+                   for chain, ns in zip(widths, chunks)
+                   for w, n in zip(chain, ns))
+        cost = rows * -(-t // (cand * sms))
+        if best is None or (cost, -fits[0]) < (best.cost, -best.slots):
+            best = BF16Plan(cand, fits[0], *_bf16_layout(cand, H, fits[0]),
+                            chunks, cost)
+    if best is None:
+        raise ValueError(f"mrf_fused: no bf16 tile fits halo {H}"
+                         + ("" if tm is None else f" at tm {tm}"))
+    return best
+
+
 def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
               b_all: torch.Tensor, H: int, valid: Union[int, torch.Tensor],
               num_kernels: int, tm: Optional[int] = None,
@@ -200,8 +284,8 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     tensor on the card).
 
     On CUDA: x float32, W_all bf16 or float32 (the kernel's variant),
-    b_all float32; ``tm`` defaults to ``tile_rows(H)`` (bf16) or
-    ``f32_plan``'s choice (float32)."""
+    b_all float32; ``tm`` defaults to the choice of the variant's plan
+    (``bf16_plan`` or ``f32_plan``)."""
     if x.device.type == "cpu":
         return mrf_fused_plain(x, chains, W_all, b_all, H, valid,
                                num_kernels, tm, lrelu_slope)
@@ -220,18 +304,8 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
     build.check_tensor("b_all", b_all, torch.float32, (n_ops, D), dev)
     build.check_valid("mrf_fused", valid, dev)
     lib = _lib()
-    if f32:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        pl = f32_plan(chain_widths(chains), t, tm, sms)
-    else:
-        max_rows = lib.mrf_max_rows()
-        tm = tile_rows(H, max_rows) if tm is None else tm
-        if tm % 16 or tm + 2 * H > max_rows:
-            raise ValueError(f"mrf_fused: tile {tm} with halo {H} does not "
-                             "fit")
-        if lib.mrf_smem_bytes(tm, H) > SMEM_LIMIT:
-            raise ValueError(f"mrf_fused: tile {tm} with halo {H} needs "
-                             "more shared memory than a block has")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = (f32_plan if f32 else bf16_plan)(chain_widths(chains), t, tm, sms)
     spec = [len(chains)]
     for chain in chains:
         spec.append(len(chain))
@@ -248,8 +322,10 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
                                      pl.v_off, pl.smem, spec_arr,
                                      num_kernels, float(lrelu_slope), stream)
         else:
-            err = lib.mrf_launch(*args, tm, spec_arr, num_kernels,
-                                 float(lrelu_slope), stream)
+            err = lib.mrf_launch(*args, pl.tm, pl.slots, pl.r_alloc,
+                                 pl.buf_off, pl.v_off, pl.bar_off, pl.smem,
+                                 spec_arr, num_kernels, float(lrelu_slope),
+                                 stream)
     build.check(lib, err, "mrf_fused")
     launches[W_all.dtype] += 1
     return out

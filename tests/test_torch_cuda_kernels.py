@@ -208,6 +208,47 @@ def test_mrf_f32_kernel_plans(card, folded_f32, stage, t, valid_rows, tm):
         assert snr_db(want[:valid_rows], got[:valid_rows]) >= 90.0
 
 
+@pytest.fixture(scope="module")
+def folded_bf16(card):
+    """The LJ_V2-width vocoder folded in bf16 (the serving dtype of bf16
+    requests), with its per-stage MRF specs."""
+    cfg = HifiGanConfig()
+    gen = HifiGanGenerator(cfg)
+    reset_parameters(gen, 0)
+    arrays, meta = fold_hifigan(gen.to(card), torch.bfloat16)
+    return prepare_for_kernels(arrays, meta, cfg)
+
+
+@pytest.mark.parametrize("stage,t,valid_rows,tm", [
+    pytest.param(0, 8192, 8192 - 512, None, id="stage0-2048-frames"),
+    pytest.param(1, 32768, 32768 - 2048, None, id="stage1-2048-frames"),
+    pytest.param(2, 32768, 32768 - 2048, None, id="stage2-2048-frames"),
+    pytest.param(3, 32768, 32768 - 2048, None, id="stage3-2048-frames"),
+    pytest.param(1, 3000, 0, None, id="valid-0"),
+    pytest.param(2, 3000, 3000, None, id="valid-T"),
+    pytest.param(0, 1000, 1000 - 229, 128, id="stage0-tm128"),
+    pytest.param(3, 1000, 1000 - 229, 32, id="stage3-tm32")])
+def test_mrf_bf16_kernel_plans(card, folded_bf16, stage, t, valid_rows, tm):
+    """K2 bf16 (wgmma with the weight ring) at the main path's stage
+    lengths and at other tile heights of its plan: SNR >= 35 dB over the
+    valid rows, rows at or beyond valid exactly zero, every output
+    finite, one launch counted."""
+    chains, W_all, b_all, H = folded_bf16[1][stage]
+    assert W_all.dtype == torch.bfloat16
+    x = torch.randn(t, 128, generator=torch.Generator().manual_seed(t)
+                    ).to(card)
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
+    before = mrf_block.launches[torch.bfloat16]
+    got = mrf_block.mrf_fused(x, chains, W_all, b_all, H, valid, 3, tm=tm)
+    want = mrf_block.mrf_fused_plain(x, chains, W_all, b_all, H, valid, 3)
+    torch.cuda.synchronize()
+    assert mrf_block.launches[torch.bfloat16] == before + 1
+    assert torch.isfinite(got).all()
+    assert not got[valid_rows:].any()
+    if valid_rows > 0:
+        assert snr_db(want[:valid_rows], got[:valid_rows]) >= 35.0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])

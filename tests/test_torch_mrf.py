@@ -120,3 +120,73 @@ def test_f32_plan_refuses_a_tile_that_does_not_fit():
         mrf_block.f32_plan(STAGE_WIDTHS[0], 8192, tm=128)
     with pytest.raises(ValueError, match="no float32 tile"):
         mrf_block.f32_plan(((60, 60),), 8192)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("t,tm", [(8192, None), (32768, None),
+                                  (1000, None), (1000, 16), (1000, 64)])
+def test_bf16_plan_fits_every_conv(stage, t, tm):
+    """The bf16 kernel's plan at every stage: shared memory (the weight
+    ring, the bf16 activation buffer, float32 v and the slots' two barriers)
+    inside a block's 227 KB, regions in order, the ring's slots 1,024
+    bytes apart from the aligned base and the rest 16-byte aligned; at
+    least two slots; every conv's N a multiple of 8 (of 16 here), at most
+    the kernel's largest, covering its output rows; every row any tap
+    reads (past the conv's extent by up to 15 rows) inside the buffer;
+    rows of a chunk = 1 mod 8; and the tiles cover every row once."""
+    widths = STAGE_WIDTHS[stage]
+    H = max(sum(c) for c in widths)
+    p = mrf_block.bf16_plan(widths, t, tm)
+    if tm is not None:
+        assert p.tm == tm
+    assert p.tm % 16 == 0 and 0 < p.tm <= mrf_block.BF16_MAX_TM
+    assert 2 <= p.slots <= mrf_block.MAX_SLOTS
+    assert p.smem <= 227 * 1024
+    assert mrf_block.SLICE_BYTES % 1024 == 0
+    assert p.buf_off == p.slots * mrf_block.SLICE_BYTES
+    assert p.v_off == p.buf_off + 16 * p.r_alloc * 16
+    assert p.bar_off == p.v_off + (p.tm + 2 * H) * 128 * 4
+    assert p.buf_off % 16 == p.v_off % 16 == p.bar_off % 16 == 0
+    assert p.smem == p.bar_off + 16 * p.slots + mrf_block.ALIGN_SLACK
+    assert p.r_alloc % 8 == 1
+    assert len(p.chunks) == len(widths)
+    for chain, ns in zip(widths, p.chunks):
+        a, b = H - sum(chain), H + p.tm + sum(chain)
+        assert a >= 0 and len(ns) == len(chain)
+        for w, n in zip(chain, ns):
+            assert n % 8 == 0 and 0 < n <= mrf_block.BF16_MAX_N <= 256
+            assert b - a - 2 * w <= n < b - a - 2 * w + 16
+            assert a + 2 * w + n <= p.r_alloc   # the last tap's rows
+            a, b = a + w, b - w
+        assert (a, b) == (H, H + p.tm)
+    tiles = -(-t // p.tm)
+    assert sorted(r for i in range(tiles) for r in range(
+        i * p.tm, min(i * p.tm + p.tm, t))) == list(range(t))
+
+
+@pytest.mark.parametrize("stage,t,want", [(0, 8192, 64), (1, 32768, 128),
+                                          (2, 32768, 128), (3, 32768, 128)])
+def test_bf16_plan_takes_the_shortest_tile_of_the_fewest_waves(stage, t,
+                                                               want):
+    """One block a SM: a wave of tiles that is partly filled costs a whole
+    one, and within as many waves a shorter tile does less work (less
+    halo and padding).  At the main path's stage lengths for 2,048
+    frames that is 64 rows at stage 0 and 128 at stages 1-3."""
+    widths = STAGE_WIDTHS[stage]
+    fits = []
+    for tm in range(16, 257, 16):
+        try:
+            mrf_block.bf16_plan(widths, t, tm)
+        except ValueError:
+            continue
+        fits.append((-(-(-(-t // tm)) // 132), tm))
+    assert mrf_block.bf16_plan(widths, t).tm == min(fits)[1] == want
+
+
+def test_bf16_plan_refuses_a_tile_that_does_not_fit():
+    with pytest.raises(ValueError, match="no bf16 tile"):
+        mrf_block.bf16_plan(STAGE_WIDTHS[0], 8192, tm=160)
+    with pytest.raises(ValueError, match="no bf16 tile"):
+        mrf_block.bf16_plan(STAGE_WIDTHS[1], 8192, tm=24)
+    with pytest.raises(ValueError, match="no bf16 tile"):
+        mrf_block.bf16_plan(((60, 60),), 8192)
