@@ -8,8 +8,9 @@ Phases (each prints its lines; any failure exits non-zero):
                power limit; TF32 is switched off for cuBLAS and cuDNN;
   2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel,
                and prints the registers and spills (-Xptxas -v) of the
-               kernels of folded_matmul.cu and mrf_block.cu (a spill or a
-               serialised wgmma in mrf_block.cu fails the phase);
+               kernels of folded_matmul.cu, mrf_block.cu and
+               decoder_block.cu (a spill or a serialised wgmma in
+               mrf_block.cu or in K4's float32 backward fails the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
@@ -36,7 +37,7 @@ Phases (each prints its lines; any failure exits non-zero):
   8. K4      - decoder_block_fused forward and backward at (128, 1024, C)
                with about 1/6 of the frames masked, the same way, for
                C = 128 (tiny) and C = 256 (small, base), in bf16 and in
-               float32;
+               float32 (the float32 backward with its tile plan);
   9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
@@ -79,7 +80,8 @@ dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
 TPU kernels op for op in bf16) at SNR >= 35 dB on every output: y, dx and
 each weight gradient.  The float32 variants keep float32 accuracy (K1 and
 K2 by 3xTF32 split products on the tensor cores, about 21 bits a
-product; K3 and K4 in float32 on the CUDA cores), their plain versions
+product, and K4's float32 backward likewise; K3 and K4's float32
+forward on the CUDA cores), their plain versions
 multiply in float32, in another summation order: each output is held at
 SNR >= 90 dB (one TF32 or bf16 product would land below it), the float32
 waveform at 80 dB.  K5's int32 sums are exact in the kernel and
@@ -148,6 +150,20 @@ DESIGNS = {
                      "transposed (W^T from L2 through registers as A, the "
                      "split activation buffer as K-major B, 16-row output "
                      "chunks), v float32 in shared memory",
+    "k4_bwd_128_f32": "Hopper redesign: 3xTF32 split products on the "
+                      "tensor cores; v and du transposed on wgmma (W and W^T "
+                      "in A-fragment order from L2 through registers, the "
+                      "split rows as K-major B, 128 rows as N); the weight "
+                      "gradient on mma.sync from shared memory into a "
+                      "per-block partial in L2 in the accumulators' order; "
+                      "tile plan in Python",
+    "k4_bwd_256_f32": "Hopper redesign: 3xTF32 split products on the "
+                      "tensor cores; v and du transposed on wgmma (W and W^T "
+                      "in A-fragment order from L2 through registers, each "
+                      "block's k loop from its own step, the split rows as "
+                      "K-major B, 64 rows as N); the weight gradient on "
+                      "mma.sync from shared memory into a per-block partial "
+                      "in L2 in the accumulators' order; tile plan in Python",
     "k5_bf16": "Hopper redesign: tile split over a cluster, partial maxima "
                "through distributed shared memory, W^T pre-pass and bulk "
                "copy, wgmma s8",
@@ -238,10 +254,12 @@ def phase_device() -> str:
     return card
 
 
-# the sources whose registers and spills the build phase prints, and
-# those of them where a spill or a serialised wgmma fails the phase
-PTXAS_SOURCES = ("folded_matmul", "mrf_block")
-PTXAS_STRICT = ("mrf_block",)
+# the sources whose registers and spills the build phase prints, and, by
+# source, a pattern of the kernels where a spill or a serialised wgmma
+# fails the phase (K4's bf16 C = 256 backward spills, and is not held to
+# it; decoder_block.cu's only wgmma is the float32 backward's)
+PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block")
+PTXAS_STRICT = {"mrf_block": "", "decoder_block": "bwd_f32_kernel"}
 
 
 def ptxas_lines(log: str):
@@ -294,7 +312,8 @@ def phase_build(card: str):
         for kernel, regs, stores, loads in ptxas_lines(log):
             print(f"[ptxas] {name}.cu {kernel}: {regs} registers, spill "
                   f"stores {stores} B, spill loads {loads} B")
-            if name in PTXAS_STRICT and (stores, loads) != ("0", "0"):
+            if (name in PTXAS_STRICT and re.search(PTXAS_STRICT[name], kernel)
+                    and (stores, loads) != ("0", "0")):
                 fail(f"{name}.cu {kernel} spills registers")
         serialised = [line.strip() for line in log.splitlines()
                       if re.search(r"wgmma.*serializ", line)]
@@ -684,6 +703,8 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     dy = f(b, m, c).to(dt)
     print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
+    if dt == torch.float32:
+        print(f"[{tag} bwd] {k4.f32_bwd_plan(c)} | {card}")
     err_f = _snr_check(f"{tag} fwd", [(
         "y", k4.decoder_block_fwd(x, keep, *weights),
         k4.decoder_block_fwd_plain(x, keep, *weights))], card, bar)

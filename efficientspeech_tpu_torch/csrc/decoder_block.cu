@@ -61,8 +61,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
+#include "tf32x3.cuh"
 
 using namespace nvcuda;
 
@@ -542,29 +546,20 @@ __global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The float32 variant (x, y, dx, dy float32).  Every product takes float32
-// operands into float32 sums on the CUDA cores (FFMA), as the TPU kernel's
-// Precision.HIGHEST float32 route does; nothing is rounded to bf16 or TF32.
+// The float32 variant (x, y, dx, dy float32).  Nothing is rounded to bf16.
 //
-// What bounds it: operations.  The pointwise products are 2 N C^2 FLOP a
-// pass (N = B M rows), 4.3 GFLOP forward at C = 128 and 17.2 at C = 256,
-// and three such products backward, against 67 TFLOP/s of float32.  The
-// float32 W is 64 KB at C = 128 and 256 KB at C = 256, more than a block
-// has, so every product streams its B operand (W, or W^T for du) from L2
-// through shared memory in panels of 2,048 floats (16 rows at C = 128, 8 at
-// C = 256), double-buffered through registers.  Tiles are R = 64 rows at
-// both widths: the forward holds the masked input (then v) and u; the
-// backward the masked input, u (then du) and v (then dv in place), 217 KB
-// at C = 256.  Each thread owns RM x 8 outputs of an R x C product (rows
-// 4 apart, two runs of 4 columns 32 apart), so a warp's operand reads are
-// broadcasts or conflict-free 128-byte rows.
-//
-// The C x C weight gradient does not fit one block's registers at C = 256
-// (256 values a thread), so each block keeps its own float32 partial in
-// device memory (L2-resident: 34 MB over 132 blocks at C = 256) and adds
-// each tile's u^T dv into it in passes of 64 accumulators a thread; the
-// caller sums the per-block partials.  No block duplicates another's work
-// and there are no float atomics, so every run gives the same sums.
+// The forward takes float32 operands into float32 sums on the CUDA cores
+// (FFMA), as the TPU kernel's Precision.HIGHEST float32 route does.  What
+// bounds it: operations, 2 N C^2 FLOP a pass (N = B M rows), 4.3 GFLOP at
+// C = 128 and 17.2 at C = 256, against 67 TFLOP/s of float32.  The float32
+// W is 64 KB at C = 128 and 256 KB at C = 256, more than a block has, so
+// the product streams W from L2 through shared memory in panels of 2,048
+// floats (16 rows at C = 128, 8 at C = 256), double-buffered through
+// registers.  Tiles are R = 64 rows: the block holds the masked input
+// (then v) and u.  Each thread owns RM x 8 outputs of the R x C product
+// (rows 4 apart, two runs of 4 columns 32 apart), so a warp's operand
+// reads are broadcasts or conflict-free 128-byte rows.  The backward
+// (GeoB, below) runs its three products on the tensor cores.
 //
 // Numerics: the depthwise taps are summed in tap order with separate
 // multiplies and adds (__fmul_rn, __fadd_rn), exactly as _recompute_to_t's
@@ -579,29 +574,19 @@ struct GeoF {
   static constexpr int LD = C + 4;             // float32 row stride
   static constexpr int XROWS = R + 2 * PAD;
   static constexpr int FWD_OWN = R;
-  static constexpr int BWD_OWN = R - 2 * PAD;
   static constexpr int KP = 2048 / C;          // weight rows per panel
   // R x C products: RM rows x 8 columns a thread, warps of 4 x 8 threads
   static constexpr int RM = C == 128 ? 4 : 8;
   static constexpr int WCOLS = C / 64;         // warps along the columns
-  // the C x C weight gradient in passes of PR rows, 8 x 8 a thread
-  static constexpr int PR = NT * 64 / C;
   static constexpr int GROUPS = NT / C;        // row groups of a column
   static constexpr size_t XS_BYTES = align128((size_t)XROWS * LD * 4);
   static constexpr size_t RS_BYTES = align128((size_t)R * LD * 4);
   static constexpr size_t PANEL_BYTES = 2 * (size_t)KP * C * 4;
   static constexpr size_t FWD_SMEM = XS_BYTES + RS_BYTES + PANEL_BYTES;
-  static constexpr size_t BWD_SMEM = XS_BYTES + 2 * RS_BYTES + PANEL_BYTES;
   static constexpr int FWD_BLOCKS = C == 128 ? 2 : 1;
-  static constexpr int SPLIT = 1;            // backward blocks per tile
   static_assert(NW / WCOLS * 4 * RM == R, "product rows split over warps");
-  static_assert(PR % 32 == 0 && C % PR == 0 && (PR / 32) * (C / 64) == NW,
-                "weight-gradient pass split over warps");
-  static_assert(BWD_OWN % GROUPS == 0, "owned rows split evenly");
+  static_assert(R % GROUPS == 0, "rows split evenly");
   static_assert(FWD_SMEM * FWD_BLOCKS <= SMEM_LIMIT, "forward smem");
-  static_assert(BWD_SMEM <= SMEM_LIMIT, "backward smem");
-  static_assert(((K + 1) * GROUPS + 3 * NW) * C * 4 <= XS_BYTES,
-                "reduction scratch does not fit");
 };
 
 // xs row i <- x[b, u0 - PAD + i] * keep, zero outside [0, M)
@@ -721,51 +706,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[G::RM][8],
                       acc[i][4 * g + 3]);
 }
 
-// part[i0 + i, :] (+)= sum over the owned rows r of us[r, i0 + i] dv[r, :]
-// for one pass of PR rows of the C x C weight gradient (first: store
-// instead of add).  Thread: rows rb + i (i < 8), columns col0 + 32 g + j.
-template <class G>
-__device__ void dw_pass(const float* us, const float* dv,
-                        float* __restrict__ part, int i0, bool first) {
-  constexpr int C = G::C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = i0 + (warp / G::WCOLS) * 32 + (lane >> 3) * 8;
-  const int col0 = (warp % G::WCOLS) * 64 + 4 * (lane & 7);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int r = PAD; r < G::R - PAD; ++r) {
-    const float4 a0 = *reinterpret_cast<const float4*>(us + r * G::LD + rb);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(us + r * G::LD + rb + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(dv + r * G::LD + col0);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(dv + r * G::LD + col0 + 32);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      float4* p = reinterpret_cast<float4*>(part + (size_t)(rb + i) * C +
-                                            col0 + 32 * g);
-      float4 v = make_float4(acc[i][4 * g], acc[i][4 * g + 1],
-                             acc[i][4 * g + 2], acc[i][4 * g + 3]);
-      if (!first) {
-        const float4 o = *p;
-        v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-      }
-      *p = v;
-    }
-}
-
 // t of one row from v, and its LayerNorm statistics, over the lane's
 // columns: t = tanh(v + pb)
 template <int C>
@@ -852,8 +792,368 @@ __global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 backward on the tensor cores.
+//
+// What bounds it: operations.  Three C x C products a row, v = u W (the
+// recomputed forward), the weight gradient u^T dv and du = dv W^T: 6 N C^2
+// FLOP a pass, 51.5 GFLOP at N = 131,072 and C = 256.  Each runs by 3xTF32
+// split products (csrc/tf32x3.cuh: three TF32 products a float32 one,
+// about 21 bits each, nothing rounded to plain TF32), 1.88 ms of
+// tensor-core time at C = 256 against 4.80 of FFMA.
+//
+// Per tile of R rows (R = 16384 / C: 128 at C = 128, 64 at C = 256), of
+// which the inner OWN = R - 4 are the tile's own:
+// - v and du run transposed, as K1/K2 f32 do: v^T = W^T u^T and du^T =
+//   W dv^T on wgmma.m64nRk8, M the output channels (64 a warpgroup per
+//   m-block), N the tile's rows in one instruction, K the input channels.
+//   A is the weights from L2 through registers, split there
+//   (tf32x3::k_loop, 7 k-steps of loads in flight); the wrapper passes W
+//   and W^T in A's fragment order, so a lane's four values of a k-step
+//   are one 16-byte load, and at C = 256 each block starts its k loop at
+//   its own step, so the SMs do not all ask L2 for the same lines at
+//   once.  B is u, later dv, split once into hi and lo copies in the
+//   no-swizzle K-major layout of tf32x3.cuh (the split buffer S).
+// - The weight gradient has the rows as K, and TF32 wgmma takes B K-major
+//   only, so S (channels as K) cannot be its B.  It runs on warp-level
+//   mma.sync.m16n8k8 (TF32, 3xTF32 as above) with both operands loaded
+//   from shared memory: u's hi and lo from S, already split (a chunk is R +
+//   4 rows of 16 bytes, 64 mod 128 bytes, so a fragment's 32 lanes meet 32
+//   banks), dv from its float32 rows, split in registers.  A warp owns a
+//   64 x 32 block of the gradient per pass (C^2 / 16384 passes): it reads
+//   the block's float32 partial of it from device memory (L2) into its
+//   accumulators, adds the tile's products and writes it back, in the
+//   accumulators' order (16-byte accesses).  One partial per block, summed
+//   by the caller; no float atomics, so two launches give the same bits.
+//   (wgmma over an in-place transposed u measured slower: the transpose
+//   cost more than the products saved.)
+// - Shared memory (decoder_block.py::f32_bwd_plan holds the same plan): S
+//   (hi at 0, lo at LO_OFF; 132 or 136 KB), the float32 rows V (stride
+//   C + 8) at V_OFF, the keep values of this tile's and the next tile's x
+//   rows, and the weight vectors the passes read.  Per tile: x's R + 4
+//   rows (prefetched into L2 a tile ahead, then cp.async), masked, over V
+//   -> u, split into S -> v into V -> dv (the LayerNorm and tanh
+//   gradients, two rows a warp) in place in V, u's halo rows zeroed in S
+//   -> the weight gradient from S and V -> dv split into S -> du into V
+//   -> x's rows again (from L2) over S -> dx and the depthwise gradients.
+// - Two warpgroups, one block an SM (210 or 219 KB), persistent over the
+//   tiles.
+//
+// Where the time goes (probes/k4_f32_bwd_phases.py) is written down in
+// PERF.md: at C = 256 the weight gradient's mma.sync and its partial's
+// traffic first, then the two products' A loads from L2.
+//
+// Numerics: the depthwise taps as the forward's; the row pass is the
+// forward's tanh and LayerNorm with their gradients in float32; products
+// by 3xTF32, the small terms first.  Held to the plain version at SNR >=
+// 90 dB.
+
+template <int C_>
+struct GeoB {
+  static constexpr int C = C_;
+  static constexpr int R = 16384 / C;         // rows of u per tile (wgmma N)
+  static constexpr int OWN = R - 2 * PAD;     // the inner rows a tile owns
+  static constexpr int NT = 256, NW = NT / 32;
+  static constexpr int MB = C / 128;          // 64-channel m-blocks a warpgroup
+  static constexpr int R_ALLOC = R + 4;       // rows of a channel chunk of S
+  static constexpr int CHUNK = R_ALLOC * 16;  // its bytes
+  static constexpr int LO_OFF = C / 4 * CHUNK;
+  static constexpr int V_OFF = 2 * LO_OFF;
+  static constexpr int LDV = C + 8;           // V's float32 row stride
+  static constexpr int LD = C + 4;            // the x rows' stride
+  static constexpr int XROWS = R + 2 * PAD;
+  static constexpr int V_BYTES = R * LDV * 4;
+  static constexpr int X_BYTES = XROWS * LD * 4;
+  // the keep values of x's rows, two tiles' (this one's, the next one's)
+  static constexpr int KP_OFF = V_OFF + (V_BYTES > X_BYTES ? V_BYTES : X_BYTES);
+  static constexpr int KP_STRIDE = (XROWS + 3) / 4 * 4;
+  // the vectors the passes read: dw taps (K x C), dw bias, pw bias, LN scale
+  static constexpr int PAR_OFF = KP_OFF + 2 * KP_STRIDE * 4;
+  // the products' k loop (tf32x3::k_loop): A's loads PD steps ahead in a
+  // ring of RING register slots
+  static constexpr int KL_PD = 7, KL_RING = 8;
+  // the products start each block's k loop at its own step (C = 256): 132
+  // blocks reading the same lines of W at once contend for them in L2
+  // (C = 128 runs out of registers with it, and gains nothing)
+  static constexpr bool ROTATE = C == 256;
+  static constexpr int SMEM = PAR_OFF + (K + 3) * C * 4;
+  static constexpr int GROUPS = NT / C;       // row groups of a column
+  static constexpr int DW_PASSES = C * C / (64 * 32 * NW);
+  static_assert(R == 64 || R == 128, "one wgmma N of tf32x3::mma3");
+  static_assert(R_ALLOC % 8 == 4, "a chunk is 64 mod 128 bytes");
+  static_assert(SMEM <= (int)SMEM_LIMIT, "backward smem");
+  static_assert(X_BYTES <= V_OFF, "x's rows fit over S");
+  static_assert(OWN % GROUPS == 0, "owned rows split evenly");
+  static_assert(DW_PASSES * 64 * 32 * NW == C * C, "gradient blocks per warp");
+  static_assert(((K + 1) * GROUPS + 3 * NW) * C * 4 <= V_OFF,
+                "reduction scratch does not fit");
+};
+
+__device__ __forceinline__ float4 tap_add(float4 acc, float4 x, float4 w) {
+  return make_float4(__fadd_rn(acc.x, __fmul_rn(x.x, w.x)),
+                     __fadd_rn(acc.y, __fmul_rn(x.y, w.y)),
+                     __fadd_rn(acc.z, __fmul_rn(x.z, w.z)),
+                     __fadd_rn(acc.w, __fmul_rn(x.w, w.w)));
+}
+
+// `bytes` (a multiple of 16, from a 16-byte aligned address) of device
+// memory into L2, by the TMA unit, ahead of their loads
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               ::"l"(p), "r"(bytes) : "memory");
+}
+
+// rows [g0, g0 + n) of sequence b (M rows of C floats), cut to [0, M),
+// into L2
 template <int C>
-__global__ void __launch_bounds__(GeoF<C>::NT, 1)
+__device__ __forceinline__ void prefetch_rows(const float* base, int b,
+                                              int M, int g0, int n) {
+  const int lo = max(g0, 0), hi = min(g0 + n, M);
+  if (hi > lo)
+    prefetch_l2(base + ((size_t)b * M + lo) * C, (uint32_t)(hi - lo) * C * 4);
+}
+
+// keep of x row u0 - PAD + i of sequence b, 0 outside [0, M)
+__device__ __forceinline__ float keep_of(const float* __restrict__ keep,
+                                         int b, int u0, int M, int i) {
+  const int g = u0 - PAD + i;
+  return g >= 0 && g < M ? __ldg(keep + (size_t)b * M + g) : 0.f;
+}
+
+// xs row i <- x row u0 - PAD + i of sequence b times its keep kp[i]: rows
+// whose keep is 1 by asynchronous 16-byte copies (cp.async; the caller
+// waits), rows whose keep is 0 as zeros, any other by a load and a
+// multiply.
+template <class G>
+__device__ void load_x_async(const float* __restrict__ x, int b, int u0,
+                             int M, const float* kp, float* xs) {
+  constexpr int CH = G::C / 4;
+  for (int i = threadIdx.x; i < G::XROWS * CH; i += G::NT) {
+    const int r = i / CH, c4 = i - r * CH;
+    const float k = kp[r];
+    float* dst = xs + r * G::LD + c4 * 4;
+    const float* src = x + ((size_t)b * M + u0 - PAD + r) * G::C + c4 * 4;
+    if (k == 1.f) {
+      sm90::cp_async16(dst, src);
+    } else {
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k != 0.f) {
+        q = __ldg(reinterpret_cast<const float4*>(src));
+        q.x *= k; q.y *= k; q.z *= k; q.w *= k;
+      }
+      *reinterpret_cast<float4*>(dst) = q;
+    }
+  }
+}
+
+// Phase stamps for probes/k4_f32_bwd_phases.py: built with
+// -DDECODER_BLOCK_STAMPS, thread 0 of every block adds the %globaltimer
+// time between consecutive stamps to db_stamps[phase]; compiled out
+// otherwise.
+#ifdef DECODER_BLOCK_STAMPS
+constexpr int N_STAMPS = 10;
+__device__ unsigned long long db_stamps[N_STAMPS];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+#define DB_STAMP(i)                                   \
+  if (threadIdx.x == 0) {                             \
+    const unsigned long long now_ = global_ns();      \
+    stamp_ns[i] += now_ - stamp_last;                 \
+    stamp_last = now_;                                \
+  }
+#else
+#define DB_STAMP(i)
+#endif
+
+// S at (row r, channels 4 c4 ..) <- the split of v
+template <class G>
+__device__ __forceinline__ void put_split(unsigned char* smem, int r, int c4,
+                                          float4 v) {
+  float4 lo;
+  const float4 hi = tf32x3::split4(v, lo);
+  unsigned char* dst = smem + c4 * G::CHUNK + r * 16;
+  *reinterpret_cast<float4*>(dst) = hi;
+  *reinterpret_cast<float4*>(dst + G::LO_OFF) = lo;
+}
+
+// u of the tile's R rows from the masked x rows xs (stride LD), the taps
+// summed in tap order as depthwise_f32, split into S.  A lane takes a row
+// and 4 channels; a warp's lanes take consecutive rows, so its 16-byte
+// stores into S meet every bank.
+template <class G>
+__device__ void depthwise_split(const float* xs, const float* par,
+                                unsigned char* smem) {
+  constexpr int C4 = G::C / 4;
+  const float4* w4 = reinterpret_cast<const float4*>(par);  // a warp's lanes
+                                                           // read one float4
+#pragma unroll 2
+  for (int i = threadIdx.x; i < G::R * C4; i += G::NT) {
+    const int r = i % G::R, c4 = i / G::R;
+    const float* xr = xs + r * G::LD + 4 * c4;
+    const float4 x0 = *reinterpret_cast<const float4*>(xr);
+    const float4 w0 = w4[c4];
+    float4 acc = make_float4(__fmul_rn(x0.x, w0.x), __fmul_rn(x0.y, w0.y),
+                             __fmul_rn(x0.z, w0.z), __fmul_rn(x0.w, w0.w));
+#pragma unroll
+    for (int tap = 1; tap < K; ++tap)
+      acc = tap_add(acc, *reinterpret_cast<const float4*>(xr + tap * G::LD),
+                    w4[tap * C4 + c4]);
+    const float4 bb = w4[K * C4 + c4];
+    put_split<G>(smem, r, c4,
+                 make_float4(__fadd_rn(acc.x, bb.x), __fadd_rn(acc.y, bb.y),
+                             __fadd_rn(acc.z, bb.z), __fadd_rn(acc.w, bb.w)));
+  }
+}
+
+// V[r, c] <- sum_k S[r, k] w_op[k, c] over the tile's R rows: w_op is W
+// (C_in, C_out) for v and W^T (C_out, C_in) for du.  Runs transposed on
+// wgmma, this warpgroup's MB m-blocks of 64 output channels in turn; A
+// (w_op^T) from L2 through registers, split there; B the split rows of S.
+// w_op comes in A's fragment order (decoder_block.py::a_fragments): for
+// m-block m, warp q, k-step s, lane 4 g + t, the four values w_op[8 s + t,
+// c], w_op[8 s + t, c + 1], w_op[8 s + t + 4, c], w_op[8 s + t + 4, c + 1]
+// (c = 64 m + 16 q + 2 g) are one 16-byte load.  Returns with this
+// warpgroup's products complete and stored.
+template <class G>
+__device__ void product_to_v(const float* __restrict__ w_op,
+                             unsigned char* smem) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  constexpr int NS = G::C / 8;  // k-steps
+  const uint32_t b_hi = sm90::smem_u32(smem);
+  const uint64_t d_hi = tf32x3::desc(b_hi, G::CHUNK),
+                 d_lo = tf32x3::desc(b_hi + G::LO_OFF, G::CHUNK);
+  float* V = reinterpret_cast<float*>(smem + G::V_OFF);
+  const int rot = G::ROTATE ? (blockIdx.x * 5) % NS : 0;
+#pragma unroll 1
+  for (int mb = 0; mb < G::MB; ++mb) {
+    // A's rows g and g + 8 of the warp's 16 are output channels ca and
+    // ca + 1
+    const int ca = 64 * (wg * G::MB + mb) + 16 * warp + 2 * g;
+    const float4* wa = reinterpret_cast<const float4*>(w_op) +
+                       (size_t)((wg * G::MB + mb) * 4 + warp) * NS * 32 + lane;
+    float acc[G::R / 2];
+#pragma unroll
+    for (int i = 0; i < G::R / 2; ++i) acc[i] = 0.f;
+    tf32x3::k_loop<G::KL_PD, G::KL_RING>(
+        NS,
+        [&](int s, float (&r)[4]) {  // k rows 8 s + t, 8 s + t + 4
+          const float4 a = __ldg(wa + 32 * ((s + rot) % NS));
+          r[0] = a.x;
+          r[1] = a.y;
+          r[2] = a.z;
+          r[3] = a.w;
+        },
+        [&](int s, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
+          s = (s + rot) % NS;
+          // channels 8 s .. 8 s + 7: chunk 2 s, in 16-byte units
+          const uint32_t k = 2 * s * G::R_ALLOC;
+          tf32x3::mma3<G::R>(acc, hi, lo, d_hi + k, d_lo + k, 1);
+        });
+#pragma unroll
+    for (int i = 0; i < G::R / 2; ++i) sm90::reg_fence(acc[i]);
+    // acc[4 j + 2 h + e] is channel ca + h of row 8 j + 2 t + e
+#pragma unroll
+    for (int j = 0; j < G::R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(V + (8 * j + 2 * t + e) * G::LDV + ca) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+  }
+}
+
+// D (16 x 8, float32) += A (16 x 8, TF32) B (8 x 8, TF32) for one warp:
+// lane 4 g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), B
+// (t, g), (t + 4, g) and D (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8,
+// 2 t + 1)
+__device__ __forceinline__ void mma_m16n8k8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The block's weight-gradient partial (+)= the sum over the tile's rows r
+// of u[r, i] dv[r, o] (= when `first`): u from S (its halo rows zero), dv
+// from V.  A warp owns a 64 x 32 block (i0 .., o0 ..) per pass, in 4 x 4
+// mma tiles; the three split products of a tile in turn.  The partial
+// keeps the blocks in the accumulators' order, so that a lane's four
+// values are one 16-byte access: block q = pass NW + warp at 2,048 q, its
+// tile (mt, nt) at 128 (4 mt + nt), lane l's D at 4 l
+// (decoder_block.py::f32_bwd_partial_index maps it back to (i, o)).
+template <class G>
+__device__ void weight_grad(const unsigned char* smem,
+                            float* __restrict__ part, bool first) {
+  constexpr int C = G::C, CW = G::CHUNK / 4;  // a chunk's 32-bit words
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* s_hi = reinterpret_cast<const uint32_t*>(smem);
+  const uint32_t* s_lo = reinterpret_cast<const uint32_t*>(smem + G::LO_OFF);
+  const float* V = reinterpret_cast<const float*>(smem + G::V_OFF);
+#pragma unroll 1
+  for (int pass = 0; pass < G::DW_PASSES; ++pass) {
+    const int q = pass * G::NW + warp;
+    const int i0 = 64 * (q / (C / 32)) + g, o0 = 32 * (q % (C / 32));
+    float4* pq = reinterpret_cast<float4*>(part + (size_t)q * 2048) + lane;
+    float acc[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f)
+                               : pq[32 * (4 * mt + nt)];
+        acc[mt][nt][0] = v.x;
+        acc[mt][nt][1] = v.y;
+        acc[mt][nt][2] = v.z;
+        acc[mt][nt][3] = v.w;
+      }
+#pragma unroll 2
+    for (int ks = 0; ks < G::R / 8; ++ks) {
+      const int r = 8 * ks + t;
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          tf32x3::split(V[(r + 4 * h) * G::LDV + o0 + 8 * nt + g], bhi[nt][h],
+                        blo[nt][h]);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        // (i, r), (i + 8, r), (i, r + 4), (i + 8, r + 4) of u, i = i0 + 16 mt
+        const int w0 = ((i0 + 16 * mt) >> 2) * CW + r * 4 + (g & 3);
+        const int wa[4] = {w0, w0 + 2 * CW, w0 + 16, w0 + 2 * CW + 16};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          ahi[k] = s_hi[wa[k]];
+          alo[k] = s_lo[wa[k]];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_m16n8k8(acc[mt][nt], alo, bhi[nt]);
+          mma_m16n8k8(acc[mt][nt], ahi, blo[nt]);
+          mma_m16n8k8(acc[mt][nt], ahi, bhi[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        pq[32 * (4 * mt + nt)] = make_float4(acc[mt][nt][0], acc[mt][nt][1],
+                                             acc[mt][nt][2], acc[mt][nt][3]);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(GeoB<C>::NT, 1)
     decoder_block_bwd_f32_kernel(const float* __restrict__ x,
                                  const float* __restrict__ keep,
                                  const float* __restrict__ w,
@@ -867,25 +1167,30 @@ __global__ void __launch_bounds__(GeoF<C>::NT, 1)
                                  float* __restrict__ part_pw,
                                  float* __restrict__ part_vec, int B, int M,
                                  float eps) {
-  using G = GeoF<C>;
+  using G = GeoB<C>;
   constexpr int NT = G::NT, NW = G::NW, CH = C / 128, R = G::R;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  float* us = reinterpret_cast<float*>(smem + G::XS_BYTES);  // u, then du
-  float* vs = reinterpret_cast<float*>(smem + G::XS_BYTES +
-                                       G::RS_BYTES);  // v, then dv
-  float* panel =
-      reinterpret_cast<float*>(smem + G::XS_BYTES + 2 * G::RS_BYTES);
+  float* V = reinterpret_cast<float*>(smem + G::V_OFF);
+  float* xs = reinterpret_cast<float*>(smem);  // x's rows for dx, over S
+  float* kp_s = reinterpret_cast<float*>(smem + G::KP_OFF);  // their keep
+  // dw taps (K x C), dw bias, pw bias, LN scale
+  float* par = reinterpret_cast<float*>(smem + G::PAR_OFF);
+  const float* pb_s = par + (K + 1) * C;
+  const float* lns_s = par + (K + 2) * C;
+#ifdef DECODER_BLOCK_STAMPS
+  unsigned long long stamp_ns[N_STAMPS] = {}, stamp_last = global_ns();
+#endif
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // the depthwise conv and its gradient: column cf, one of GROUPS row
-  // groups
-  constexpr int FROWS = R / G::GROUPS;
-  constexpr int OROWS = G::BWD_OWN / G::GROUPS;
+  for (int i = tid; i < K * C; i += NT) par[i] = dww[i];
+  for (int i = tid; i < C; i += NT) {
+    par[K * C + i] = dwb[i];
+    par[(K + 1) * C + i] = pwb[i];
+    par[(K + 2) * C + i] = lns[i];
+  }
+  // the depthwise gradient and dx: column cf, one of GROUPS row groups
+  constexpr int OROWS = G::OWN / G::GROUPS;
   const int cf = tid % C, fg = tid / C;
-  float wf[K];
-#pragma unroll
-  for (int tap = 0; tap < K; ++tap) wf[tap] = dww[tap * C + cf];
   // per-thread partial sums: column cf (taps, dw bias), the lane's
   // columns (pw bias, LayerNorm scale and bias)
   float p_dw[K], p_dwb = 0.f, p_pwb[4 * CH], p_lns[4 * CH], p_lnb[4 * CH];
@@ -896,106 +1201,193 @@ __global__ void __launch_bounds__(GeoF<C>::NT, 1)
   float* pw_out = part_pw + (size_t)blockIdx.x * C * C;
   bool first = true;
 
-  const int tiles_m = (M + G::BWD_OWN - 1) / G::BWD_OWN;
+  const int tiles_m = (M + G::OWN - 1) / G::OWN;
+  // the keep values of a tile's x rows: the first tile's now, each next
+  // tile's while this one runs (kp_s holds two tiles')
+  auto tile_u0 = [&](int tl, int& tb) {
+    tb = tl / tiles_m;
+    return (tl - tb * tiles_m) * G::OWN - PAD;
+  };
+  if (tid < G::XROWS && blockIdx.x < B * tiles_m) {
+    int tb;
+    const int tu0 = tile_u0(blockIdx.x, tb);
+    kp_s[tid] = keep_of(keep, tb, tu0, M, tid);
+  }
+  int buf = 0;
   for (int tile = blockIdx.x; tile < B * tiles_m; tile += gridDim.x) {
     const int b = tile / tiles_m;
-    const int m0 = (tile - b * tiles_m) * G::BWD_OWN;
+    const int m0 = (tile - b * tiles_m) * G::OWN;
     const int u0 = m0 - PAD;  // global row of u row 0
-    load_x_f32<G>(x, keep, b, u0, M, xs);
-    __syncthreads();
-    depthwise_f32<G>(xs, us, dww, dwb, cf, fg * FROWS, (fg + 1) * FROWS);
-    {
-      float acc[G::RM][8];
-      mm_f32<G>(us, w, panel, acc);
-      store_rows<G>(acc, vs);
+    const size_t row0 = (size_t)b * M;
+    float* kp = kp_s + buf * G::KP_STRIDE;
+    float kp_next = 0.f;
+    if (tid < G::XROWS && tile + (int)gridDim.x < B * tiles_m) {
+      int nb;
+      const int nu0 = tile_u0(tile + gridDim.x, nb);
+      kp_next = keep_of(keep, nb, nu0, M, tid);
     }
+    if (tid == 0) {
+      // dy's rows of this tile, for the row pass, and x's rows of the
+      // block's next tile into L2
+      prefetch_rows<C>(dy, b, M, u0, R);
+      const int nt = tile + gridDim.x;
+      if (nt < B * tiles_m) {
+        const int nb = nt / tiles_m;
+        prefetch_rows<C>(x, nb, M, (nt - nb * tiles_m) * G::OWN - 2 * PAD,
+                         G::XROWS);
+      }
+    }
+    __syncthreads();  // kp, and the last tile's reads of V
+    load_x_async<G>(x, b, u0, M, kp, V);  // x's rows over V
+    sm90::cp_async_wait_all();
     __syncthreads();
-    // recompute t and its LayerNorm, then dv = dLN * (1 - t^2) over v
-    for (int r = warp; r < R; r += NW) {
-      const int g = u0 + r;
-      float* row = vs + r * G::LD;
-      if (g < 0 || g >= M) {
+    DB_STAMP(0);
+    depthwise_split<G>(V, par, smem);
+    sm90::fence_proxy_async();
+    __syncthreads();
+    DB_STAMP(1);
+    product_to_v<G>(w, smem);  // v = u W
+    __syncthreads();
+    DB_STAMP(2);
+    // u's halo rows leave the weight gradient
+    for (int i = tid; i < C; i += NT) {
+      const int q = i & 3, r = q < 2 ? q : R - 4 + q;
+      unsigned char* z = smem + (i >> 2) * G::CHUNK + r * 16;
+      *reinterpret_cast<float4*>(z) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(z + G::LO_OFF) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    // recompute t and its LayerNorm, then dv = dLN * (1 - t^2) over v, two
+    // rows a warp at once (their chains of warp sums interleave).  A row
+    // outside [0, M) takes dy = 0, so its dv is 0 and it adds 0 to the
+    // sums.
+    for (int r0 = warp; r0 < R; r0 += 2 * NW) {
+      float t[2][4 * CH], d[2][4 * CH], mean[2], rstd[2], gm[2], gxm[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int g = u0 + r0 + q * NW;
+        const bool in = g >= 0 && g < M;
+#pragma unroll
+        for (int h = 0; h < CH; ++h) {
+          float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (in)
+            v4 = __ldg(reinterpret_cast<const float4*>(
+                dy + (row0 + g) * C + h * 128 + lane * 4));
+          d[q][h * 4] = v4.x; d[q][h * 4 + 1] = v4.y;
+          d[q][h * 4 + 2] = v4.z; d[q][h * 4 + 3] = v4.w;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float pb[4 * CH];
+        lane_cols<G>(pb_s, lane, pb);
+        row_t_f32<C>(V + (r0 + q * NW) * G::LDV, lane, pb, t[q], eps,
+                     mean[q], rstd[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float gs = 0.f, gx = 0.f;
 #pragma unroll
         for (int h = 0; h < CH; ++h)
-          *reinterpret_cast<float4*>(row + h * 128 + lane * 4) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
-        continue;
-      }
-      float t[4 * CH], mean, rstd, d[4 * CH], pb[4 * CH];
-      lane_cols<G>(pwb, lane, pb);
-      row_t_f32<C>(row, lane, pb, t, eps, mean, rstd);
-      float gs = 0.f, gx = 0.f;
 #pragma unroll
-      for (int h = 0; h < CH; ++h) {
-        const int col = h * 128 + lane * 4;
-        const float4 q = *reinterpret_cast<const float4*>(
-            dy + ((size_t)b * M + g) * C + col);
-        d[h * 4] = q.x; d[h * 4 + 1] = q.y; d[h * 4 + 2] = q.z;
-        d[h * 4 + 3] = q.w;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float gg = d[h * 4 + i] * lns[col + i];
-          gs += gg;
-          gx += gg * ((t[h * 4 + i] - mean) * rstd);
-        }
-      }
-      const float gm = warp_sum(gs) / C, gxm = warp_sum(gx) / C;
-      const bool owned_row = r >= PAD && r < R - PAD;
-#pragma unroll
-      for (int h = 0; h < CH; ++h) {
-        const int col = h * 128 + lane * 4;
-        float dv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float tt = t[h * 4 + i];
-          const float that = (tt - mean) * rstd;
-          dv[i] = rstd * (d[h * 4 + i] * lns[col + i] - gm - that * gxm) *
-                  (1.f - tt * tt);
-          if (owned_row) {
-            p_pwb[h * 4 + i] += dv[i];
-            p_lns[h * 4 + i] += d[h * 4 + i] * that;
-            p_lnb[h * 4 + i] += d[h * 4 + i];
+          for (int i = 0; i < 4; ++i) {
+            const float gg = d[q][h * 4 + i] * lns_s[h * 128 + lane * 4 + i];
+            gs += gg;
+            gx += gg * ((t[q][h * 4 + i] - mean[q]) * rstd[q]);
           }
+        gm[q] = warp_sum(gs) / C;
+        gxm[q] = warp_sum(gx) / C;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = r0 + q * NW;
+        const bool owned_row = r >= PAD && r < R - PAD;
+#pragma unroll
+        for (int h = 0; h < CH; ++h) {
+          const int col = h * 128 + lane * 4;
+          float dv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float tt = t[q][h * 4 + i], dd = d[q][h * 4 + i];
+            const float that = (tt - mean[q]) * rstd[q];
+            dv[i] = rstd[q] * (dd * lns_s[col + i] - gm[q] - that * gxm[q]) *
+                    (1.f - tt * tt);
+            if (owned_row) {
+              p_pwb[h * 4 + i] += dv[i];
+              p_lns[h * 4 + i] += dd * that;
+              p_lnb[h * 4 + i] += dd;
+            }
+          }
+          *reinterpret_cast<float4*>(V + r * G::LDV + col) =
+              make_float4(dv[0], dv[1], dv[2], dv[3]);
         }
-        *reinterpret_cast<float4*>(row + col) =
-            make_float4(dv[0], dv[1], dv[2], dv[3]);
       }
     }
     __syncthreads();
-    // the block's weight-gradient partial += u^T dv over the owned rows
-    for (int i0 = 0; i0 < C; i0 += G::PR) dw_pass<G>(us, vs, pw_out, i0, first);
+    DB_STAMP(3);
+    weight_grad<G>(smem, pw_out, first);
     first = false;
-    // du = dv W^T over all R rows, into us (mm_f32's first barrier orders
-    // it after every read of u above)
+    __syncthreads();
+    DB_STAMP(4);
+    // dv, split into S (a lane a row: its 16-byte stores meet every bank)
+#pragma unroll 4
+    for (int i = tid; i < R * (C / 4); i += NT) {
+      const int r = i % R, c4 = i / R;
+      put_split<G>(smem, r, c4,
+                   *reinterpret_cast<const float4*>(V + r * G::LDV + 4 * c4));
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();
+    DB_STAMP(5);
+    product_to_v<G>(wt, smem);  // du = dv W^T, over all R rows
+    DB_STAMP(6);
+    __syncthreads();  // every warpgroup is done with S
+    load_x_async<G>(x, b, u0, M, kp, xs);  // again, from L2
+    sm90::cp_async_wait_all();
+    __syncthreads();
+    DB_STAMP(7);
+    // owned rows of column cf: depthwise gradients and dx, du and x's rows
+    // in windows of K
     {
-      float acc[G::RM][8];
-      mm_f32<G>(vs, wt, panel, acc);
-      store_rows<G>(acc, us);
-    }
-    __syncthreads();
-    // owned rows of column cf: depthwise gradients and dx
-    for (int r = PAD + fg * OROWS; r < PAD + (fg + 1) * OROWS; ++r) {
-      const int g = u0 + r;
-      if (g >= M) break;
-      const float du = us[r * G::LD + cf];
-      p_dwb += du;
+      const int r_beg = PAD + fg * OROWS;
+      const int r_end = min(r_beg + OROWS, M - u0);
+      float wf[K], dw[K], xw[K];
 #pragma unroll
-      for (int tap = 0; tap < K; ++tap)
-        p_dw[tap] += xs[(r + tap) * G::LD + cf] * du;
-      float acc = us[(r - PAD) * G::LD + cf] * wf[K - 1];
+      for (int tap = 0; tap < K; ++tap) wf[tap] = par[tap * C + cf];
 #pragma unroll
-      for (int sh = 1; sh < K; ++sh)
-        acc += us[(r - PAD + sh) * G::LD + cf] * wf[K - 1 - sh];
-      dx[((size_t)b * M + g) * C + cf] = acc * keep[(size_t)b * M + g];
+      for (int j = 0; j < K - 1; ++j) {
+        dw[j] = V[(r_beg - PAD + j) * G::LDV + cf];  // du rows r - 2 ..
+        xw[j] = xs[(r_beg + j) * G::LD + cf];         // x rows r - 2 ..
+      }
+      for (int r = r_beg; r < r_end; ++r) {
+        dw[K - 1] = V[(r + PAD) * G::LDV + cf];
+        xw[K - 1] = xs[(r + K - 1) * G::LD + cf];
+        const float du = dw[PAD];
+        p_dwb += du;
+#pragma unroll
+        for (int tap = 0; tap < K; ++tap) p_dw[tap] += xw[tap] * du;
+        float acc = dw[0] * wf[K - 1];
+#pragma unroll
+        for (int sh = 1; sh < K; ++sh) acc += dw[sh] * wf[K - 1 - sh];
+        dx[(row0 + u0 + r) * C + cf] = acc * kp[r + PAD];
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j) {
+          dw[j] = dw[j + 1];
+          xw[j] = xw[j + 1];
+        }
+      }
     }
+    if (tid < G::XROWS) kp_s[(buf ^ 1) * G::KP_STRIDE + tid] = kp_next;
+    buf ^= 1;
     __syncthreads();
+    DB_STAMP(8);
   }
   if (first)  // a block without a tile still writes its partial
     for (int i = tid; i < C * C; i += NT) pw_out[i] = 0.f;
 
   // per-block partials of the vectors, summed over threads in a fixed
   // order
-  float* red_col = xs;                                // [GROUPS][K + 1][C]
+  float* red_col = reinterpret_cast<float*>(smem);     // [GROUPS][K + 1][C]
   float* red_row = red_col + G::GROUPS * (K + 1) * C;  // [NW][3][C]
 #pragma unroll
   for (int tap = 0; tap < K; ++tap)
@@ -1023,6 +1415,11 @@ __global__ void __launch_bounds__(GeoF<C>::NT, 1)
     }
     part_vec[((size_t)blockIdx.x * (K + 4) + which) * C + cc] = acc;
   }
+#ifdef DECODER_BLOCK_STAMPS
+  DB_STAMP(9);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N_STAMPS; ++i) atomicAdd(&db_stamps[i], stamp_ns[i]);
+#endif
 }
 
 template <int C>
@@ -1091,13 +1488,13 @@ int bwd_launch_f32(const void* x, const void* keep, const void* w,
                    const void* pwb, const void* lns, const void* dy,
                    void* dx, void* part_pw, void* part_vec, int B, int M,
                    float eps, int grid, cudaStream_t stream) {
-  using G = GeoF<C>;
-  if (wt == nullptr) return cudaErrorInvalidValue;
+  using G = GeoB<C>;
+  if (wt == nullptr || grid < 1) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       decoder_block_bwd_f32_kernel<C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::BWD_SMEM);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
-  decoder_block_bwd_f32_kernel<C><<<grid, G::NT, G::BWD_SMEM, stream>>>(
+  decoder_block_bwd_f32_kernel<C><<<grid, G::NT, G::SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(keep),
       static_cast<const float*>(w), static_cast<const float*>(wt),
       static_cast<const float*>(dww), static_cast<const float*>(dwb),
@@ -1142,8 +1539,9 @@ const char* kernel_error_string(int err) {
 // 0 for a width the kernels are not built for.  f32: the float32 variant.
 int decoder_block_tile_rows(int channels, int backward, int f32) {
   return with_variant(channels, f32, 0, [&](auto c, auto f) {
-    using G = GeoOf<decltype(c)::value, decltype(f)::value>;
-    return backward ? G::BWD_OWN : G::FWD_OWN;
+    constexpr int C = decltype(c)::value;
+    if (decltype(f)::value) return backward ? GeoB<C>::OWN : GeoF<C>::FWD_OWN;
+    return backward ? Geo<C>::BWD_OWN : Geo<C>::FWD_OWN;
   });
 }
 
@@ -1158,11 +1556,38 @@ int decoder_block_fwd_blocks_per_sm(int channels, int f32) {
 // one), or 0.
 int decoder_block_split(int channels, int f32) {
   return with_variant(channels, f32, 0, [](auto c, auto f) {
-    return GeoOf<decltype(c)::value, decltype(f)::value>::SPLIT;
+    return decltype(f)::value ? 1 : Geo<decltype(c)::value>::SPLIT;
+  });
+}
+
+// The float32 backward's plan, decoder_block.py::f32_bwd_plan's fields in
+// its order: 0 tile rows, 1 owned rows, 2 warpgroups, 3 rows of a channel
+// chunk of the split buffer, 4 the lo copy's byte offset, 5 the float32
+// rows' byte offset, 6 their float32 stride, 7 the x rows' stride, 8 the
+// byte offset of the rows' keep values, 9 that of the weight vectors, 10
+// shared-memory bytes; -1 for another field or width.
+int decoder_block_f32_bwd_plan(int channels, int field) {
+  return with_variant(channels, 1, -1, [&](auto c, auto) {
+    using G = GeoB<decltype(c)::value>;
+    const int v[] = {G::R,      G::OWN, G::NT / 128, G::R_ALLOC,
+                     G::LO_OFF, G::V_OFF, G::LDV,    G::LD,
+                     G::KP_OFF, G::PAR_OFF, G::SMEM};
+    return field >= 0 && field < 11 ? v[field] : -1;
   });
 }
 
 int decoder_block_taps() { return K; }
+
+#ifdef DECODER_BLOCK_STAMPS
+// The float32 backward's phase sums (ns, over every block's thread 0) into
+// out[0 .. N_STAMPS), then set to 0; the probe's build only.
+int decoder_block_stamps(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, db_stamps, sizeof(db_stamps));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[N_STAMPS] = {};
+  return cudaMemcpyToSymbol(db_stamps, zero, sizeof(zero));
+}
+#endif
 
 // x, y: (B, M, C) bf16 (f32 = 0) or float32 (f32 = 1); keep (B, M) f32; w
 // (C_in, C_out) in x's dtype; dww (K, C) f32; dwb, pwb, lns, lnb (C,) f32.
@@ -1185,9 +1610,11 @@ int decoder_block_fwd_launch(const void* x, const void* keep, const void* w,
   });
 }
 
-// dy, dx: (B, M, C) in x's dtype; wt: W^T (C_out, C_in) float32 (the
-// float32 variant only; may be null in bf16); part_pw (grid / split, C_in,
-// C_out) f32; part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw
+// dy, dx: (B, M, C) in x's dtype; the float32 variant takes W and W^T
+// (wt, C_out x C_in; may be null in bf16) in wgmma's A-fragment order
+// (decoder_block.py::a_fragments); part_pw (grid / split, C_in,
+// C_out) f32 (the float32 variant's in its accumulators' order, see
+// weight_grad); part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw
 // bias, LN scale, LN bias.  grid is a multiple of decoder_block_split(C).
 int decoder_block_bwd_launch(const void* x, const void* keep, const void* w,
                              const void* wt, const void* dww,

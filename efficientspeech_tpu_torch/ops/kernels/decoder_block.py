@@ -19,7 +19,7 @@ C = 128 and 256 in bf16 and in float32, or raises.
 """
 
 import ctypes
-from typing import Tuple
+from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +35,126 @@ VARIANTS = tuple((c, dt) for c in WIDTHS for dt in DTYPES)
 # kernel launches by (width, dtype) since the counts were last set to 0
 launches_fwd = dict.fromkeys(VARIANTS, 0)
 launches_bwd = dict.fromkeys(VARIANTS, 0)
+
+TAPS = 5                # the depthwise conv's k (csrc: K)
+SMEM_LIMIT = 232448     # dynamic shared memory of a block (csrc: SMEM_LIMIT)
+F32_BWD_THREADS = 256   # two warpgroups (csrc: GeoB::NT)
+
+
+class F32BwdPlan(NamedTuple):
+    """How the float32 backward tiles a decoder of width C (csrc: GeoB, in
+    this field order): ``tile_rows`` rows of u a tile (wgmma's N), of which
+    the inner ``owned_rows`` are its own; ``warpgroups`` a block; the split
+    buffer of u, later dv, in chunks of 4 channels × ``r_alloc`` rows of 16
+    bytes, hi at 0 and lo at ``lo_off``; the float32 rows (v, dv, du) at
+    ``v_off``, ``ld_v`` floats apart, over which x's rows (``ld_x`` floats
+    apart) are loaded for u; the keep values of those rows of this tile
+    and of the block's next one at ``kp_off``; the
+    weight vectors the passes read (the depthwise taps and bias, the
+    pointwise bias, the LayerNorm scale) at ``par_off``; ``smem`` bytes in
+    all."""
+    tile_rows: int
+    owned_rows: int
+    warpgroups: int
+    r_alloc: int
+    lo_off: int
+    v_off: int
+    ld_v: int
+    ld_x: int
+    kp_off: int
+    par_off: int
+    smem: int
+
+
+def f32_bwd_plan(c: int) -> F32BwdPlan:
+    """The float32 backward's plan at width ``c`` (one of ``WIDTHS``).
+    Tiles of 16,384 / C rows fill shared memory: 128 at C = 128, 64 at
+    C = 256.  A chunk is R + 4 rows, 64 bytes past a multiple of 128, so
+    the weight gradient's fragment loads meet 32 banks."""
+    if c not in WIDTHS:
+        raise ValueError(f"decoder_block: no float32 backward plan for "
+                         f"C = {c}; built for {WIDTHS}")
+    r = 16384 // c
+    r_alloc = r + 4
+    lo_off = c // 4 * r_alloc * 16
+    v_off = 2 * lo_off
+    ld_v, ld_x = c + 8, c + 4
+    kp_off = v_off + max(r * ld_v * 4, (r + TAPS - 1) * ld_x * 4)
+    par_off = kp_off + 2 * -(-(r + TAPS - 1) // 4) * 16
+    smem = par_off + (TAPS + 3) * c * 4
+    return F32BwdPlan(r, r - (TAPS - 1), F32_BWD_THREADS // 128, r_alloc,
+                      lo_off, v_off, ld_v, ld_x, kp_off, par_off, smem)
+
+
+# the float32 backward's phases in a tile's order, then the final sums
+F32_BWD_PHASES = ("load_x", "u", "v", "dv", "weight_grad", "split_dv", "du",
+                  "reload_x", "dx", "reduce")
+
+
+def f32_bwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
+    """The float32 backward's shared-memory buffers at width ``c``: name →
+    (byte offset, bytes, the phases in which it is live)."""
+    pl = f32_bwd_plan(c)
+    half = pl.lo_off
+    rows_v = pl.tile_rows * pl.ld_v * 4
+    rows_x = (pl.tile_rows + TAPS - 1) * pl.ld_x * 4
+    groups = F32_BWD_THREADS // c
+    red = ((TAPS + 1) * groups + 3 * F32_BWD_THREADS // 32) * c * 4
+    live = lambda *names: frozenset(names)
+    u = live("u", "v", "dv", "weight_grad")
+    tile = live(*F32_BWD_PHASES[:-1])
+    return {
+        "x rows for u": (pl.v_off, rows_x, live("load_x", "u")),
+        "u hi": (0, half, u),
+        "u lo": (pl.lo_off, half, u),
+        "v, then dv": (pl.v_off, rows_v,
+                       live("v", "dv", "weight_grad", "split_dv")),
+        "dv hi": (0, half, live("split_dv", "du")),
+        "dv lo": (pl.lo_off, half, live("split_dv", "du")),
+        "du": (pl.v_off, rows_v, live("du", "reload_x", "dx")),
+        "x rows for dx": (0, rows_x, live("reload_x", "dx")),
+        "keep of x's rows": (pl.kp_off, pl.par_off - pl.kp_off, tile),
+        "weight vectors": (pl.par_off, (TAPS + 3) * c * 4, tile),
+        "sums": (0, red, live("reduce")),
+    }
+
+
+def f32_bwd_partial_index(c: int, device=None) -> torch.Tensor:
+    """Where the float32 backward's weight-gradient partial keeps each
+    value (csrc: weight_grad): the flat position i·C + o of W's (C_in,
+    C_out) layout of every element, in the partial's order.  A warp's
+    64 × 32 block q (i from 64·(q // (C/32)), o from 32·(q % (C/32)))
+    holds 4 × 4 mma tiles (mt, nt), each 32 lanes (g, t) = (l // 4, l % 4)
+    of 4 values e: i + 16 mt + g + 8 (e // 2), o + 8 nt + 2 t + e % 2."""
+    q = torch.arange(c * c // 2048, device=device).view(-1, 1, 1, 1, 1)
+    mt = torch.arange(4, device=device).view(1, 4, 1, 1, 1)
+    nt = torch.arange(4, device=device).view(1, 1, 4, 1, 1)
+    lane = torch.arange(32, device=device).view(1, 1, 1, 32, 1)
+    e = torch.arange(4, device=device).view(1, 1, 1, 1, 4)
+    i = 64 * (q // (c // 32)) + 16 * mt + lane // 4 + 8 * (e // 2)
+    o = 32 * (q % (c // 32)) + 8 * nt + 2 * (lane % 4) + e % 2
+    return (i * c + o).reshape(-1)
+
+
+_partial_index: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def a_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A (C x C, row-major: k rows, c columns) in the order the float32
+    backward's products load it as wgmma's A (csrc: product_to_v): for
+    each 64-column m-block m, warp q (16 columns), k-step s (8 rows) and
+    lane 4 g + t, the four values (8 s + t, c), (8 s + t, c + 1),
+    (8 s + t + 4, c), (8 s + t + 4, c + 1), c = 64 m + 16 q + 2 g."""
+    c = w.shape[0]
+    return (w.reshape(c // 8, 2, 4, c // 64, 4, 8, 2)
+            .permute(3, 4, 0, 5, 2, 1, 6).contiguous())
+
+
+def owned_tiles(m: int, owned: int) -> List[Tuple[int, int]]:
+    """(first row, rows) of each tile of a sequence of ``m`` frames, as a
+    backward kernel walks them: tile j owns rows [j·owned, (j+1)·owned)
+    cut to [0, m)."""
+    return [(m0, min(owned, m - m0)) for m0 in range(0, m, owned)]
 
 
 def _recompute_to_t(x, keep, dww, dwb, w_io, pwb):
@@ -116,11 +236,33 @@ _SIGNATURES = {
     "decoder_block_fwd_blocks_per_sm": ([_I, _I], _I),
     "decoder_block_split": ([_I, _I], _I),
     "decoder_block_taps": ([], _I),
+    "decoder_block_f32_bwd_plan": ([_I, _I], _I),
 }
+
+
+_plans_checked = set()
 
 
 def _lib():
     return build.load("decoder_block", _SIGNATURES)
+
+
+def check_f32_bwd_plan(lib, c: int):
+    """Raise unless the library's float32 backward (csrc: GeoB) has the
+    plan ``f32_bwd_plan`` gives: the two are kept in step by hand."""
+    if c in _plans_checked:
+        return
+    want = f32_bwd_plan(c)
+    got = tuple(lib.decoder_block_f32_bwd_plan(c, i)
+                for i in range(len(want)))
+    if got != tuple(want):
+        raise RuntimeError(f"decoder_block: the kernel's float32 backward "
+                           f"plan at C = {c} is {got}, f32_bwd_plan says "
+                           f"{tuple(want)}")
+    if lib.decoder_block_tile_rows(c, 1, 1) != want.owned_rows:
+        raise RuntimeError("decoder_block: float32 backward tile rows "
+                           "disagree with f32_bwd_plan")
+    _plans_checked.add(c)
 
 
 def check_supported(channels: int, dtype: torch.dtype):
@@ -162,7 +304,8 @@ def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
     fit on one; the backward puts one block on each SM, in groups of
     ``split`` blocks that share a tile (bf16: one per 128 columns; float32:
     one)."""
-    tiles = b * -(-m // lib.decoder_block_tile_rows(c, int(backward), f32))
+    tiles = b * len(owned_tiles(
+        m, lib.decoder_block_tile_rows(c, int(backward), f32)))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not backward:
         return max(1, min(tiles,
@@ -200,10 +343,12 @@ def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
 
 
 def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
-                      eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+                      eps: float = 1e-5, *, grid: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """→ (dx, d_dw_w, d_dw_b, d_pw_w, d_pw_b, d_ln_s, d_ln_b); the kernel
     writes one float32 partial of each weight gradient per block group,
-    summed here."""
+    summed here.  ``grid``: the persistent grid's blocks (a multiple of
+    the split; by default one block an SM, at most one a tile)."""
     if x.device.type == "cpu":
         return decoder_block_bwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, dy, eps)
@@ -216,10 +361,15 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     dev = x.device
     f32 = int(x.dtype == torch.float32)
     build.check_tensor("dy", dy, x.dtype, (b, m, c), dev)
-    # the float32 du = dv W^T streams W^T (C_out, C_in): pw_w's own layout
-    w_t = pw_w[:, :, 0].contiguous() if f32 else None
+    # the float32 products read W (v = u W) and W^T (C_out, C_in: pw_w's
+    # own layout; du = dv W^T) in wgmma's A-fragment order
+    w_t = None
+    if f32:
+        check_f32_bwd_plan(lib, c)
+        w_io, w_t = a_fragments(w_io), a_fragments(pw_w[:, :, 0])
     k = dw_w.shape[2]
-    grid = _grid(lib, b, m, c, f32, True, dev)
+    if grid is None:
+        grid = _grid(lib, b, m, c, f32, True, dev)
     groups = grid // lib.decoder_block_split(c, f32)
     dx = torch.empty_like(x)
     part_pw = torch.empty((groups, c, c), dtype=torch.float32, device=dev)
@@ -236,6 +386,12 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     build.check(lib, err, "decoder_block backward")
     launches_bwd[c, x.dtype] += 1
     d_w_io = part_pw.sum(0)
+    if f32:  # the float32 kernel's partials are in its accumulators' order
+        key = (c, str(dev))
+        if key not in _partial_index:
+            _partial_index[key] = f32_bwd_partial_index(c, dev)
+        d_w_io = torch.empty_like(d_w_io).view(-1).index_put_(
+            (_partial_index[key],), d_w_io.view(-1)).view(c, c)
     vec = part_vec.sum(0)
     return (dx, vec[:k].t()[:, None, :].contiguous(), vec[k],
             d_w_io.t()[:, :, None].contiguous(), vec[k + 1], vec[k + 2],

@@ -1,0 +1,104 @@
+"""Where K4's float32 backward spends its time, on the card:
+
+    python -m efficientspeech_tpu_torch.probes.k4_f32_bwd_phases
+
+Builds ``csrc/decoder_block.cu`` once more with ``-DDECODER_BLOCK_STAMPS``
+(into ``build/kernels/``), which makes thread 0 of every block of the
+float32 backward add the ``%globaltimer`` time between the kernel's phase
+stamps to a device array, and runs the backward through that build at
+the training shape (128, 1024, C), C = 128 and 256, with chip_smoke.py's
+inputs.  It prints, per launch, each phase's time summed over a block's
+tiles and averaged over the blocks, its share, and the launch's
+CUDA-event time with and without the stamps, with the card's name and
+power limit.  A phase ends at the barrier after it, so it includes the
+wait for the block's slowest warp.  It needs a card and raises without
+one.
+"""
+
+import ctypes
+import subprocess
+
+import torch
+
+from efficientspeech_tpu_torch.device import resolve_device
+from efficientspeech_tpu_torch.ops.kernels import build
+from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+from efficientspeech_tpu_torch.utils.timing import card, time_ms
+
+PHASES = ("load x", "depthwise + split u", "v = u W (wgmma)",
+          "row pass: t, LayerNorm, dv", "weight gradient (mma.sync)",
+          "split dv", "du = dv W^T (wgmma)", "load x again", "dx and taps",
+          "final sums")
+LAUNCHES = 10
+
+
+def _stamped_lib() -> ctypes.CDLL:
+    """decoder_block.cu built with the stamps, with the wrapper's
+    signatures and the stamps' reader."""
+    path = build._lib_path("decoder_block").with_name(
+        build._lib_path("decoder_block").stem + "_stamps.so")
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-DDECODER_BLOCK_STAMPS",
+             "-o", str(path), str(build.CSRC / "decoder_block.cu")],
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(path))
+    sigs = dict(k4._SIGNATURES,
+                kernel_error_string=([ctypes.c_int], ctypes.c_char_p),
+                decoder_block_stamps=([ctypes.c_void_p], ctypes.c_int))
+    for fn, (argtypes, restype) in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def _inputs(c: int, dev):
+    """chip_smoke.phase_k4's inputs: (128, 1024, c), padded tails."""
+    b, m, k = 128, 1024, 5
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    f = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd
+                                ).to(dev)
+    x = f(b, m, c)
+    lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
+    keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
+    weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1),
+               f(c, c, 1, sd=0.09 * (128 / c) ** 0.5), f(c, sd=0.1),
+               1 + f(c, sd=0.2)]
+    return x, keep, weights, f(b, m, c)
+
+
+def main():
+    dev = resolve_device(None)
+    name = card()
+    plain_lib, stamped, lib_fn = k4._lib(), _stamped_lib(), k4._lib
+    sums = (ctypes.c_ulonglong * len(PHASES))()
+    for c in k4.WIDTHS:
+        x, keep, weights, dy = _inputs(c, dev)
+        run = lambda: k4.decoder_block_bwd(x, keep, *weights, dy)
+        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, 1, True, dev)
+        ms_plain, _ = time_ms(run, 20)
+        k4._lib = lambda: stamped
+        try:
+            ms_stamped, _ = time_ms(run, 20)
+            build.check(stamped, stamped.decoder_block_stamps(sums), "stamps")
+            for _ in range(LAUNCHES):
+                run()
+            torch.cuda.synchronize(dev)
+            build.check(stamped, stamped.decoder_block_stamps(sums), "stamps")
+        finally:
+            k4._lib = lib_fn
+        per = [v / 1e6 / LAUNCHES / grid for v in sums]
+        total = sum(per)
+        print(f"[k4 f32 bwd C={c}] kernel_ms {ms_plain:.4f} (stamped "
+              f"{ms_stamped:.4f}), {grid} blocks, phases sum {total:.4f} ms "
+              f"a block | {name}")
+        for phase, ms in zip(PHASES, per):
+            print(f"[k4 f32 bwd C={c}]   {phase}: {ms:.4f} ms "
+                  f"({100 * ms / total:.1f}%) | {name}")
+
+
+if __name__ == "__main__":
+    main()

@@ -41,8 +41,9 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
 
 
 # bf16 kernels against float32 plain versions: bf16 operand rounding;
-# float32 kernels: float32 accuracy (3xTF32 split products in K1 and
-# K2, the CUDA cores in K3 and K4), sums in another order; one TF32
+# float32 kernels: float32 accuracy (3xTF32 split products in K1, K2
+# and K4's backward, the CUDA cores in K3 and K4's forward), sums in
+# another order; one TF32
 # product would land near the bf16 figures, so this bar shows none did
 SNR_BAR = {torch.bfloat16: 35.0, torch.float32: 90.0}
 
@@ -333,6 +334,54 @@ def test_decoder_block_kernel(card, b, m, c, dtype):
         assert a.dtype == w.dtype and a.shape == w.shape, name
         assert snr_db(w, a) >= SNR_BAR[dtype], name
     assert not grads[0][keep == 0].any()
+
+
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("case", ["below-one-tile", "one-past-owned",
+                                  "masked-sequence", "small-grid"])
+def test_decoder_block_f32_bwd_edges(card, c, case):
+    """The float32 backward (3xTF32 on the tensor cores) at its edges: a
+    sequence shorter than one tile, one row past a multiple of the owned
+    rows, a fully masked sequence, and a grid smaller than the tile
+    count.  Each output at SNR >= 90 dB against the plain version, dx
+    exactly zero on masked frames, and two launches bit-equal."""
+    k, own = 5, k4.f32_bwd_plan(c).owned_rows
+    b, m, grid = {"below-one-tile": (3, own // 2, None),
+                  "one-past-owned": (2, 3 * own + 1, None),
+                  "masked-sequence": (3, 2 * own, None),
+                  "small-grid": (4, 5 * own + 7, 3)}[case]
+    g = torch.Generator(device="cpu").manual_seed(c + m)
+    f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
+    x = f(b, m, c)
+    keep = torch.ones(b, m, device=card)
+    keep[0, m - m // 5:] = 0
+    if case == "masked-sequence":
+        keep[1] = 0
+    weights = [f(c, 1, k, s=0.4), f(c, s=0.1),
+               f(c, c, 1, s=0.09 * (128 / c) ** 0.5), f(c, s=0.1),
+               1 + f(c, s=0.2)]
+    dy = f(b, m, c)
+    assert grid is None or grid < b * -(-m // own)
+    grads = k4.decoder_block_bwd(x, keep, *weights, dy, grid=grid)
+    again = k4.decoder_block_bwd(x, keep, *weights, dy, grid=grid)
+    plain = k4.decoder_block_bwd_plain(x, keep, *weights, dy)
+    torch.cuda.synchronize()
+    names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+    for name, a, a2, w in zip(names, grads, again, plain):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert snr_db(w, a) >= SNR_BAR[torch.float32], name
+        assert torch.equal(a, a2), name
+    assert not grads[0][keep == 0].any()
+
+
+def test_decoder_block_f32_bwd_plan_matches_kernel(card):
+    """The library's float32 backward geometry is f32_bwd_plan's."""
+    lib = k4._lib()
+    for c in (128, 256):
+        k4.check_f32_bwd_plan(lib, c)
+        fields = len(k4.f32_bwd_plan(c))
+        assert lib.decoder_block_f32_bwd_plan(c, fields) == -1
+    assert lib.decoder_block_f32_bwd_plan(384, 0) == -1
 
 
 @pytest.mark.parametrize("c,dtype", [(384, torch.bfloat16),

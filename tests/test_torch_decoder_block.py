@@ -172,3 +172,81 @@ def test_check_supported_names_the_kernel_widths():
     widths = {p: MelDecoder(ModelConfig.preset(p)).proj_norm.weight.shape[0]
               for p in ("tiny", "small", "base")}
     assert widths == {"tiny": 128, "small": 256, "base": 256}
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_f32_bwd_plan_fits_and_buffers_do_not_overlap(c):
+    """The float32 backward's shared memory at each width: every buffer
+    lies inside the plan's bytes, which fit a block's 227 KB, and no two
+    buffers that are live in the same phase overlap.  The tile is one
+    wgmma N (64 or 128 rows), and a chunk of the split buffer is 64 bytes
+    past a multiple of 128, so the weight gradient's fragment loads meet
+    32 banks."""
+    pl = k4.f32_bwd_plan(c)
+    assert pl.smem <= k4.SMEM_LIMIT
+    assert pl.tile_rows in (64, 128) and pl.r_alloc >= pl.tile_rows
+    assert pl.owned_rows == pl.tile_rows - (K - 1)
+    assert (pl.r_alloc * 16) % 128 == 64 and pl.lo_off % 16 == 0
+    assert pl.ld_v % 32 == 8 and pl.ld_x % 4 == 0
+    bufs = k4.f32_bwd_buffers(c)
+    for name, (off, size, phases) in bufs.items():
+        assert 0 <= off and off + size <= pl.smem, name
+        assert phases <= set(k4.F32_BWD_PHASES), name
+    assert {p for _, _, ph in bufs.values() for p in ph} == set(
+        k4.F32_BWD_PHASES)
+    names = sorted(bufs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            (oa, sa, pa), (ob, sb, pb) = bufs[a], bufs[b]
+            if pa & pb:
+                assert oa + sa <= ob or ob + sb <= oa, (a, b)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("m", [1, 5, 59, 60, 61, 123, 124, 125, 249, 1000,
+                               1024])
+def test_f32_bwd_tiles_cover_every_frame_once(c, m):
+    """The owned rows of the float32 backward's tiles cover a sequence of
+    any length exactly once: below one tile, at a multiple of the owned
+    rows and one row past it."""
+    pl = k4.f32_bwd_plan(c)
+    tiles = k4.owned_tiles(m, pl.owned_rows)
+    assert len(tiles) == -(-m // pl.owned_rows)
+    covered = np.zeros(m, int)
+    for m0, rows in tiles:
+        assert 0 < rows <= pl.owned_rows
+        covered[m0:m0 + rows] += 1
+    assert (covered == 1).all()
+
+
+def test_f32_bwd_plan_refuses_other_widths():
+    for c in (64, 192, 384):
+        with pytest.raises(ValueError, match="no float32 backward plan"):
+            k4.f32_bwd_plan(c)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_f32_bwd_layouts_map_every_element_once(c):
+    """The float32 backward's two reordered operands, checked element by
+    element: W in wgmma's A-fragment order (a lane's four values of a
+    k-step side by side) and the weight-gradient partial in the mma
+    accumulators' order, which the wrapper maps back to (C_in, C_out)."""
+    w = torch.arange(c * c, dtype=torch.float32).view(c, c)
+    frag = k4.a_fragments(w).reshape(c // 64, 4, c // 8, 8, 4, 4)
+    rng = np.random.default_rng(c)
+    for m, q, s, g, t in zip(*(rng.integers(0, n, 50) for n in
+                               (c // 64, 4, c // 8, 8, 4))):
+        col = 64 * m + 16 * q + 2 * g
+        want = [w[8 * s + t, col], w[8 * s + t, col + 1],
+                w[8 * s + t + 4, col], w[8 * s + t + 4, col + 1]]
+        assert frag[m, q, s, g, t].tolist() == [float(v) for v in want]
+    assert torch.equal(frag.reshape(-1).sort().values, w.reshape(-1))
+    idx = k4.f32_bwd_partial_index(c)
+    assert torch.equal(idx.sort().values, torch.arange(c * c))
+    # block q, tile (mt, nt), lane (g, t), value e: row i, column o
+    blocks = idx.view(-1, 4, 4, 32, 4)
+    for q, mt, nt, lane, e in zip(*(rng.integers(0, n, 50) for n in
+                                    (c * c // 2048, 4, 4, 32, 4))):
+        i = 64 * (q // (c // 32)) + 16 * mt + lane // 4 + 8 * (e // 2)
+        o = 32 * (q % (c // 32)) + 8 * nt + 2 * (lane % 4) + e % 2
+        assert int(blocks[q, mt, nt, lane, e]) == i * c + o

@@ -1,13 +1,14 @@
 """The numerics of the float32 kernels' 3xTF32 split products, shown on
 the CPU before the card runs them.
 
-The float32 variants of folded_matmul (K1) and mrf_fused (K2) multiply
-on the tensor cores by splitting each operand into TF32 hi and lo parts
+The float32 variants of folded_matmul (K1) and mrf_fused (K2), and the
+float32 backward of decoder_block_fused (K4), multiply on the tensor
+cores by splitting each operand into TF32 hi and lo parts
 (csrc/tf32x3.cuh) and summing lo·hi′ + hi·lo′ + hi·hi′ in float32.  This
 file emulates that arithmetic in numpy (float32 bit masking, hi rounded
 to nearest with ties away from zero, as cvt.rna.tf32.f32 does, then lo
-= x − hi rounded the same way) and holds the emulated K1 and K2 against
-the JAX package's Pallas kernels in interpret mode, as the existing
+= x − hi rounded the same way) and holds the emulated K1, K2 and K4
+backward against the JAX package's Pallas kernels in interpret mode, as the existing
 parity tests run them: at ≥ 90 dB, the bar the card tests hold the
 kernels to.  TF32 products alone (hi·hi′) land below that bar, so it
 does tell the two apart.  The emulation is test-only: nothing on the
@@ -23,6 +24,8 @@ import jax.numpy as jnp
 from efficientspeech_tpu.config import HifiGanConfig as JaxHifiGanConfig
 from efficientspeech_tpu.models.hifigan import HifiGanGenerator as JaxGen
 from efficientspeech_tpu.models.hifigan_folded import fold_hifigan_device
+from efficientspeech_tpu.ops.pallas.decoder_block import (
+    decoder_block_fused as jax_decoder_block_fused)
 from efficientspeech_tpu.ops.pallas.folded_matmul import (
     folded_matmul as jax_folded_matmul)
 from efficientspeech_tpu.ops.pallas.mrf_block import (
@@ -201,3 +204,82 @@ def test_mrf_3xtf32_matches_pallas(folded, stage, t, valid):
     assert not got[valid:].any()
     assert snr_db(want[:valid], got[:valid]) >= BAR_DB
     assert snr_db(want[:valid], one[:valid]) < BAR_DB
+
+
+def emulated_decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
+                               eps=1e-5, mm=matmul3):
+    """K4's float32 backward (the JAX ``_bwd_kernel``) with its three
+    products made as the float32 kernel makes them, in its order: v = u W,
+    the weight gradient u^T dv, then du = dv W^T; everything else float32.
+    JAX layouts: dw_w (k, 1, C), pw_w (1, C_in, C_out).  Returns dx and
+    the six weight gradients in those layouts."""
+    b, m, c = x.shape
+    k = dw_w.shape[0]
+    pad = k // 2
+    W = pw_w[0]
+    xp = np.pad(x * keep[..., None], ((0, 0), (pad, pad), (0, 0)))
+    u = xp[:, 0:m] * dw_w[0, 0]
+    for tap in range(1, k):
+        u = u + xp[:, tap:tap + m] * dw_w[tap, 0]
+    u = (u + dw_b).reshape(-1, c)
+    t = np.tanh(mm(u, W) + pw_b)
+    mean = t.mean(-1, keepdims=True)
+    cen = t - mean
+    rstd = np.float32(1) / np.sqrt((cen * cen).mean(-1, keepdims=True)
+                                   + np.float32(eps))
+    that = cen * rstd
+    d = dy.reshape(-1, c)
+    g = d * ln_s
+    dv = rstd * (g - g.mean(-1, keepdims=True)
+                 - that * (g * that).mean(-1, keepdims=True)) * (1 - t * t)
+    d_pw = mm(u.T, dv)
+    du = mm(dv, W.T).reshape(b, m, c)
+    d_dw = np.stack([(xp[:, tap:tap + m] * du).sum((0, 1))
+                     for tap in range(k)])[:, None, :]
+    dup = np.pad(du, ((0, 0), (pad, pad), (0, 0)))
+    acc = dup[:, 0:m] * dw_w[k - 1, 0]
+    for sh in range(1, k):
+        acc = acc + dup[:, sh:sh + m] * dw_w[k - 1 - sh, 0]
+    dx = acc * keep[..., None]
+    return [a.astype(np.float32) for a in (
+        dx, d_dw, du.sum((0, 1)), d_pw[None], dv.sum(0), (d * that).sum(0),
+        d.sum(0))]
+
+
+K4_GRADS = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_decoder_block_bwd_3xtf32_matches_pallas(c):
+    """K4's float32 backward with 3xTF32 products against the JAX kernel's
+    VJP (float32, Precision.HIGHEST, interpret mode) at ≥ 90 dB for dx and
+    each weight gradient, on sequences with padded tails; with one TF32
+    product each, dx and the pointwise weight's gradient fall below the
+    bar."""
+    rng = np.random.default_rng(c)
+    b, m, k = 2, 37, 5
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x, dy = f(b, m, c), f(b, m, c)
+    keep = np.ones((b, m), np.float32)
+    keep[0, 30:] = 0
+    keep[1, 19:] = 0
+    weights = [f(k, 1, c) * np.float32(0.4), f(c) * np.float32(0.1),
+               f(1, c, c) * np.float32(0.09 * np.sqrt(128 / c)),
+               f(c) * np.float32(0.1), 1 + np.float32(0.2) * f(c),
+               np.float32(0.1) * f(c)]
+
+    def loss(x, *w):
+        y = jax_decoder_block_fused(x, jnp.asarray(keep), *w, k, 1e-5, 2, 2,
+                                    True)
+        return jnp.sum(y * dy)
+
+    want = [np.asarray(g) for g in jax.grad(loss, argnums=tuple(range(7)))(
+        jnp.asarray(x), *map(jnp.asarray, weights))]
+    got = emulated_decoder_block_bwd(x, keep, *weights[:5], dy)
+    one = emulated_decoder_block_bwd(x, keep, *weights[:5], dy, mm=matmul1)
+    assert not got[0][keep == 0].any()
+    for name, w, g, o in zip(K4_GRADS, want, got, one):
+        assert g.shape == w.shape, name
+        assert snr_db(w, g) >= BAR_DB, name
+    assert snr_db(want[0], one[0]) < BAR_DB
+    assert snr_db(want[3], one[3]) < BAR_DB
