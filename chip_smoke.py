@@ -10,7 +10,8 @@ Phases (each prints its lines; any failure exits non-zero):
                and prints the registers and spills (-Xptxas -v) of the
                kernels of folded_matmul.cu, mrf_block.cu and
                decoder_block.cu (a spill or a serialised wgmma in
-               mrf_block.cu or in K4's float32 backward fails the phase);
+               mrf_block.cu or in either of K4's backward kernels fails
+               the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
@@ -37,7 +38,7 @@ Phases (each prints its lines; any failure exits non-zero):
   8. K4      - decoder_block_fused forward and backward at (128, 1024, C)
                with about 1/6 of the frames masked, the same way, for
                C = 128 (tiny) and C = 256 (small, base), in bf16 and in
-               float32 (the float32 backward with its tile plan);
+               float32 (each backward with its tile plan);
   9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
@@ -150,6 +151,19 @@ DESIGNS = {
                      "transposed (W^T from L2 through registers as A, the "
                      "split activation buffer as K-major B, 16-row output "
                      "chunks), v float32 in shared memory",
+    "k4_bwd_128": "Hopper redesign: the three products on wgmma bf16 "
+                  "from 128-byte-swizzled shared-memory tiles (one copy of "
+                  "W for v = u W and du = dv W^T, the weight gradient u^T "
+                  "dv MN-major, kept in the accumulators across the "
+                  "block's tiles); x and dy by TMA tensor copies a tile "
+                  "ahead; t, LayerNorm and dv in the accumulators; one "
+                  "block a tile; tile plan in Python",
+    "k4_bwd_256": "Hopper redesign: as C = 128, each tile over a cluster "
+                  "of two blocks of 128 columns (u and dv halves by bulk "
+                  "copies between the blocks' shared memory, the rows' "
+                  "LayerNorm sums by st.async, mbarrier-signalled), so no "
+                  "tile's u, v, t or dv is computed twice; each block "
+                  "keeps its 256 x 128 weight gradient in registers",
     "k4_bwd_128_f32": "Hopper redesign: 3xTF32 split products on the "
                       "tensor cores; v and du transposed on wgmma (W and W^T "
                       "in A-fragment order from L2 through registers, the "
@@ -256,10 +270,10 @@ def phase_device() -> str:
 
 # the sources whose registers and spills the build phase prints, and, by
 # source, a pattern of the kernels where a spill or a serialised wgmma
-# fails the phase (K4's bf16 C = 256 backward spills, and is not held to
-# it; decoder_block.cu's only wgmma is the float32 backward's)
+# fails the phase (decoder_block.cu's wgmmas are its two backward
+# kernels', bf16 and float32; its forward kernels are not held to it)
 PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block")
-PTXAS_STRICT = {"mrf_block": "", "decoder_block": "bwd_f32_kernel"}
+PTXAS_STRICT = {"mrf_block": "", "decoder_block": "bwd_(f32_)?kernel"}
 
 
 def ptxas_lines(log: str):
@@ -703,8 +717,8 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     dy = f(b, m, c).to(dt)
     print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
-    if dt == torch.float32:
-        print(f"[{tag} bwd] {k4.f32_bwd_plan(c)} | {card}")
+    plan = k4.f32_bwd_plan(c) if dt == torch.float32 else k4.bf16_bwd_plan(c)
+    print(f"[{tag} bwd] {plan} | {card}")
     err_f = _snr_check(f"{tag} fwd", [(
         "y", k4.decoder_block_fwd(x, keep, *weights),
         k4.decoder_block_fwd_plain(x, keep, *weights))], card, bar)

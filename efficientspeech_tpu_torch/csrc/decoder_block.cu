@@ -13,51 +13,82 @@
 //   y  = LayerNorm(t; float32 statistics) * ln_s + ln_b   -> bf16
 //
 // and its gradient: dx (masked by keep) and float32 partial sums of the
-// seven weight gradients, one set per block (or block pair), summed by the
+// seven weight gradients, one set per block (or cluster), summed by the
 // caller.  The gradient with respect to keep is zero.  A float32 variant of
 // both kernels (x, y, dx, dy float32, every step in float32) follows the
 // bf16 ones below, with its own note.
 //
-// What bounds it on an H100: bytes.  At B = 128, M = 1024 the forward reads
-// x and writes y (67 MB at C = 256); the backward reads x and dy and writes
-// dx (101 MB at C = 256).  The pointwise product is 17.2 GFLOP a pass at
-// C = 256, 17 us of tensor-core time.  Both kernels keep every
-// intermediate (the masked input, u, v, t, the LayerNorm statistics, dv,
-// du) in shared memory and registers: the backward recomputes u and t from
-// x instead of reading any saved activation.  The C x C bf16 weight (32 KB
-// at C = 128, 135 KB at C = 256) is loaded into shared memory once per
-// block: the grids are persistent and each block walks over row tiles.
-// The products run on the tensor cores (WMMA, bf16 operands, float32
-// accumulation).  The backward keeps its weight-gradient sum in
-// accumulator fragments across all its tiles and its per-column sums in
-// registers, and writes one float32 partial of each per block: no float
-// atomics, so every run gives the same sums.
+// The bf16 forward.  What bounds it on an H100: bytes.  At B = 128, M =
+// 1024 it reads x and writes y (67 MB at C = 256); the pointwise product
+// is 17.2 GFLOP, 17 us of tensor-core time.  It keeps every intermediate
+// in shared memory and registers.  The C x C bf16 weight (32 KB at C =
+// 128, 135 KB at C = 256) is loaded into shared memory once per block:
+// the grid is persistent and each block walks over tiles of R consecutive
+// frames of one sequence (R = 64 at C = 128, 32 at C = 256; 2 more input
+// rows on each side for the depthwise conv, rows outside [0, M) read as
+// zero, as the TPU kernel's padding does).  The product runs on WMMA
+// (bf16 operands, float32 accumulation).
 //
-// Tiles: a tile computes u and t for R consecutive frames of one sequence
-// (R = 64 at C = 128; R = 32 at C = 256, where the weight alone takes 135 of
-// a block's 227 KB).  The depthwise conv needs 2 more input rows on each
-// side.  In the backward, dx of a frame needs du of its 2 neighbours on
-// each side, so a tile owns only its inner R - 4 rows and recomputes the
-// outer 2 on each side (rows outside [0, M) read as zero, as the TPU
-// kernel's padding does).
-//
-// Column halves: every backward block owns 128 columns.  At C = 256 the
-// 256 x 256 float32 weight gradient would take 128 accumulator registers a
-// thread, so blocks come in pairs that walk the same tiles: both recompute
-// u, t and the full rows of dv (the LayerNorm backward and du = dv W^T need
-// them), and block p of a pair computes du, dx and the depthwise gradients
-// of input columns [128p, 128p + 128) and accumulates the weight gradient's
-// output columns [128p, 128p + 128) and the pointwise-bias and LayerNorm
-// gradients of those columns.  The two blocks of a pair run side by side,
-// so the second reads of x and dy come from L2.
+// The bf16 backward (GeoH, C = 128 and 256).  What bounds it: bytes, x
+// and dy read and dx written, 201 MB at C = 256 (0.060 ms at 3.35 TB/s),
+// with its three C x C products close behind (v = u W recomputed, du = dv
+// W^T, the weight gradient u^T dv: 51.5 GFLOP at C = 256, 0.052 ms of
+// tensor-core time).  Design:
+// - Tiles of R = 64 rows (wgmma's M), of which the inner 60 are the
+//   tile's own: dx of a frame needs du of its 2 neighbours on each side,
+//   so the outer 2 rows on each side are recomputed.  Each block (two
+//   warpgroups, one block an SM, persistent over the tiles) owns 128
+//   columns: at C = 256 a tile is spread over a cluster of two blocks, so
+//   nothing is computed twice.  Block p computes u of its 128 channels,
+//   v, t and dv of its 128 output columns, du and dx of its 128 input
+//   channels, and keeps the weight gradient of its 128 output columns
+//   (all C input channels: 128 float32 registers a thread at C = 256) in
+//   the wgmma accumulators across all its tiles.  The two blocks of a
+//   cluster swap their halves of u and of dv by bulk copies between their
+//   shared memories and the rows' LayerNorm partial sums by st.async,
+//   each completing on an mbarrier of the receiving block, so a block
+//   waits only for the data it needs; it runs the k-steps of its own half
+//   first.  A split cluster barrier (arrive after the dx pass, wait before
+//   the next tile's u is sent) keeps a block from writing into the
+//   other's u before that one is done with it.  At C = 128 a cluster is
+//   one block.
+// - All three products on wgmma.m64n64k16 (bf16, float32 accumulation),
+//   operands from shared memory in 64 x 64 tiles with the 128-byte
+//   swizzle: v = u W (u K-major, W MN-major), du = dv W^T (dv K-major, W
+//   K-major: one copy of W serves both), the weight gradient u^T dv (both
+//   MN-major: the rows are K, read straight from the u and dv tiles).  A
+//   block loads the W tiles it needs once (96 KB of 128 at C = 256: its
+//   output columns' and its input channels').  Warpgroup wg takes 64 of
+//   the block's columns in each product; the rows are M, so a row of v
+//   sits in the four lanes of a quad and t, the LayerNorm and dv are
+//   computed in the accumulators.  The rows' statistics are combined
+//   across the four 64-column slots of a row by Chan's pairwise formulas
+//   (mean, sum of squared deviations, sum g, sum g (t - mean)), one
+//   exchange a tile.
+// - Loads: x's and dy's rows by TMA tensor copies ((C, M, B) maps, so
+//   rows outside [0, M) arrive as zeros) into three rotating slots, the
+//   next tile's issued once this tile's dy and t are read, landing during
+//   the dx pass; rows whose keep is not 1 are scaled in place.  The
+//   depthwise conv runs two channels an instruction (bf16x2).  The
+//   column sums of the vector gradients (pw bias, LN scale and bias) come
+//   from a pass over t (kept in bf16, exactly) and dy in shared memory.
+// - No float atomics: each cluster writes one float32 partial of each
+//   weight gradient (the weight gradient's in its (C_in, C_out) layout),
+//   summed by the caller, so two launches give the same bits.  The
+//   shared-memory plan is decoder_block.py::bf16_bwd_plan.
 //
 // Numerics: the depthwise taps are rounded to bf16 after every product
 // and every sum, exactly as the bf16 arithmetic of _recompute_to_t (a
 // product of two bf16 values is exact in float32, and float32 rounding
-// before bf16 rounding of a sum of two bf16 values gives the same bits).
-// tanhf, and the order of the float32 sums, differ from XLA's, so the
-// kernel is held to its plain version by SNR.
+// before bf16 rounding of a sum of two bf16 values gives the same bits);
+// v is rounded to bf16 before + pw_b (a bf16 addition), t = tanh in
+// bf16, the LayerNorm statistics and the row pass in float32, dv rounded
+// to bf16 before both products, the weight gradient over the owned rows
+// only.  tanhf, and the
+// order of the float32 sums, differ from XLA's, so the kernels are held
+// to their plain version by SNR.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -74,40 +105,28 @@ namespace {
 
 constexpr int K = 5;
 constexpr int PAD = K / 2;
-constexpr int HALF = 128;     // columns a backward block owns
-constexpr int BWD_WARPS = 16;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-// The geometry of one width.
+// The bf16 forward's geometry at one width.
 template <int C_>
 struct Geo {
   static constexpr int C = C_;
   static constexpr int R = C == 128 ? 64 : 32;  // rows of u and t per tile
   static constexpr int FWD_WARPS = C == 128 ? 8 : 16;
   static constexpr int FWD_BLOCKS = C == 128 ? 2 : 1;  // forward blocks/SM
-  static constexpr int SPLIT = C / HALF;  // backward blocks per tile
   static constexpr int LDB = C + 8;  // bf16 row stride in shared memory
   static constexpr int LDF = C + 4;  // float32 row stride in shared memory
   static constexpr int XROWS = R + 2 * PAD;
   static constexpr int FWD_OWN = R;            // every row is an output row
-  static constexpr int BWD_OWN = R - 2 * PAD;  // the inner rows
   static constexpr size_t WS_BYTES = align128((size_t)C * LDB * 2);
   static constexpr size_t XS_BYTES = align128((size_t)XROWS * LDB * 2);
   static constexpr size_t US_BYTES = align128((size_t)R * LDB * 2);
   static constexpr size_t ST_BYTES = align128((size_t)R * LDF * 4);
   static constexpr size_t FWD_SMEM = WS_BYTES + XS_BYTES + US_BYTES + ST_BYTES;
-  static constexpr size_t BWD_SMEM = FWD_SMEM + US_BYTES;  // + dv in bf16
-  static constexpr int BGROUPS = BWD_WARPS * 32 / HALF;   // dx row groups
-  static_assert(C % HALF == 0 && R % 16 == 0, "tile shape");
+  static_assert(C % 128 == 0 && R % 16 == 0, "tile shape");
   static_assert(FWD_SMEM * FWD_BLOCKS <= SMEM_LIMIT, "forward smem");
-  static_assert(BWD_SMEM <= SMEM_LIMIT, "backward smem");
-  static_assert(BWD_OWN % BGROUPS == 0, "owned rows split evenly");
-  // the backward's final reductions reuse xs, us and dv
-  static_assert(((K + 1) * BGROUPS + 3 * BWD_WARPS) * HALF * 4 <=
-                    XS_BYTES + 2 * US_BYTES,
-                "reduction scratch does not fit");
 };
 
 __device__ __forceinline__ float bfr(float v) {
@@ -118,14 +137,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
 }
 
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
@@ -198,14 +209,13 @@ __device__ void depthwise(const __nv_bfloat16* xs, __nv_bfloat16* us,
   }
 }
 
-// st[:, 0 : 16 NCB] (R rows, float32) <- a (R x C, bf16) @ B, with
-// B = W[:, col0 : col0 + 16 NCB] (TRANS = false: v = u @ W) or
-// B = W[col0 : col0 + 16 NCB, :]^T (TRANS = true: du = dv @ W^T); ws holds
-// W as (C_in, C_out).  The R/16 x NCB output tiles are dealt to the NW
-// warps in column-major order, so a warp's tiles share their B fragments.
-template <class G, int NW, bool TRANS, int NCB>
+// st[:, 0 : 16 NCB] (R rows, float32) <- a (R x C, bf16) @ W[:, 0 : 16
+// NCB]; ws holds W as (C_in, C_out).  The R/16 x NCB output tiles are
+// dealt to the NW warps in column-major order, so a warp's tiles share
+// their B fragments.
+template <class G, int NW, int NCB>
 __device__ void mma_rows(const __nv_bfloat16* a, const __nv_bfloat16* ws,
-                         float* st, int col0, int warp) {
+                         float* st, int warp) {
   constexpr int RB = G::R / 16, KB = G::C / 16;
   constexpr int PER = RB * NCB / NW;           // tiles per warp
   constexpr int NRB = PER < RB ? PER : RB;     // row blocks per warp
@@ -219,8 +229,6 @@ __device__ void mma_rows(const __nv_bfloat16* a, const __nv_bfloat16* ws,
   for (int j = 0; j < NCBW; ++j)
 #pragma unroll
     for (int i = 0; i < NRB; ++i) wmma::fill_fragment(acc[j][i], 0.f);
-  using BLayout =
-      typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
 #pragma unroll
   for (int kb = 0; kb < KB; ++kb) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
@@ -231,11 +239,11 @@ __device__ void mma_rows(const __nv_bfloat16* a, const __nv_bfloat16* ws,
                              G::LDB);
 #pragma unroll
     for (int j = 0; j < NCBW; ++j) {
-      const int col = col0 + (cb0 + j) * 16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-      wmma::load_matrix_sync(
-          bf, TRANS ? ws + col * G::LDB + kb * 16 : ws + kb * 16 * G::LDB + col,
-          G::LDB);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          bf;
+      wmma::load_matrix_sync(bf, ws + kb * 16 * G::LDB + (cb0 + j) * 16,
+                             G::LDB);
 #pragma unroll
       for (int i = 0; i < NRB; ++i) wmma::mma_sync(acc[j][i], af[i], bf, acc[j][i]);
     }
@@ -333,7 +341,7 @@ __global__ void __launch_bounds__(Geo<C>::FWD_WARPS * 32, Geo<C>::FWD_BLOCKS)
     __syncthreads();
     depthwise<G>(xs, us, dww, dwb, c, grp * GROWS, (grp + 1) * GROWS);
     __syncthreads();
-    mma_rows<G, NW, false, C / 16>(us, ws, st, 0, warp);
+    mma_rows<G, NW, C / 16>(us, ws, st, warp);
     __syncthreads();
     for (int r = warp; r < G::R && u0 + r < M; r += NW) {
       float t[4 * CH], mean, rstd;
@@ -347,202 +355,786 @@ __global__ void __launch_bounds__(Geo<C>::FWD_WARPS * 32, Geo<C>::FWD_BLOCKS)
   }
 }
 
+// Phase stamps for probes/k4_bwd_phases.py: built with
+// -DDECODER_BLOCK_STAMPS, thread 0 of every block of a backward kernel
+// adds the %globaltimer time between consecutive stamps to
+// db_stamps[phase]; compiled out otherwise.
+#ifdef DECODER_BLOCK_STAMPS
+constexpr int N_STAMPS = 10;
+__device__ unsigned long long db_stamps[N_STAMPS];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+#define DB_STAMP(i)                                   \
+  if (threadIdx.x == 0) {                             \
+    const unsigned long long now_ = global_ns();      \
+    stamp_ns[i] += now_ - stamp_last;                 \
+    stamp_last = now_;                                \
+  }
+#else
+#define DB_STAMP(i)
+#endif
+
+// keep of x row u0 - PAD + i of sequence b, 0 outside [0, M)
+__device__ __forceinline__ float keep_of(const float* __restrict__ keep,
+                                         int b, int u0, int M, int i) {
+  const int g = u0 - PAD + i;
+  return g >= 0 && g < M ? __ldg(keep + (size_t)b * M + g) : 0.f;
+}
+
+// `bytes` (a multiple of 16, from a 16-byte aligned address) of device
+// memory into L2, by the TMA unit, ahead of their loads
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               ::"l"(p), "r"(bytes) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward (GeoH; the design is in the note at the top).
+
+template <int C_>
+struct GeoH {
+  static constexpr int C = C_;
+  static constexpr int R = 64;                 // rows of u a tile (wgmma M)
+  static constexpr int OWN = R - 2 * PAD;      // the inner rows a tile owns
+  static constexpr int NT = 256;               // two warpgroups
+  static constexpr int SPLIT = C / 128;        // blocks of a cluster (a tile)
+  static constexpr int SLOTS = 2 * SPLIT;      // 64-column parts of a row
+  static constexpr int NCH = C / 64;           // 64-channel operand tiles
+  static constexpr int TILE = 64 * 64 * 2;     // an operand tile's bytes
+  static constexpr int W_TILES = 4 * NCH - 4;  // the W tiles a block holds
+  static constexpr int U_OFF = W_TILES * TILE;
+  static constexpr int DV_OFF = U_OFF + NCH * TILE;
+  static constexpr int LDU = 128;              // du's float32 row stride (over
+                                               // u, and dv at C = 128)
+  static constexpr int XROWS = R + 2 * PAD;
+  // x rows: two boxes of 64 channels, rows 128 bytes apart
+  static constexpr int XBOX = XROWS * 128;
+  static constexpr int LDY = 136;              // t's bf16 stride
+  // three slots that take a tile's x rows, dy rows (two 64 x 64 boxes in
+  // the 128-byte swizzle) and t in turn, so the next tile's x and dy land
+  // while this tile's x is still read; each 1 KB aligned
+  static constexpr int SLOT = 2 * XBOX;
+  static constexpr int LOAD_BYTES = 2 * XBOX + 2 * TILE;
+  static constexpr int SLOT_OFF = DV_OFF + NCH * TILE;
+  // the rows' partial sums [4][R][4] (mean, M2, sum g, sum g (t - mean)
+  // over each 64-column slot of the row), then their statistics [4][R]
+  static constexpr int ST_OFF = SLOT_OFF + 3 * SLOT;
+  static constexpr int CS_OFF = ST_OFF + 20 * R * 4;
+  static constexpr int KP_OFF = CS_OFF + 4 * 3 * 128 * 4;
+  static constexpr int KP_STRIDE = (XROWS + 3) / 4 * 4;
+  static constexpr int PAR_OFF = KP_OFF + 2 * KP_STRIDE * 4;
+  // mbarriers: this tile's x and dy rows landed; the other block's half
+  // of u, its row sums, its half of dv arrived
+  static constexpr int BAR_OFF = PAR_OFF + (K + 1) * 128 * 2 + 2 * 128 * 4;
+  static constexpr int SMEM = BAR_OFF + 4 * 8;
+  static constexpr int SMEM_ALLOC = SMEM + 1024;  // room to align the base
+  static_assert(SPLIT == 1 || SPLIT == 2, "a cluster of one or two blocks");
+  static_assert(SMEM_ALLOC <= (int)SMEM_LIMIT, "backward smem");
+  static_assert(R * LDY * 2 <= SLOT && 2 * TILE <= SLOT, "dy, t fit a slot");
+  static_assert(SLOT % 1024 == 0 && SLOT_OFF % 1024 == 0, "slots aligned");
+  static_assert(R * LDU * 4 <= SLOT_OFF - U_OFF, "du fits over u and dv");
+  static_assert(OWN % 4 == 0, "owned rows split over four row groups");
+  static_assert(XROWS % 4 == 0, "the x rows' keep values as float4");
+  static_assert(4 * (K + 1) * 128 * 4 <= SLOT, "the final sums fit a slot");
+};
+
+// byte offset of the 16-byte chunk c (elements 8 c .. 8 c + 7) of row r of
+// a 64 x 64 bf16 operand tile: rows of 128 bytes, chunks XORed with the
+// row (the 128-byte swizzle; tiles 1024-byte aligned)
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// wgmma descriptor of an operand in such tiles from `addr`: 8-row groups
+// 1 KB apart (stride byte offset), `lbo` the leading byte offset (unused
+// by the shapes here: K-major operands step K inside a tile row, and an
+// MN-major one spans one tile's 64 columns)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 64, float32) += A (64 x 16 bf16) B (16 x 64 bf16), both from
+// shared memory; TA / TB: A / B MN-major (1) or K-major (0); D = A B when
+// !accumulate.  D's layout: lane 4 g + t of warp q holds, for each
+// 8-column block j, rows 16 q + g (d[4 j], d[4 j + 1]) and 16 q + g + 8
+// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t and 8 j + 2 t + 1.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t a,
+                                        uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The slot in shared memory of W's tile (a, b) (input channels 64 a ..,
+// output channels 64 b ..) for block p of a cluster, which holds the tiles
+// of its own output columns (b = 2 p, 2 p + 1: v = u W) first, then those
+// of its own input channels in the other columns (a = 2 p, 2 p + 1: du =
+// dv W^T).
+template <class G>
+__device__ __forceinline__ int w_slot(int a, int b, int p) {
+  if ((b >> 1) == p) return 2 * a + (b & 1);
+  return 2 * G::NCH + (a & 1) * (G::NCH - 2) + (b < 2 * p ? b : b - 2);
+}
+
+// the float pair of a bf16 pair in shared memory
+__device__ __forceinline__ float2 bf2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// a b and a + b on bf16 pairs, each rounded to bf16 (the explicit .rn
+// keeps them from being contracted into one fused multiply-add, which
+// would skip the product's rounding)
+__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a,
+                                                 __nv_bfloat162 b) {
+  __nv_bfloat162 d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(*reinterpret_cast<uint32_t*>(&d))
+      : "r"(*reinterpret_cast<uint32_t*>(&a)),
+        "r"(*reinterpret_cast<uint32_t*>(&b)));
+  return d;
+}
+
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a,
+                                                 __nv_bfloat162 b) {
+  __nv_bfloat162 d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(*reinterpret_cast<uint32_t*>(&d))
+      : "r"(*reinterpret_cast<uint32_t*>(&a)),
+        "r"(*reinterpret_cast<uint32_t*>(&b)));
+  return d;
+}
+
+// du's float32 rows (stride GeoH::LDU): columns in 8-column blocks XORed
+// with the row, so the stores from the accumulators meet 32 banks
+__device__ __forceinline__ int du_at(int r, int col) {
+  return r * 128 + (col ^ ((r & 7) << 3));
+}
+
+// x's and dy's tensor maps: (C, M, B) bf16, boxes of 64 channels x rows
+// x 68 rows, plain; dy 64 rows, in the 128-byte swizzle (bwd_maps)
 template <int C>
-__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
-    decoder_block_bwd_kernel(const __nv_bfloat16* __restrict__ x,
+__global__ void __launch_bounds__(GeoH<C>::NT, 1)
+    decoder_block_bwd_kernel(const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_dy,
                              const float* __restrict__ keep,
                              const __nv_bfloat16* __restrict__ w,
                              const float* __restrict__ dww,
                              const float* __restrict__ dwb,
                              const float* __restrict__ pwb,
                              const float* __restrict__ lns,
-                             const __nv_bfloat16* __restrict__ dy,
                              __nv_bfloat16* __restrict__ dx,
                              float* __restrict__ part_pw,
                              float* __restrict__ part_vec, int B, int M,
                              float eps) {
-  using G = Geo<C>;
-  constexpr int NT = BWD_WARPS * 32, CH = C / 128, R = G::R;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + G::WS_BYTES);
-  __nv_bfloat16* us =
-      reinterpret_cast<__nv_bfloat16*>(smem + G::WS_BYTES + G::XS_BYTES);
-  __nv_bfloat16* dvs = reinterpret_cast<__nv_bfloat16*>(
-      smem + G::WS_BYTES + G::XS_BYTES + G::US_BYTES);
-  float* st = reinterpret_cast<float*>(smem + G::WS_BYTES + G::XS_BYTES +
-                                       2 * G::US_BYTES);
+  using G = GeoH<C>;
+  constexpr int NT = G::NT, R = G::R, NCH = G::NCH, TILE = G::TILE;
+  constexpr int SLOTS = G::SLOTS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* us = smem + G::U_OFF;    // u, NCH tiles of 64 channels
+  unsigned char* dvs = smem + G::DV_OFF;  // dv, the same
+  float* dus = reinterpret_cast<float*>(us);  // du, over u (and dv)
+  unsigned char* slots = smem + G::SLOT_OFF;
+  float4* st = reinterpret_cast<float4*>(smem + G::ST_OFF);  // [4][R]
+  // the rows' mean, rstd, mean(g) and mean(g that)
+  float* rowst = reinterpret_cast<float*>(st + 4 * R);
+  float* cs = reinterpret_cast<float*>(smem + G::CS_OFF);  // [4][3][128]
+  float* kps = reinterpret_cast<float*>(smem + G::KP_OFF);  // two tiles'
+  // the block's 128 channels of the dw taps and bias in bf16, then its
+  // columns of the pw bias (rounded to bf16) and the LN scale in float32
+  __nv_bfloat16* dwt =
+      reinterpret_cast<__nv_bfloat16*>(smem + G::PAR_OFF);  // [K + 1][128]
+  float* pbs = reinterpret_cast<float*>(smem + G::PAR_OFF + (K + 1) * 256);
+  float* lnss = pbs + 128;
+  uint64_t* bar_ld = reinterpret_cast<uint64_t*>(smem + G::BAR_OFF);
+  uint64_t* bar_u = bar_ld + 1;
+  uint64_t* bar_st = bar_ld + 2;
+  uint64_t* bar_dv = bar_ld + 3;
+#ifdef DECODER_BLOCK_STAMPS
+  unsigned long long stamp_ns[N_STAMPS] = {}, stamp_last = global_ns();
+#endif
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // the column half this block owns, and the pair that shares its tiles
-  const int part = blockIdx.x % G::SPLIT;
-  const int pair = blockIdx.x / G::SPLIT, npairs = gridDim.x / G::SPLIT;
-  const int h0 = part * HALF;
-  // the recomputed depthwise conv: column cf, one of NT/C row groups
-  constexpr int FGROUPS = NT / C;
-  constexpr int FGROWS = R / FGROUPS;
-  const int cf = tid % C, fg = tid / C;
-  // the gradient: owned column cg = h0 + cl, one of BGROUPS row groups
-  constexpr int OROWS = G::BWD_OWN / G::BGROUPS;
-  const int cl = tid % HALF, cg = h0 + cl, bg = tid / HALF;
-  float wf[K];
-#pragma unroll
-  for (int tap = 0; tap < K; ++tap) wf[tap] = dww[tap * C + cg];
-  // per-thread partial sums: column cg (taps, dw bias), the lane's 4
-  // columns of the owned chunk (pw bias, LayerNorm scale and bias)
-  float p_dw[K], p_dwb = 0.f, p_pwb[4], p_lns[4], p_lnb[4];
-#pragma unroll
-  for (int i = 0; i < K; ++i) p_dw[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p_pwb[i] = p_lns[i] = p_lnb[i] = 0.f;
-  // the owned (C_in x HALF) part of the pointwise-weight gradient: warp
-  // owns input-row block ib and PW_PER output-column blocks from ob0
-  constexpr int PW_PER = (C / 16) * (HALF / 16) / BWD_WARPS;
-  constexpr int OBW = HALF / 16 / PW_PER;  // warps per input-row block
-  const int ib = warp / OBW, ob0 = (warp % OBW) * PW_PER;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_pw[PW_PER];
-#pragma unroll
-  for (int j = 0; j < PW_PER; ++j) wmma::fill_fragment(acc_pw[j], 0.f);
-  load_weight<G>(w, ws);
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int p = G::SPLIT > 1 ? (int)sm90::cluster_rank() : 0;
+  const int peer = p ^ 1, h0 = 128 * p;
+  const int cluster = blockIdx.x / G::SPLIT;
+  const int nclusters = gridDim.x / G::SPLIT;
+  const int tiles_m = (M + G::OWN - 1) / G::OWN;
+  const int n_tiles = B * tiles_m;
+  // u row 0's row in its sequence, and the sequence, of tile `tl`
+  auto tile_u0 = [&](int tl, int& tb) {
+    tb = tl / tiles_m;
+    return (tl - tb * tiles_m) * G::OWN - PAD;
+  };
 
-  const int tiles_m = (M + G::BWD_OWN - 1) / G::BWD_OWN;
-  for (int tile = pair; tile < B * tiles_m; tile += npairs) {
-    const int b = tile / tiles_m;
-    const int m0 = (tile - b * tiles_m) * G::BWD_OWN;
-    const int u0 = m0 - PAD;  // global row of u row 0
-    load_x<G>(x, keep, b, u0, M, xs);
-    __syncthreads();
-    depthwise<G>(xs, us, dww, dwb, cf, fg * FGROWS, (fg + 1) * FGROWS);
-    __syncthreads();
-    mma_rows<G, BWD_WARPS, false, C / 16>(us, ws, st, 0, warp);
-    __syncthreads();
-    // recompute t and its LayerNorm, then dv = dLN * (1 - t^2), full rows
-    for (int r = warp; r < R; r += BWD_WARPS) {
-      const int g = u0 + r;
-      if (g < 0 || g >= M) {
-        const float z[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < CH; ++h) store4(dvs + r * G::LDB + h * 128 + lane * 4, z);
-        continue;
+  // W's tiles, once: slot s holds tile (a, b) (w_slot's inverse)
+  for (int i = tid; i < G::W_TILES * 64 * 8; i += NT) {
+    const int s = i >> 9, r = (i >> 3) & 63, c = i & 7;
+    int a = s >> 1, b = 2 * p + (s & 1);
+    if constexpr (NCH > 2) {
+      if (s >= 2 * NCH) {
+        const int s2 = s - 2 * NCH, bb = s2 % (NCH - 2);
+        a = 2 * p + s2 / (NCH - 2);
+        b = bb < 2 * p ? bb : bb + 2;
       }
-      // (loaded per row: registers are short in the backward)
-      float t[4 * CH], mean, rstd, d[4 * CH], pb[4 * CH];
-      lane_cols<G>(pwb, lane, pb);
+    }
+    sm90::cp_async16(smem + s * TILE + sw128(r, c),
+                     w + (size_t)(64 * a + r) * C + 64 * b + 8 * c);
+  }
+  for (int i = tid; i < 128; i += NT) {
 #pragma unroll
-      for (int i = 0; i < 4 * CH; ++i) pb[i] = bfr(pb[i]);
-      row_t<G>(st + r * G::LDF, lane, pb, t, eps, mean, rstd);
-      float gs = 0.f, gx = 0.f;
+    for (int tap = 0; tap < K; ++tap)
+      dwt[tap * 128 + i] = __float2bfloat16_rn(dww[tap * C + h0 + i]);
+    dwt[K * 128 + i] = __float2bfloat16_rn(dwb[h0 + i]);
+    pbs[i] = bfr(pwb[h0 + i]);
+    lnss[i] = lns[h0 + i];
+  }
+  for (int i = tid; i < 4 * 3 * 128; i += NT) cs[i] = 0.f;
+  // the x rows (u0 - 2 .. u0 + 65) of tile `tl` of the block's channels
+  // into slot sx and its dy rows (u0 .. u0 + 63) into slot sy: four TMA
+  // boxes, rows outside [0, M) as zeros, counted on bar_ld
+  auto load_tile = [&](int tl, int sx, int sy) {
+    int tb;
+    const int tu0 = tile_u0(tl, tb);
+    sm90::mbar_expect_tx(bar_ld, G::LOAD_BYTES);
 #pragma unroll
-      for (int h = 0; h < CH; ++h) {
-        const int col = h * 128 + lane * 4;
-        load4(dy + ((size_t)b * M + g) * C + col, d + h * 4);
+    for (int h = 0; h < 2; ++h) {
+      sm90::tma_load_3d(slots + sx * G::SLOT + h * G::XBOX, &tm_x,
+                        h0 + 64 * h, tu0 - PAD, tb, bar_ld);
+      sm90::tma_load_3d(slots + sy * G::SLOT + h * TILE, &tm_dy,
+                        h0 + 64 * h, tu0, tb, bar_ld);
+    }
+  };
+  // the keep value of x row tid of tile `tl` (threads below XROWS)
+  auto keep_at = [&](int tl) {
+    int tb;
+    const int tu0 = tile_u0(tl, tb);
+    return tid < G::XROWS && tl < n_tiles ? keep_of(keep, tb, tu0, M, tid)
+                                          : 0.f;
+  };
+  // the weight gradient of the block's columns: warpgroup wg's 64, all C
+  // input channels (m-block mb: channels 64 mb ..), across every tile
+  float accw[NCH][32];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float gg = d[h * 4 + i] * lns[col + i];
-          gs += gg;
-          gx += gg * ((t[h * 4 + i] - mean) * rstd);
-        }
-      }
-      const float gm = warp_sum(gs) / C, gxm = warp_sum(gx) / C;
-      const bool owned_row = r >= PAD && r < R - PAD;
+  for (int mb = 0; mb < NCH; ++mb)
 #pragma unroll
-      for (int h = 0; h < CH; ++h) {
-        const int col = h * 128 + lane * 4;
-        float dv[4];
+    for (int i = 0; i < 32; ++i) accw[mb][i] = 0.f;
+  // the dx pass: channels h0 + 2 pc, + 1 of row group rg; their depthwise
+  // gradients' partial sums
+  const int pc = tid & 63, rg = tid >> 6;
+  float2 p_dw[K], p_dwb = make_float2(0.f, 0.f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float tt = t[h * 4 + i];
-          const float that = (tt - mean) * rstd;
-          dv[i] = rstd * (d[h * 4 + i] * lns[col + i] - gm - that * gxm) *
-                  (1.f - tt * tt);
-          if (owned_row && h == part) {
-            p_pwb[i] += dv[i];
-            p_lns[i] += d[h * 4 + i] * that;
-            p_lnb[i] += d[h * 4 + i];
+  for (int tap = 0; tap < K; ++tap) p_dw[tap] = make_float2(0.f, 0.f);
+  // row pass: lane (g, t) of warp warp % 4 of warpgroup wg holds rows r0
+  // and r0 + 8, columns 64 wg + 8 j + 2 t, + 1 (j < 8) of the block's 128
+  const int r0 = 16 * (warp & 3) + g, lc0 = 64 * wg + 2 * t;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(bar_ld + i, 1);
+    sm90::fence_mbar_init();
+  }
+  // the other block's st, u, dv and mbarriers (shared::cluster addresses)
+  uint32_t st_peer = 0, u_peer = 0, dv_peer = 0, bars_peer = 0;
+  if constexpr (G::SPLIT > 1) {
+    st_peer = sm90::map_to_rank(st, peer);
+    u_peer = sm90::map_to_rank(us + 2 * p * TILE, peer);
+    dv_peer = sm90::map_to_rank(dvs + 2 * p * TILE, peer);
+    bars_peer = sm90::map_to_rank(bar_ld, peer);
+  }
+  __syncthreads();  // the mbarriers are initialised
+
+  // the first tile's rows
+  if (tid < G::XROWS) kps[tid] = keep_at(cluster);
+  sm90::cp_async_commit();  // W's tiles
+  __syncthreads();
+  if (tid == 0 && cluster < n_tiles) load_tile(cluster, 0, 1);
+  // the other block is done with its u (and du over it): arrive here, wait
+  // before sending into it (the arrival also publishes the mbarriers)
+  if constexpr (G::SPLIT > 1) sm90::cluster_arrive();
+
+  int it = 0;  // the block's tiles so far: x in slot it % 3, dy in the
+               // next one, t in the one after
+  for (int tile = cluster; tile < n_tiles; tile += nclusters, ++it) {
+    int b;
+    const int u0 = tile_u0(tile, b);
+    const size_t row0 = (size_t)b * M;
+    const int sx = it % 3, sy = (it + 1) % 3, sv = (it + 2) % 3;
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(slots + sx * G::SLOT);
+    // dy: tile wg holds warpgroup wg's 64 columns
+    const unsigned char* dyb = slots + sy * G::SLOT;
+    const unsigned char* dyt = dyb + wg * TILE;
+    __nv_bfloat16* ts = reinterpret_cast<__nv_bfloat16*>(slots + sv * G::SLOT);
+    const float* kp = kps + (it & 1) * G::KP_STRIDE;
+    const int next = tile + nclusters;
+    const uint32_t par = it & 1;  // the mbarriers' phase this tile
+    if (G::SPLIT > 1 && tid == 0) {
+      sm90::mbar_expect_tx(bar_u, 2 * TILE);
+      sm90::mbar_expect_tx(bar_st, 2 * R * 16);
+      sm90::mbar_expect_tx(bar_dv, 2 * TILE);
+    }
+    // the next tile's keep values, stored after v, when they have come
+    const float keep_next = keep_at(next);
+    sm90::mbar_wait(bar_ld, par);  // this tile's x and dy
+    DB_STAMP(6);
+    // x rows whose keep is not 1: bf16(x keep), zeros where it is 0
+    if (tid < G::XROWS && kp[tid] != 1.f) {
+      const float k = kp[tid];
+#pragma unroll 4
+      for (int c = 0; c < 16; ++c) {
+        uint4* q = reinterpret_cast<uint4*>(slots + sx * G::SLOT +
+                                            (c >> 3) * G::XBOX + tid * 128) +
+                   (c & 7);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k != 0.f) {
+          v = *q;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(h[j]);
+            h[j] = __floats2bfloat162_rn(f.x * k, f.y * k);
           }
         }
-        store4(dvs + r * G::LDB + col, dv);
+        *q = v;
       }
     }
     __syncthreads();
-    // du of the owned input columns, st[:, 0 : HALF] = dv @ W[h0 : h0 +
-    // HALF, :]^T, for all R rows (rows outside [0, M) have dv = 0)
-    mma_rows<G, BWD_WARPS, true, HALF / 16>(dvs, ws, st, h0, warp);
-    __syncthreads();
-    // only owned rows enter the pointwise-weight gradient
-    for (int i = tid; i < 2 * PAD * C; i += NT) {
-      const int r = i / C < PAD ? i / C : R - 2 * PAD + i / C;
-      dvs[r * G::LDB + i % C] = __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
-    // d_pw[:, h0 : h0 + HALF] += u^T @ dv[:, h0 : h0 + HALF]
+    DB_STAMP(0);
+
+    // u of the block's channels in bf16 arithmetic, two channels an
+    // instruction (mul_rn and add_rn round as bfr(__fmul_rn) and
+    // bfr(__fadd_rn) do: a product of two bf16 values is exact in
+    // float32): chunk c (8 channels) of rows 4 q .. 4 q + 3
+    {
+      const int c = tid & 15, q = tid >> 4;
+      const unsigned char* xb = reinterpret_cast<const unsigned char*>(xs) +
+                                (c >> 3) * G::XBOX + (c & 7) * 16;
+      const uint4* w8 = reinterpret_cast<const uint4*>(dwt) + c;
+      unsigned char* ut = us + (2 * p + (c >> 3)) * TILE;
+      uint4 wv[K + 1];
 #pragma unroll
-    for (int kb = 0; kb < R / 16; ++kb) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> af;
-      wmma::load_matrix_sync(af, us + kb * 16 * G::LDB + ib * 16, G::LDB);
+      for (int tap = 0; tap <= K; ++tap) wv[tap] = w8[tap * 16];
 #pragma unroll
-      for (int j = 0; j < PW_PER; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(
-            bf, dvs + kb * 16 * G::LDB + h0 + (ob0 + j) * 16, G::LDB);
-        wmma::mma_sync(acc_pw[j], af, bf, acc_pw[j]);
+      for (int r = 4 * q; r < 4 * q + 4; ++r) {
+        __nv_bfloat162 acc[4];
+#pragma unroll
+        for (int tap = 0; tap < K; ++tap) {
+          const uint4 xv = *reinterpret_cast<const uint4*>(
+              xb + (r + tap) * 128);
+          const __nv_bfloat162* xh =
+              reinterpret_cast<const __nv_bfloat162*>(&xv);
+          const __nv_bfloat162* wh =
+              reinterpret_cast<const __nv_bfloat162*>(&wv[tap]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const __nv_bfloat162 m = mul_rn(xh[e], wh[e]);
+            acc[e] = tap ? add_rn(acc[e], m) : m;
+          }
+        }
+        const __nv_bfloat162* bh =
+            reinterpret_cast<const __nv_bfloat162*>(&wv[K]);
+        uint4 o;
+        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oh[e] = add_rn(acc[e], bh[e]);
+        *reinterpret_cast<uint4*>(ut + sw128(r, c & 7)) = o;
       }
     }
-    // owned rows of column cg: depthwise gradients and dx
-    for (int r = PAD + bg * OROWS; r < PAD + (bg + 1) * OROWS; ++r) {
-      const int g = u0 + r;
-      if (g >= M) break;
-      const float du = st[r * G::LDF + cl];
-      p_dwb += du;
+    sm90::fence_proxy_async();
+    __syncthreads();
+    DB_STAMP(1);
+    if constexpr (G::SPLIT > 1) {
+      sm90::cluster_wait();  // the other block is done with its u
+      if (tid == 0) {
+        sm90::bulk_s2s_cluster(u_peer, us + 2 * p * TILE, 2 * TILE,
+                               bars_peer + 8);
+        sm90::bulk_commit();
+      }
+    }
+    if (it == 0) {  // W's tiles
+      sm90::cp_async_wait<0>();
+      sm90::fence_proxy_async();
+      __syncthreads();
+    }
+    DB_STAMP(2);
+
+    // v = u W: warpgroup wg's 64 columns of the block's 128; the k-steps
+    // of the block's own channels first, the other block's once its half
+    // of u has come (k-step s: channels 16 s ..; s2 = s in that order)
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    {
+      const uint32_t u_a = sm90::smem_u32(us), w_a = sm90::smem_u32(smem);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int s2 = 0; s2 < C / 16; ++s2) {
+        const int s = (s2 + 8 * p) % (C / 16);
+        if (G::SPLIT > 1 && s2 == 8) sm90::mbar_wait(bar_u, par);
+        wgmma64<0, 1>(acc,
+                      sw128_desc(u_a + (s >> 2) * TILE + 32 * (s & 3), 16),
+                      sw128_desc(w_a + w_slot<G>(s >> 2, 2 * p + wg, p) * TILE +
+                                     2048 * (s & 3),
+                                 TILE),
+                      s2 > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::reg_fence(acc[i]);
+    }
+    if (tid < G::XROWS) kps[((it + 1) & 1) * G::KP_STRIDE + tid] = keep_next;
+    DB_STAMP(3);
+
+    // t = tanh(bf16(v) + pb) in place (kept in ts too: a bf16 value, so
+    // exactly), and each row's statistics over the warpgroup's 64
+    // columns: the mean, M2 = sum (t - mean)^2, sum g and sum g (t -
+    // mean), g = dy ln_s; combined across the row's slots below (Chan's
+    // pairwise update, as stable as two passes)
+    {
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 pf = *reinterpret_cast<const float2*>(pbs + lc0 + 8 * j);
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(pf.x, pf.y);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& a0 = acc[4 * j + 2 * h];
+          float& a1 = acc[4 * j + 2 * h + 1];
+          // bf16(v) + pb in bf16 (add.rn.bf16x2), tanh rounded to bf16
+          const float2 vb = __bfloat1622float2(
+              add_rn(__floats2bfloat162_rn(a0, a1), pb));
+          const __nv_bfloat162 tb =
+              __floats2bfloat162_rn(tanhf(vb.x), tanhf(vb.y));
+          *reinterpret_cast<__nv_bfloat162*>(ts + (r0 + 8 * h) * G::LDY +
+                                             lc0 + 8 * j) = tb;
+          const float2 tf = __bfloat1622float2(tb);
+          a0 = tf.x;
+          a1 = tf.y;
+          s[h] += a0 + a1;
+        }
+      }
+      float mk[2], sq[2] = {0.f, 0.f}, sg[2] = {0.f, 0.f}, sx[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+        mk[h] = s[h] * (1.f / 64);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = lc0 + 8 * j;
+        const float2 ls = *reinterpret_cast<const float2*>(lnss + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 d = bf2(reinterpret_cast<const __nv_bfloat16*>(
+              dyt + sw128(r0 + 8 * h, j) + 4 * t));
+          const float g0 = d.x * ls.x, g1 = d.y * ls.y;
+          const float c0 = acc[4 * j + 2 * h] - mk[h];
+          const float c1 = acc[4 * j + 2 * h + 1] - mk[h];
+          sq[h] += c0 * c0 + c1 * c1;
+          sg[h] += g0 + g1;
+          sx[h] += g0 * c0 + g1 * c1;
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], o);
+          sg[h] += __shfl_xor_sync(0xffffffffu, sg[h], o);
+          sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], o);
+        }
+      if (t == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = (2 * p + wg) * R + r0 + 8 * h;
+          const float4 v = make_float4(mk[h], sq[h], sg[h], sx[h]);
+          st[i] = v;
+          if constexpr (G::SPLIT > 1)
+            sm90::st_async_v4(st_peer + 16 * i, v, bars_peer + 16);
+        }
+    }
+    // this block's u half is read: the halo rows may be zeroed
+    if (G::SPLIT > 1 && tid == 0) sm90::bulk_wait_read<0>();
+    __syncthreads();
+    if constexpr (G::SPLIT > 1) sm90::mbar_wait(bar_st, par);
+    DB_STAMP(4);
+
+    // the rows' statistics from their slots, in slot order in both blocks
+    // (rowst by warpgroup 0), then dv = rstd (g - mean(g) - that mean(g
+    // that)) (1 - t^2) into the dv tiles in bf16; u's halo rows leave the
+    // weight gradient
+    {
+      float mean[2], rstd[2], gm[2], gxm[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        float4 sk[SLOTS];
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+          sk[k] = st[k * R + r];
+          s += sk[k].x;
+        }
+        mean[h] = s / SLOTS;
+        float q = 0.f, gs = 0.f, gx = 0.f;
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+          const float dm = sk[k].x - mean[h];
+          q += sk[k].y + 64.f * dm * dm;
+          gs += sk[k].z;
+          gx += sk[k].w + dm * sk[k].z;
+        }
+        rstd[h] = 1.f / sqrtf(q / C + eps);
+        gm[h] = gs / C;
+        gxm[h] = rstd[h] * gx / C;
+        if (wg == 0 && t == 0) {
+          rowst[r] = mean[h];
+          rowst[R + r] = rstd[h];
+          rowst[2 * R + r] = gm[h];
+          rowst[3 * R + r] = gxm[h];
+        }
+      }
+      unsigned char* dvt = dvs + (2 * p + wg) * TILE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = lc0 + 8 * j;
+        const float2 ls = *reinterpret_cast<const float2*>(lnss + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 d = bf2(reinterpret_cast<const __nv_bfloat16*>(
+              dyt + sw128(r0 + 8 * h, j) + 4 * t));
+          const float t0 = acc[4 * j + 2 * h], t1 = acc[4 * j + 2 * h + 1];
+          const float th0 = (t0 - mean[h]) * rstd[h];
+          const float th1 = (t1 - mean[h]) * rstd[h];
+          *reinterpret_cast<__nv_bfloat162*>(
+              dvt + sw128(r0 + 8 * h, j) + 4 * t) =
+              __floats2bfloat162_rn(
+                  rstd[h] * (d.x * ls.x - gm[h] - th0 * gxm[h]) *
+                      (1.f - t0 * t0),
+                  rstd[h] * (d.y * ls.y - gm[h] - th1 * gxm[h]) *
+                      (1.f - t1 * t1));
+        }
+      }
+      if (tid < 32 * NCH) {
+        const int q = (tid >> 3) & 3, r = q < 2 ? q : R - 4 + q;
+        *reinterpret_cast<uint4*>(us + (tid >> 5) * TILE + sw128(r, tid & 7)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();
+    if (G::SPLIT > 1 && tid == 0) {
+      sm90::bulk_s2s_cluster(dv_peer, dvs + 2 * p * TILE, 2 * TILE,
+                             bars_peer + 24);
+      sm90::bulk_commit();
+    }
+    // the column sums over the owned rows of dv (float32, from t and dy
+    // again), dy that and dy: channels 2 pc, + 1 of the block's 128, row
+    // group rg; each thread adds into its own place in cs
+    {
+      constexpr int OROWS = G::OWN / 4;
+      const int r_beg = PAD + rg * OROWS;
+      const int r_end = min(r_beg + OROWS, M - u0);
+      const float2 ls = *reinterpret_cast<const float2*>(lnss + 2 * pc);
+      // dy's tile of the channel pair, and its place in a row
+      const unsigned char* dyc = dyb + (pc >> 5) * TILE + (pc & 3) * 4;
+      float2 s_dv = make_float2(0.f, 0.f), s_ls = s_dv, s_lb = s_dv;
+#pragma unroll 5
+      for (int r = r_beg; r < r_end; ++r) {
+        const float mn = rowst[r], rs = rowst[R + r], gmr = rowst[2 * R + r];
+        const float gxr = rowst[3 * R + r];
+        const float2 tv = bf2(ts + r * G::LDY + 2 * pc);
+        const float2 d = bf2(reinterpret_cast<const __nv_bfloat16*>(
+            dyc + sw128(r, (pc & 31) >> 2)));
+        const float th0 = (tv.x - mn) * rs, th1 = (tv.y - mn) * rs;
+        s_dv.x += rs * (d.x * ls.x - gmr - th0 * gxr) * (1.f - tv.x * tv.x);
+        s_dv.y += rs * (d.y * ls.y - gmr - th1 * gxr) * (1.f - tv.y * tv.y);
+        s_ls.x += d.x * th0;
+        s_ls.y += d.y * th1;
+        s_lb.x += d.x;
+        s_lb.y += d.y;
+      }
+      float2* c2 = reinterpret_cast<float2*>(cs + rg * 3 * 128) + pc;
+      c2[0].x += s_dv.x; c2[0].y += s_dv.y;
+      c2[64].x += s_ls.x; c2[64].y += s_ls.y;
+      c2[128].x += s_lb.x; c2[128].y += s_lb.y;
+    }
+    DB_STAMP(5);
+
+    // the weight gradient, accw += u^T dv (warpgroup wg's 64 columns),
+    // and du = dv W^T (its 64 channels of the block's 128)
+    {
+      const uint32_t u_a = sm90::smem_u32(us), dv_a = sm90::smem_u32(dvs);
+      const uint32_t w_a = sm90::smem_u32(smem);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int mb = 0; mb < NCH; ++mb)
+#pragma unroll
+        for (int ks = 0; ks < R / 16; ++ks)
+          wgmma64<1, 1>(accw[mb],
+                        sw128_desc(u_a + mb * TILE + 2048 * ks, TILE),
+                        sw128_desc(dv_a + (2 * p + wg) * TILE + 2048 * ks,
+                                   TILE),
+                        1);
+      // du's k-steps over the block's own columns of dv first, the other
+      // block's once they have come
+#pragma unroll
+      for (int s2 = 0; s2 < C / 16; ++s2) {
+        const int s = (s2 + 8 * p) % (C / 16);
+        if (G::SPLIT > 1 && s2 == 8) sm90::mbar_wait(bar_dv, par);
+        wgmma64<0, 0>(acc,
+                      sw128_desc(dv_a + (s >> 2) * TILE + 32 * (s & 3), 16),
+                      sw128_desc(w_a + w_slot<G>(2 * p + wg, s >> 2, p) * TILE +
+                                     32 * (s & 3),
+                                 16),
+                      s2 > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::reg_fence(acc[i]);
+#pragma unroll
+      for (int mb = 0; mb < NCH; ++mb)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sm90::reg_fence(accw[mb][i]);
+    }
+    __syncthreads();  // every warpgroup is done with u, dv, dy and t
+    // the next tile's x and dy into the slots dy and t leave, landing
+    // during the dx pass
+    if (tid == 0 && next < n_tiles) load_tile(next, sy, sv);
+    DB_STAMP(7);
+
+    // du into shared memory over u (float32), then the owned rows of
+    // channels h0 + 2 pc, + 1: dx and the depthwise gradients, du and x's
+    // rows in windows of K
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(dus + du_at(r0 + 8 * h, lc0 + 8 * j)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    __syncthreads();
+    {
+      constexpr int OROWS = G::OWN / 4;
+      const int r_beg = PAD + rg * OROWS;
+      const int r_end = min(r_beg + OROWS, M - u0);
+      float2 wf[K], dw[K], xw[K];
+      // x's box of the channel pair (rows of 64 bf16), and its place
+      const __nv_bfloat16* xc = xs + (pc >> 5) * (G::XBOX / 2) + 2 * (pc & 31);
 #pragma unroll
       for (int tap = 0; tap < K; ++tap)
-        p_dw[tap] += __bfloat162float(xs[(r + tap) * G::LDB + cg]) * du;
-      float acc = st[(r - PAD) * G::LDF + cl] * wf[K - 1];
+        wf[tap] = __ldg(reinterpret_cast<const float2*>(dww + tap * C + h0) + pc);
 #pragma unroll
-      for (int sh = 1; sh < K; ++sh)
-        acc += st[(r - PAD + sh) * G::LDF + cl] * wf[K - 1 - sh];
-      dx[((size_t)b * M + g) * C + cg] =
-          __float2bfloat16_rn(acc * keep[(size_t)b * M + g]);
+      for (int j = 0; j < K - 1; ++j) {
+        dw[j] = *reinterpret_cast<const float2*>(
+            dus + du_at(r_beg - PAD + j, 2 * pc));
+        xw[j] = bf2(xc + (r_beg + j) * 64);
+      }
+#pragma unroll 5
+      for (int r = r_beg; r < r_end; ++r) {
+        dw[K - 1] = *reinterpret_cast<const float2*>(
+            dus + du_at(r + PAD, 2 * pc));
+        xw[K - 1] = bf2(xc + (r + K - 1) * 64);
+        const float2 du = dw[PAD];
+        p_dwb.x += du.x;
+        p_dwb.y += du.y;
+#pragma unroll
+        for (int tap = 0; tap < K; ++tap) {
+          p_dw[tap].x += xw[tap].x * du.x;
+          p_dw[tap].y += xw[tap].y * du.y;
+        }
+        float ax = dw[0].x * wf[K - 1].x, ay = dw[0].y * wf[K - 1].y;
+#pragma unroll
+        for (int sh = 1; sh < K; ++sh) {
+          ax += dw[sh].x * wf[K - 1 - sh].x;
+          ay += dw[sh].y * wf[K - 1 - sh].y;
+        }
+        const float k = kp[r + PAD];
+        *reinterpret_cast<__nv_bfloat162*>(dx + (row0 + u0 + r) * C + h0 +
+                                           2 * pc) =
+            __floats2bfloat162_rn(ax * k, ay * k);
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j) {
+          dw[j] = dw[j + 1];
+          xw[j] = xw[j + 1];
+        }
+      }
     }
-    __syncthreads();
+    // this block is done with du over its u: the other block may send;
+    // its own half of dv has been read by the copy out.  (The next tile
+    // writes u only after the barrier that follows its loads.)
+    if constexpr (G::SPLIT > 1) {
+      sm90::cluster_arrive_relaxed();  // (its reads have been used)
+      if (tid == 0) sm90::bulk_wait_read<0>();
+    }
+    DB_STAMP(8);
   }
+  // neither block touches the other's shared memory after this
+  if constexpr (G::SPLIT > 1) sm90::cluster_wait();
+  sm90::cp_async_wait<0>();  // W's tiles, in a block without a tile
 
-  // per-block partials of the owned columns, summed over threads in a
-  // fixed order
-  float* red_col = reinterpret_cast<float*>(xs);  // [BGROUPS][K + 1][HALF]
-  float* red_row = red_col + G::BGROUPS * (K + 1) * HALF;  // [NW][3][HALF]
+  // per-block partials of the block's 128 columns, summed over threads in
+  // a fixed order: part_vec rows 0..K-1 dw taps, K dw bias, K+1 pw bias,
+  // K+2 LN scale, K+3 LN bias
+  float* red = reinterpret_cast<float*>(slots);  // [4][K + 1][128]
+  __syncthreads();
 #pragma unroll
-  for (int tap = 0; tap < K; ++tap)
-    red_col[(bg * (K + 1) + tap) * HALF + cl] = p_dw[tap];
-  red_col[(bg * (K + 1) + K) * HALF + cl] = p_dwb;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    red_row[(warp * 3 + 0) * HALF + lane * 4 + i] = p_pwb[i];
-    red_row[(warp * 3 + 1) * HALF + lane * 4 + i] = p_lns[i];
-    red_row[(warp * 3 + 2) * HALF + lane * 4 + i] = p_lnb[i];
+  for (int tap = 0; tap <= K; ++tap) {
+    const float2 v = tap < K ? p_dw[tap] : p_dwb;
+    *reinterpret_cast<float2*>(red + (rg * (K + 1) + tap) * 128 + 2 * pc) = v;
   }
   __syncthreads();
-  // part_vec rows: 0..K-1 dw taps, K dw bias, K+1 pw bias, K+2 LN scale,
-  // K+3 LN bias; this block writes their columns [h0, h0 + HALF)
-  for (int i = tid; i < (K + 4) * HALF; i += NT) {
-    const int which = i / HALF, cc = i - which * HALF;
-    float acc = 0.f;
+  for (int i = tid; i < (K + 4) * 128; i += NT) {
+    const int which = i >> 7, cc = i & 127;
+    float a = 0.f;
     if (which <= K) {
-      for (int q = 0; q < G::BGROUPS; ++q)
-        acc += red_col[(q * (K + 1) + which) * HALF + cc];
+      for (int q = 0; q < 4; ++q) a += red[(q * (K + 1) + which) * 128 + cc];
     } else {
-      for (int wp = 0; wp < BWD_WARPS; ++wp)
-        acc += red_row[(wp * 3 + which - K - 1) * HALF + cc];
+      for (int q = 0; q < 4; ++q) a += cs[(q * 3 + which - K - 1) * 128 + cc];
     }
-    part_vec[((size_t)pair * (K + 4) + which) * C + h0 + cc] = acc;
+    part_vec[((size_t)cluster * (K + 4) + which) * C + h0 + cc] = a;
   }
-  float* pw_out = part_pw + (size_t)pair * C * C;
+  // the weight gradient's partial, (C_in, C_out): rows 64 mb + r0 (+ 8),
+  // columns h0 + lc0 + 8 j (+ 1)
+  float* pw = part_pw + (size_t)cluster * C * C + h0 + lc0;
 #pragma unroll
-  for (int j = 0; j < PW_PER; ++j)
-    wmma::store_matrix_sync(pw_out + ib * 16 * C + h0 + (ob0 + j) * 16,
-                            acc_pw[j], C, wmma::mem_row_major);
+  for (int mb = 0; mb < NCH; ++mb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(pw + (size_t)(64 * mb + r0 + 8 * h) * C +
+                                   8 * j) =
+            make_float2(accw[mb][4 * j + 2 * h], accw[mb][4 * j + 2 * h + 1]);
+#ifdef DECODER_BLOCK_STAMPS
+  DB_STAMP(9);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N_STAMPS; ++i) atomicAdd(&db_stamps[i], stamp_ns[i]);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -839,7 +1431,7 @@ __global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
 // - Two warpgroups, one block an SM (210 or 219 KB), persistent over the
 //   tiles.
 //
-// Where the time goes (probes/k4_f32_bwd_phases.py) is written down in
+// Where the time goes (probes/k4_bwd_phases.py) is written down in
 // PERF.md: at C = 256 the weight gradient's mma.sync and its partial's
 // traffic first, then the two products' A loads from L2.
 //
@@ -896,13 +1488,6 @@ __device__ __forceinline__ float4 tap_add(float4 acc, float4 x, float4 w) {
                      __fadd_rn(acc.w, __fmul_rn(x.w, w.w)));
 }
 
-// `bytes` (a multiple of 16, from a 16-byte aligned address) of device
-// memory into L2, by the TMA unit, ahead of their loads
-__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
-               ::"l"(p), "r"(bytes) : "memory");
-}
-
 // rows [g0, g0 + n) of sequence b (M rows of C floats), cut to [0, M),
 // into L2
 template <int C>
@@ -911,13 +1496,6 @@ __device__ __forceinline__ void prefetch_rows(const float* base, int b,
   const int lo = max(g0, 0), hi = min(g0 + n, M);
   if (hi > lo)
     prefetch_l2(base + ((size_t)b * M + lo) * C, (uint32_t)(hi - lo) * C * 4);
-}
-
-// keep of x row u0 - PAD + i of sequence b, 0 outside [0, M)
-__device__ __forceinline__ float keep_of(const float* __restrict__ keep,
-                                         int b, int u0, int M, int i) {
-  const int g = u0 - PAD + i;
-  return g >= 0 && g < M ? __ldg(keep + (size_t)b * M + g) : 0.f;
 }
 
 // xs row i <- x row u0 - PAD + i of sequence b times its keep kp[i]: rows
@@ -945,30 +1523,6 @@ __device__ void load_x_async(const float* __restrict__ x, int b, int u0,
     }
   }
 }
-
-// Phase stamps for probes/k4_f32_bwd_phases.py: built with
-// -DDECODER_BLOCK_STAMPS, thread 0 of every block adds the %globaltimer
-// time between consecutive stamps to db_stamps[phase]; compiled out
-// otherwise.
-#ifdef DECODER_BLOCK_STAMPS
-constexpr int N_STAMPS = 10;
-__device__ unsigned long long db_stamps[N_STAMPS];
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-#define DB_STAMP(i)                                   \
-  if (threadIdx.x == 0) {                             \
-    const unsigned long long now_ = global_ns();      \
-    stamp_ns[i] += now_ - stamp_last;                 \
-    stamp_last = now_;                                \
-  }
-#else
-#define DB_STAMP(i)
-#endif
 
 // S at (row r, channels 4 c4 ..) <- the split of v
 template <class G>
@@ -1441,25 +1995,99 @@ int fwd_launch(const void* x, const void* keep, const void* w,
   return cudaGetLastError();
 }
 
+// The bf16 backward's tensor maps of x and dy, (C, M, B) bf16 (rows of a
+// sequence outside [0, M) come as zeros): boxes of 64 channels x 68 rows
+// of x, plain, and 64 x 64 of dy in the 128-byte swizzle (sw128's
+// layout).  cuTensorMapEncodeTiled is found through the runtime's
+// entry-point query, so nothing links against libcuda.
+template <int C>
+cudaError_t bwd_maps(CUtensorMap* mx, CUtensorMap* mdy, const void* x,
+                     const void* dy, int B, int M) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {C, static_cast<cuuint64_t>(M),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {C * 2, static_cast<cuuint64_t>(M) * C * 2};
+  const cuuint32_t box_x[3] = {64, GeoH<C>::XROWS, 1};
+  const cuuint32_t box_dy[3] = {64, GeoH<C>::R, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(x), dims, strides, box_x, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  r = encode(mdy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(dy),
+             dims, strides, box_dy, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the bf16 backward's launch: grid blocks in clusters of GeoH::SPLIT
+template <int C>
+cudaLaunchConfig_t bwd_config(int grid, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  using G = GeoH<C>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(G::NT);
+  cfg.dynamicSmemBytes = G::SMEM_ALLOC;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G::SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <int C>
 int bwd_launch(const void* x, const void* keep, const void* w,
                const void* dww, const void* dwb, const void* pwb,
                const void* lns, const void* dy, void* dx, void* part_pw,
                void* part_vec, int B, int M, float eps, int grid,
                cudaStream_t stream) {
-  using G = Geo<C>;
-  if (grid % G::SPLIT) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      decoder_block_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::BWD_SMEM);
+  using G = GeoH<C>;
+  if (grid < G::SPLIT || grid % G::SPLIT) return cudaErrorInvalidValue;
+  CUtensorMap mx, mdy;
+  cudaError_t e = bwd_maps<C>(&mx, &mdy, x, dy, B, M);
   if (e != cudaSuccess) return e;
-  decoder_block_bwd_kernel<C><<<grid, BWD_WARPS * 32, G::BWD_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(keep),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(dww),
-      static_cast<const float*>(dwb), static_cast<const float*>(pwb),
-      static_cast<const float*>(lns), static_cast<const __nv_bfloat16*>(dy),
+  e = cudaFuncSetAttribute(decoder_block_bwd_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           G::SMEM_ALLOC);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = bwd_config<C>(grid, stream, attr);
+  e = cudaLaunchKernelEx(
+      &cfg, decoder_block_bwd_kernel<C>, mx, mdy,
+      static_cast<const float*>(keep), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(dww), static_cast<const float*>(dwb),
+      static_cast<const float*>(pwb), static_cast<const float*>(lns),
       static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part_pw),
       static_cast<float*>(part_vec), B, M, eps);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -1541,7 +2169,7 @@ int decoder_block_tile_rows(int channels, int backward, int f32) {
   return with_variant(channels, f32, 0, [&](auto c, auto f) {
     constexpr int C = decltype(c)::value;
     if (decltype(f)::value) return backward ? GeoB<C>::OWN : GeoF<C>::FWD_OWN;
-    return backward ? Geo<C>::BWD_OWN : Geo<C>::FWD_OWN;
+    return backward ? GeoH<C>::OWN : Geo<C>::FWD_OWN;
   });
 }
 
@@ -1552,11 +2180,52 @@ int decoder_block_fwd_blocks_per_sm(int channels, int f32) {
   });
 }
 
-// Backward blocks that share a tile (bf16: one per 128 columns; float32:
-// one), or 0.
+// Backward blocks that share a tile (bf16: a cluster, one block per 128
+// columns; float32: one), or 0.
 int decoder_block_split(int channels, int f32) {
   return with_variant(channels, f32, 0, [](auto c, auto f) {
-    return decltype(f)::value ? 1 : Geo<decltype(c)::value>::SPLIT;
+    return decltype(f)::value ? 1 : GeoH<decltype(c)::value>::SPLIT;
+  });
+}
+
+// Clusters of the bf16 backward that the card runs at once (one block an
+// SM; a cluster's blocks in one GPC), or 0 (also on a CUDA error).
+int decoder_block_bwd_clusters(int channels) {
+  return with_variant(channels, 0, 0, [](auto c, auto) {
+    constexpr int C = decltype(c)::value;
+    if (cudaFuncSetAttribute(decoder_block_bwd_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             GeoH<C>::SMEM_ALLOC) != cudaSuccess)
+      return 0;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = bwd_config<C>(GeoH<C>::SPLIT, 0, attr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, decoder_block_bwd_kernel<C>,
+                                       &cfg) != cudaSuccess)
+      return 0;
+    return n;
+  });
+}
+
+// The bf16 backward's plan, decoder_block.py::bf16_bwd_plan's fields in
+// its order: 0 tile rows, 1 owned rows, 2 warpgroups, 3 blocks a cluster,
+// 4 W's tiles a block holds (at byte 0), byte offsets 5 of u's tiles and
+// 6 of dv's, 7 du's float32 stride (over them), 8 the byte offset of the
+// three slots (x rows, dy rows, t in turn) and 9 a slot's bytes, 10 an x
+// box's bytes, 11 t's bf16 stride, byte offsets 12 of the row sums
+// and statistics, 13 of the column sums, 14 of the two tiles' keep
+// values, 15 of the weight vectors, 16 of the four mbarriers, 17
+// shared-memory bytes (past the 1024-byte aligned base); -1 for another
+// field or width.
+int decoder_block_bf16_bwd_plan(int channels, int field) {
+  return with_variant(channels, 0, -1, [&](auto c, auto) {
+    using G = GeoH<decltype(c)::value>;
+    const int v[] = {G::R,       G::OWN,      G::NT / 128, G::SPLIT,
+                     G::W_TILES, G::U_OFF,    G::DV_OFF,   G::LDU,
+                     G::SLOT_OFF, G::SLOT,    G::XBOX,     G::LDY,
+                     G::ST_OFF,  G::CS_OFF,   G::KP_OFF,   G::PAR_OFF,
+                     G::BAR_OFF, G::SMEM};
+    return field >= 0 && field < 18 ? v[field] : -1;
   });
 }
 
@@ -1579,7 +2248,7 @@ int decoder_block_f32_bwd_plan(int channels, int field) {
 int decoder_block_taps() { return K; }
 
 #ifdef DECODER_BLOCK_STAMPS
-// The float32 backward's phase sums (ns, over every block's thread 0) into
+// The backward kernels' phase sums (ns, over every block's thread 0) into
 // out[0 .. N_STAMPS), then set to 0; the probe's build only.
 int decoder_block_stamps(void* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, db_stamps, sizeof(db_stamps));
@@ -1615,7 +2284,8 @@ int decoder_block_fwd_launch(const void* x, const void* keep, const void* w,
 // (decoder_block.py::a_fragments); part_pw (grid / split, C_in,
 // C_out) f32 (the float32 variant's in its accumulators' order, see
 // weight_grad); part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw
-// bias, LN scale, LN bias.  grid is a multiple of decoder_block_split(C).
+// bias, LN scale, LN bias.  grid is a multiple of decoder_block_split(C)
+// (bf16: the blocks of a cluster).
 int decoder_block_bwd_launch(const void* x, const void* keep, const void* w,
                              const void* wt, const void* dww,
                              const void* dwb, const void* pwb,

@@ -76,6 +76,45 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
       : "memory");
 }
 
+// bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from this block's shared memory to `dst` and the mbarrier `bar` of a
+// block of the cluster (shared::cluster addresses, map_to_rank); the
+// source may change once bulk_wait_read says it has been read
+__device__ __forceinline__ void bulk_s2s_cluster(uint32_t dst, const void* src,
+                                                 uint32_t bytes,
+                                                 uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// closes this thread's group of bulk copies issued since the last one
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until the sources of all but N of this thread's committed groups
+// of bulk copies have been read
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// a 3-D box of a tensor map into shared memory at `dst`, completing on
+// `bar`; c0 is the innermost coordinate (rows outside the tensor land as
+// zeros)
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(tmap), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
@@ -90,6 +129,17 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// closes this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // orders this thread's earlier shared-memory writes (generic proxy) before
@@ -111,6 +161,12 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this thread's arrival, releasing its earlier memory accesses to the
+// threads that wait on the barrier's phase (cluster_wait acquires)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
@@ -136,6 +192,18 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
                : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+// 16 bytes to `addr` in a block of the cluster, counted as complete_tx
+// bytes on that block's mbarrier `bar` (both shared::cluster addresses)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+         "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
 }
 
 // ---- matrix fragments --------------------------------------------------------

@@ -39,6 +39,7 @@ launches_bwd = dict.fromkeys(VARIANTS, 0)
 TAPS = 5                # the depthwise conv's k (csrc: K)
 SMEM_LIMIT = 232448     # dynamic shared memory of a block (csrc: SMEM_LIMIT)
 F32_BWD_THREADS = 256   # two warpgroups (csrc: GeoB::NT)
+BF16_BWD_THREADS = 256  # two warpgroups (csrc: GeoH::NT)
 
 
 class F32BwdPlan(NamedTuple):
@@ -139,6 +140,111 @@ def f32_bwd_partial_index(c: int, device=None) -> torch.Tensor:
 _partial_index: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
+class BF16BwdPlan(NamedTuple):
+    """How the bf16 backward tiles a decoder of width C (csrc: GeoH, in
+    this field order): ``tile_rows`` rows of u a tile (wgmma's M), of
+    which the inner ``owned_rows`` are its own; ``warpgroups`` a block;
+    ``cluster`` blocks a tile, one per 128 columns.  Byte offsets from the
+    1024-byte aligned base: W's ``w_tiles`` 64 × 64 bf16 tiles (8 KB, the
+    128-byte swizzle) at 0, u's C/64 tiles at ``u_off`` and dv's at
+    ``dv_off``, over which du's float32 rows (``ld_du`` apart) go once
+    the products are done; three slots of ``slot`` bytes from
+    ``slot_off`` that take, in turn, a tile's x rows of the block's 128
+    channels (two TMA boxes of 64 channels, ``x_box`` bytes each), its
+    dy rows (two 64 × 64 tiles like u's) and t (rows ``ld_t`` bf16
+    apart), so the next tile's x and dy land while this tile's x is
+    read; the rows' LayerNorm sums and statistics at ``st_off``, the
+    column sums of the vector gradients at ``cs_off``, two tiles' keep
+    values of the x rows at ``kp_off``, the weight vectors at
+    ``par_off``, four mbarriers (the tile's rows landed; the other
+    block's u, row sums and dv arrived) at ``bar_off``; ``smem`` bytes
+    from the base."""
+    tile_rows: int
+    owned_rows: int
+    warpgroups: int
+    cluster: int
+    w_tiles: int
+    u_off: int
+    dv_off: int
+    ld_du: int
+    slot_off: int
+    slot: int
+    x_box: int
+    ld_t: int
+    st_off: int
+    cs_off: int
+    kp_off: int
+    par_off: int
+    bar_off: int
+    smem: int
+
+
+BF16_BWD_TILE = 64 * 64 * 2   # an operand tile's bytes (csrc: GeoH::TILE)
+
+
+def bf16_bwd_plan(c: int) -> BF16BwdPlan:
+    """The bf16 backward's plan at width ``c`` (one of ``WIDTHS``).  A
+    block owns 128 columns, so a tile is spread over a cluster of C / 128
+    blocks; it holds W's tiles of its output columns (v = u W) and of its
+    input channels (du = dv W^T): 4·C/64 − 4 of the C²/4096.  The t rows
+    are 272 bytes apart, so the row pass's stores meet 32 banks."""
+    if c not in WIDTHS:
+        raise ValueError(f"decoder_block: no bf16 backward plan for "
+                         f"C = {c}; built for {WIDTHS}")
+    r, nch, split = 64, c // 64, c // 128
+    xrows = r + TAPS - 1
+    w_tiles = 4 * nch - 4
+    u_off = w_tiles * BF16_BWD_TILE
+    dv_off = u_off + nch * BF16_BWD_TILE
+    x_box = xrows * 64 * 2
+    slot = 2 * x_box
+    slot_off = dv_off + nch * BF16_BWD_TILE
+    st_off = slot_off + 3 * slot
+    cs_off = st_off + 20 * r * 4
+    kp_off = cs_off + 4 * 3 * 128 * 4
+    par_off = kp_off + 2 * -(-xrows // 4) * 16
+    bar_off = par_off + (TAPS + 1) * 128 * 2 + 2 * 128 * 4
+    return BF16BwdPlan(r, r - (TAPS - 1), BF16_BWD_THREADS // 128, split,
+                       w_tiles, u_off, dv_off, 128, slot_off, slot, x_box,
+                       136, st_off, cs_off, kp_off, par_off, bar_off,
+                       bar_off + 4 * 8)
+
+
+# the bf16 backward's phases in a tile's order, then the final sums
+BF16_BWD_PHASES = ("load", "u", "send_u", "v", "row_sums", "dv", "products",
+                   "dx", "reduce")
+
+
+def bf16_bwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
+    """The bf16 backward's shared-memory buffers at width ``c``: name →
+    (byte offset, bytes, the phases in which it is live).  Each slot is
+    live in every phase of a tile: it holds this tile's x, dy or t, or the
+    next tile's x or dy landing."""
+    pl = bf16_bwd_plan(c)
+    r, tiles = pl.tile_rows, c // 64 * BF16_BWD_TILE
+    live = lambda *names: frozenset(names)
+    tile = live(*BF16_BWD_PHASES[:-1])
+    bufs = {
+        "W tiles": (0, pl.w_tiles * BF16_BWD_TILE, tile),
+        "u": (pl.u_off, tiles, live("u", "send_u", "v", "row_sums", "dv",
+                                    "products")),
+        "dv": (pl.dv_off, tiles, live("dv", "products")),
+        "du": (pl.u_off, r * pl.ld_du * 4, live("dx")),
+        "row sums and statistics": (pl.st_off, pl.cs_off - pl.st_off,
+                                    live("row_sums", "dv")),
+        "column sums": (pl.cs_off, pl.kp_off - pl.cs_off,
+                        live(*BF16_BWD_PHASES)),
+        "keep of x rows": (pl.kp_off, pl.par_off - pl.kp_off, tile),
+        "weight vectors": (pl.par_off, pl.bar_off - pl.par_off, tile),
+        "mbarriers": (pl.bar_off, pl.smem - pl.bar_off,
+                      live(*BF16_BWD_PHASES)),
+        "sums": (pl.slot_off, 4 * (TAPS + 1) * 128 * 4, live("reduce")),
+    }
+    for i in range(3):
+        bufs[f"slot {i}"] = (pl.slot_off + i * pl.slot, pl.slot, tile)
+    return bufs
+
+
 def a_fragments(w: torch.Tensor) -> torch.Tensor:
     """A (C x C, row-major: k rows, c columns) in the order the float32
     backward's products load it as wgmma's A (csrc: product_to_v): for
@@ -237,10 +343,13 @@ _SIGNATURES = {
     "decoder_block_split": ([_I, _I], _I),
     "decoder_block_taps": ([], _I),
     "decoder_block_f32_bwd_plan": ([_I, _I], _I),
+    "decoder_block_bf16_bwd_plan": ([_I, _I], _I),
+    "decoder_block_bwd_clusters": ([_I], _I),
 }
 
 
 _plans_checked = set()
+_bwd_clusters: Dict[int, int] = {}
 
 
 def _lib():
@@ -263,6 +372,25 @@ def check_f32_bwd_plan(lib, c: int):
         raise RuntimeError("decoder_block: float32 backward tile rows "
                            "disagree with f32_bwd_plan")
     _plans_checked.add(c)
+
+
+def check_bf16_bwd_plan(lib, c: int):
+    """Raise unless the library's bf16 backward (csrc: GeoH) has the plan
+    ``bf16_bwd_plan`` gives: the two are kept in step by hand."""
+    if (c, "bf16") in _plans_checked:
+        return
+    want = bf16_bwd_plan(c)
+    got = tuple(lib.decoder_block_bf16_bwd_plan(c, i)
+                for i in range(len(want)))
+    if got != tuple(want):
+        raise RuntimeError(f"decoder_block: the kernel's bf16 backward "
+                           f"plan at C = {c} is {got}, bf16_bwd_plan says "
+                           f"{tuple(want)}")
+    if (lib.decoder_block_tile_rows(c, 1, 0) != want.owned_rows
+            or lib.decoder_block_split(c, 0) != want.cluster):
+        raise RuntimeError("decoder_block: bf16 backward tile rows or "
+                           "cluster disagree with bf16_bwd_plan")
+    _plans_checked.add((c, "bf16"))
 
 
 def check_supported(channels: int, dtype: torch.dtype):
@@ -301,17 +429,24 @@ def _kernel_args(lib, x, keep, dw_w, dw_b, pw_w, pw_b, ln_s):
 def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
           dev) -> int:
     """Persistent grids: the forward fills every SM with as many blocks as
-    fit on one; the backward puts one block on each SM, in groups of
-    ``split`` blocks that share a tile (bf16: one per 128 columns; float32:
-    one)."""
+    fit on one; the backward puts one block on each SM, at most one a
+    tile: float32 one block a tile, bf16 a cluster of ``split`` blocks
+    (one per 128 columns), as many clusters as the card runs at once."""
     tiles = b * len(owned_tiles(
         m, lib.decoder_block_tile_rows(c, int(backward), f32)))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not backward:
         return max(1, min(tiles,
                           lib.decoder_block_fwd_blocks_per_sm(c, f32) * sms))
-    split = lib.decoder_block_split(c, f32)
-    return split * max(1, min(tiles, sms // split))
+    if f32:
+        return max(1, min(tiles, sms))
+    if c not in _bwd_clusters:
+        with torch.cuda.device(dev):
+            _bwd_clusters[c] = lib.decoder_block_bwd_clusters(c)
+        if _bwd_clusters[c] < 1:
+            raise RuntimeError(f"decoder_block: no cluster of the bf16 "
+                               f"backward fits the card at C = {c}")
+    return lib.decoder_block_split(c, f32) * min(tiles, _bwd_clusters[c])
 
 
 def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
@@ -346,9 +481,10 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
                       eps: float = 1e-5, *, grid: Optional[int] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """→ (dx, d_dw_w, d_dw_b, d_pw_w, d_pw_b, d_ln_s, d_ln_b); the kernel
-    writes one float32 partial of each weight gradient per block group,
-    summed here.  ``grid``: the persistent grid's blocks (a multiple of
-    the split; by default one block an SM, at most one a tile)."""
+    writes one float32 partial of each weight gradient per block (bf16:
+    per cluster), summed here.  ``grid``: the persistent grid's blocks (a
+    multiple of the split; by default one block an SM, at most one
+    block or cluster a tile)."""
     if x.device.type == "cpu":
         return decoder_block_bwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, dy, eps)
@@ -367,6 +503,8 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     if f32:
         check_f32_bwd_plan(lib, c)
         w_io, w_t = a_fragments(w_io), a_fragments(pw_w[:, :, 0])
+    else:
+        check_bf16_bwd_plan(lib, c)
     k = dw_w.shape[2]
     if grid is None:
         grid = _grid(lib, b, m, c, f32, True, dev)

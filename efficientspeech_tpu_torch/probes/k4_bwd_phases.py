@@ -1,20 +1,22 @@
-"""Where K4's float32 backward spends its time, on the card:
+"""Where K4's backward spends its time, on the card:
 
-    python -m efficientspeech_tpu_torch.probes.k4_f32_bwd_phases
+    python -m efficientspeech_tpu_torch.probes.k4_bwd_phases [--dtype bf16]
 
 Builds ``csrc/decoder_block.cu`` once more with ``-DDECODER_BLOCK_STAMPS``
 (into ``build/kernels/``), which makes thread 0 of every block of the
-float32 backward add the ``%globaltimer`` time between the kernel's phase
-stamps to a device array, and runs the backward through that build at
-the training shape (128, 1024, C), C = 128 and 256, with chip_smoke.py's
-inputs.  It prints, per launch, each phase's time summed over a block's
-tiles and averaged over the blocks, its share, and the launch's
-CUDA-event time with and without the stamps, with the card's name and
-power limit.  A phase ends at the barrier after it, so it includes the
-wait for the block's slowest warp.  It needs a card and raises without
+backward (float32 or bf16) add the ``%globaltimer`` time between the
+kernel's phase stamps to a device array, and runs the backward through
+that build at the training shape (128, 1024, C), C = 128 and 256, with
+chip_smoke.py's inputs.  It prints, per launch, each phase's time summed
+over a block's tiles and averaged over the blocks, its share, and the
+launch's CUDA-event time with and without the stamps, with the card's
+name and power limit.  A phase ends at the barrier after it, so it
+includes the wait for the block's slowest warp (in bf16 at C = 256, for
+the other block of its cluster too).  It needs a card and raises without
 one.
 """
 
+import argparse
 import ctypes
 import subprocess
 
@@ -25,10 +27,19 @@ from efficientspeech_tpu_torch.ops.kernels import build
 from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 from efficientspeech_tpu_torch.utils.timing import card, time_ms
 
-PHASES = ("load x", "depthwise + split u", "v = u W (wgmma)",
-          "row pass: t, LayerNorm, dv", "weight gradient (mma.sync)",
-          "split dv", "du = dv W^T (wgmma)", "load x again", "dx and taps",
-          "final sums")
+# the stamps' phases, in the kernel's order, by dtype (csrc: DB_STAMP)
+PHASES = {
+    "f32": ("load x", "depthwise + split u", "v = u W (wgmma)",
+            "row pass: t, LayerNorm, dv", "weight gradient (mma.sync)",
+            "split dv", "du = dv W^T (wgmma)", "load x again",
+            "dx and taps", "final sums"),
+    "bf16": ("masked x rows", "depthwise u", "u to the cluster",
+             "v = u W (wgmma)", "row pass: t, row sums",
+             "dv to the cluster, column sums", "wait for x and dy",
+             "dW and du (wgmma), next loads issued", "du, dx and taps",
+             "final sums"),
+}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 LAUNCHES = 10
 
 
@@ -55,30 +66,36 @@ def _stamped_lib() -> ctypes.CDLL:
     return lib
 
 
-def _inputs(c: int, dev):
+def _inputs(c: int, dt: torch.dtype, dev):
     """chip_smoke.phase_k4's inputs: (128, 1024, c), padded tails."""
     b, m, k = 128, 1024, 5
     gen = torch.Generator(device="cpu").manual_seed(4)
     f = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen) * sd
                                 ).to(dev)
-    x = f(b, m, c)
+    x = f(b, m, c).to(dt)
     lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
     keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
     weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1),
                f(c, c, 1, sd=0.09 * (128 / c) ** 0.5), f(c, sd=0.1),
                1 + f(c, sd=0.2)]
-    return x, keep, weights, f(b, m, c)
+    f(c, sd=0.1)  # chip_smoke's LayerNorm bias, which the backward skips
+    return x, keep, weights, f(b, m, c).to(dt)
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    args = parser.parse_args()
+    dt, phases = DTYPES[args.dtype], PHASES[args.dtype]
+    f32 = int(dt == torch.float32)
     dev = resolve_device(None)
     name = card()
     plain_lib, stamped, lib_fn = k4._lib(), _stamped_lib(), k4._lib
-    sums = (ctypes.c_ulonglong * len(PHASES))()
+    sums = (ctypes.c_ulonglong * len(phases))()
     for c in k4.WIDTHS:
-        x, keep, weights, dy = _inputs(c, dev)
+        x, keep, weights, dy = _inputs(c, dt, dev)
         run = lambda: k4.decoder_block_bwd(x, keep, *weights, dy)
-        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, 1, True, dev)
+        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, f32, True, dev)
         ms_plain, _ = time_ms(run, 20)
         k4._lib = lambda: stamped
         try:
@@ -92,11 +109,11 @@ def main():
             k4._lib = lib_fn
         per = [v / 1e6 / LAUNCHES / grid for v in sums]
         total = sum(per)
-        print(f"[k4 f32 bwd C={c}] kernel_ms {ms_plain:.4f} (stamped "
-              f"{ms_stamped:.4f}), {grid} blocks, phases sum {total:.4f} ms "
-              f"a block | {name}")
-        for phase, ms in zip(PHASES, per):
-            print(f"[k4 f32 bwd C={c}]   {phase}: {ms:.4f} ms "
+        tag = f"k4 {args.dtype} bwd C={c}"
+        print(f"[{tag}] kernel_ms {ms_plain:.4f} (stamped {ms_stamped:.4f}), "
+              f"{grid} blocks, phases sum {total:.4f} ms a block | {name}")
+        for phase, ms in zip(phases, per):
+            print(f"[{tag}]   {phase}: {ms:.4f} ms "
                   f"({100 * ms / total:.1f}%) | {name}")
 
 

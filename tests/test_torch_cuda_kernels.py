@@ -374,6 +374,64 @@ def test_decoder_block_f32_bwd_edges(card, c, case):
     assert not grads[0][keep == 0].any()
 
 
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("case", ["one-frame", "below-one-tile",
+                                  "one-past-owned", "masked-sequence",
+                                  "large-grid", "one-sequence"])
+def test_decoder_block_bf16_bwd_edges(card, c, case):
+    """The bf16 backward (wgmma; a tile over a cluster of C / 128 blocks)
+    at its edges: M = 1, a sequence shorter than one tile, one row past a
+    multiple of the owned rows, a fully masked sequence, a grid of more
+    clusters than tiles, and B = 1 at the training length.  Each output
+    at SNR >= 35 dB against the plain version, dx exactly zero on masked
+    frames, and two launches bit-equal."""
+    k = 5
+    plan = k4.bf16_bwd_plan(c)
+    own = plan.owned_rows
+    b, m, clusters = {"one-frame": (3, 1, None),
+                      "below-one-tile": (3, own // 2, None),
+                      "one-past-owned": (2, 3 * own + 1, None),
+                      "masked-sequence": (3, 2 * own, None),
+                      "large-grid": (2, own + 7, 9),
+                      "one-sequence": (1, 1024, None)}[case]
+    grid = None if clusters is None else clusters * plan.cluster
+    g = torch.Generator(device="cpu").manual_seed(c + m)
+    f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
+    x = f(b, m, c).to(torch.bfloat16)
+    keep = torch.ones(b, m, device=card)
+    keep[0, m - m // 5:] = 0
+    if case == "masked-sequence":
+        keep[1] = 0
+    weights = [f(c, 1, k, s=0.4), f(c, s=0.1),
+               f(c, c, 1, s=0.09 * (128 / c) ** 0.5), f(c, s=0.1),
+               1 + f(c, s=0.2)]
+    dy = f(b, m, c).to(torch.bfloat16)
+    assert clusters is None or clusters > b * -(-m // own)
+    grads = k4.decoder_block_bwd(x, keep, *weights, dy, grid=grid)
+    again = k4.decoder_block_bwd(x, keep, *weights, dy, grid=grid)
+    plain = k4.decoder_block_bwd_plain(x, keep, *weights, dy)
+    torch.cuda.synchronize()
+    names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+    for name, a, a2, w in zip(names, grads, again, plain):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert snr_db(w, a) >= SNR_BAR[torch.bfloat16], name
+        assert torch.equal(a, a2), name
+    assert not grads[0][keep == 0].any()
+
+
+def test_decoder_block_bf16_bwd_plan_matches_kernel(card):
+    """The library's bf16 backward geometry is bf16_bwd_plan's, and at
+    least one of its clusters fits the card."""
+    lib = k4._lib()
+    for c in (128, 256):
+        k4.check_bf16_bwd_plan(lib, c)
+        fields = len(k4.bf16_bwd_plan(c))
+        assert lib.decoder_block_bf16_bwd_plan(c, fields) == -1
+        assert lib.decoder_block_bwd_clusters(c) >= 1
+    assert lib.decoder_block_bf16_bwd_plan(384, 0) == -1
+    assert lib.decoder_block_bwd_clusters(384) == 0
+
+
 def test_decoder_block_f32_bwd_plan_matches_kernel(card):
     """The library's float32 backward geometry is f32_bwd_plan's."""
     lib = k4._lib()

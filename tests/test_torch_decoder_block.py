@@ -250,3 +250,66 @@ def test_f32_bwd_layouts_map_every_element_once(c):
         i = 64 * (q // (c // 32)) + 16 * mt + lane // 4 + 8 * (e // 2)
         o = 32 * (q % (c // 32)) + 8 * nt + 2 * (lane % 4) + e % 2
         assert int(blocks[q, mt, nt, lane, e]) == i * c + o
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bf16_bwd_plan_fits_and_buffers_do_not_overlap(c):
+    """The bf16 backward's shared memory at each width: every buffer lies
+    inside the plan's bytes, which with the 1,024 bytes that align the
+    base fit a block's 227 KB, and no two buffers that are live in the
+    same phase overlap.  A tile is one wgmma M (64 rows) over a cluster
+    of one block per 128 columns; the operand tiles sit on 8 KB
+    boundaries and the slots (and so dy's TMA boxes) on 1 KB ones (the
+    128-byte swizzle needs 1 KB); a slot holds a tile's x rows (two
+    boxes of 64 channels), its dy rows (two swizzled tiles) or t (rows
+    4 banks apart); du fits over u and dv."""
+    pl = k4.bf16_bwd_plan(c)
+    assert pl.smem + 1024 <= k4.SMEM_LIMIT
+    assert pl.tile_rows == 64 and pl.owned_rows == 64 - (K - 1)
+    assert pl.cluster == c // 128 and pl.warpgroups == 2
+    assert pl.w_tiles == 4 * (c // 64) - 4 <= (c // 64) ** 2
+    for off in (pl.u_off, pl.dv_off):
+        assert off % k4.BF16_BWD_TILE == 0
+    assert pl.x_box == (pl.tile_rows + K - 1) * 128 and pl.ld_t // 2 % 32 == 4
+    assert pl.slot >= max(2 * pl.x_box, 2 * k4.BF16_BWD_TILE,
+                          pl.tile_rows * pl.ld_t * 2)
+    assert pl.slot_off % 1024 == 0 and pl.slot % 1024 == 0
+    assert pl.tile_rows * pl.ld_du * 4 <= pl.slot_off - pl.u_off
+    for off in (pl.st_off, pl.cs_off, pl.kp_off, pl.par_off):
+        assert off % 16 == 0
+    assert pl.bar_off % 8 == 0
+    bufs = k4.bf16_bwd_buffers(c)
+    for name, (off, size, phases) in bufs.items():
+        assert 0 <= off and off + size <= pl.smem, name
+        assert phases <= set(k4.BF16_BWD_PHASES), name
+    assert {p for _, _, ph in bufs.values() for p in ph} == set(
+        k4.BF16_BWD_PHASES)
+    names = sorted(bufs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            (oa, sa, pa), (ob, sb, pb) = bufs[a], bufs[b]
+            if pa & pb:
+                assert oa + sa <= ob or ob + sb <= oa, (a, b)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("m", [1, 5, 59, 60, 61, 119, 120, 121, 1000,
+                               1024])
+def test_bf16_bwd_tiles_cover_every_frame_once(c, m):
+    """The owned rows of the bf16 backward's tiles cover a sequence of any
+    length exactly once: below one tile, at a multiple of the owned rows
+    and one row past it, and at the training length."""
+    pl = k4.bf16_bwd_plan(c)
+    tiles = k4.owned_tiles(m, pl.owned_rows)
+    assert len(tiles) == -(-m // pl.owned_rows)
+    covered = np.zeros(m, int)
+    for m0, rows in tiles:
+        assert 0 < rows <= pl.owned_rows
+        covered[m0:m0 + rows] += 1
+    assert (covered == 1).all()
+
+
+def test_bf16_bwd_plan_refuses_other_widths():
+    for c in (64, 192, 384):
+        with pytest.raises(ValueError, match="no bf16 backward plan"):
+            k4.bf16_bwd_plan(c)
