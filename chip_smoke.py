@@ -10,8 +10,8 @@ Phases (each prints its lines; any failure exits non-zero):
                and prints the registers and spills (-Xptxas -v) of the
                kernels of folded_matmul.cu, mrf_block.cu and
                decoder_block.cu (a spill or a serialised wgmma in
-               mrf_block.cu or in either of K4's backward kernels fails
-               the phase);
+               mrf_block.cu, in either of K4's backward kernels or in its
+               float32 forward fails the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
@@ -38,7 +38,8 @@ Phases (each prints its lines; any failure exits non-zero):
   8. K4      - decoder_block_fused forward and backward at (128, 1024, C)
                with about 1/6 of the frames masked, the same way, for
                C = 128 (tiny) and C = 256 (small, base), in bf16 and in
-               float32 (each backward with its tile plan);
+               float32 (each backward, and the float32 forward, with its
+               tile plan);
   9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
@@ -75,14 +76,15 @@ Tolerances: the bf16 kernels multiply in bf16 with float32 accumulation
 (the TPU's MXU arithmetic) while the plain versions multiply in float32,
 so each is held to its plain version at SNR >= 35 dB (the bar the JAX
 package's own folded-vocoder test sets), and rows at or beyond `valid`
-must be exactly zero.  The end-to-end waveform of the bf16 kernel route is
-held to the plain route's (bf16 operands, float32 products) at SNR >= 30
-dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
+must be exactly zero; K2 bf16 and K4's bf16 backward are also held to a
+regression floor a few dB under the figures the card gives them.  The
+end-to-end waveform of the bf16 kernel route is held to the plain route's
+(bf16 operands, float32 products) at SNR >= 30 dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
 TPU kernels op for op in bf16) at SNR >= 35 dB on every output: y, dx and
 each weight gradient.  The float32 variants keep float32 accuracy (K1 and
 K2 by 3xTF32 split products on the tensor cores, about 21 bits a
-product, and K4's float32 backward likewise; K3 and K4's float32
-forward on the CUDA cores), their plain versions
+product, and K4's float32 forward and backward likewise; K3 on the CUDA
+cores), their plain versions
 multiply in float32, in another summation order: each output is held at
 SNR >= 90 dB (one TF32 or bf16 product would land below it), the float32
 waveform at 80 dB.  K5's int32 sums are exact in the kernel and
@@ -121,6 +123,19 @@ E2E_SNR_DB = 30.0
 # the float32 variants: float32 sums in another order land at 110 dB or
 # more; TF32 or bf16 products would land near the bf16 figures (54-95 dB)
 F32_KERNEL_SNR_DB = 90.0
+# regression floors of two bf16 kernels, about 6 dB under what the card
+# gives them (NVIDIA H100 80GB HBM3; this script): K2 68.0-68.2 dB a stage;
+# K4's backward by width and output, C = 128 / 256: dx 81.0 / 77.4,
+# d_dw_w 90.6 / 87.6, d_dw_b 95.7 / 92.7, d_pw_w 90.9 / 87.8, d_pw_b
+# 105.9 / 100.8, d_ln_s 98.9 / 94.2, d_ln_b 132.8 / 134.5.  A build whose
+# compiler contracted the depthwise's bf16 multiply and add gave K4
+# 46-58 dB
+K2_BF16_FLOOR_DB = 62.0
+K4_BF16_BWD_FLOOR_DB = {
+    128: {"dx": 75.0, "d_dw_w": 84.0, "d_dw_b": 89.0, "d_pw_w": 84.0,
+          "d_pw_b": 99.0, "d_ln_s": 92.0, "d_ln_b": 126.0},
+    256: {"dx": 71.0, "d_dw_w": 81.0, "d_dw_b": 86.0, "d_pw_w": 81.0,
+          "d_pw_b": 94.0, "d_ln_s": 88.0, "d_ln_b": 128.0}}
 F32_E2E_SNR_DB = 80.0
 K5_REL_ERR = 1e-6
 # the training shape: train.py's defaults
@@ -164,6 +179,18 @@ DESIGNS = {
                   "LayerNorm sums by st.async, mbarrier-signalled), so no "
                   "tile's u, v, t or dv is computed twice; each block "
                   "keeps its 256 x 128 weight gradient in registers",
+    "k4_fwd_128_f32": "Hopper redesign: 3xTF32 split products on the "
+                      "tensor cores; v transposed on wgmma (W in A-fragment "
+                      "order from L2 through registers, the split rows of u "
+                      "as K-major B, 64 rows as N); u by a window sliding "
+                      "down each column; v's rows over the split buffer, "
+                      "the row pass from them; the next tile's x rows by "
+                      "cp.async during the product and row pass; two "
+                      "blocks an SM; tile plan in Python",
+    "k4_fwd_256_f32": "Hopper redesign: as C = 128, each block's k loop "
+                      "from its own step, a warpgroup's two m-blocks held in "
+                      "registers until the split buffer is free; one block "
+                      "an SM; tile plan in Python",
     "k4_bwd_128_f32": "Hopper redesign: 3xTF32 split products on the "
                       "tensor cores; v and du transposed on wgmma (W and W^T "
                       "in A-fragment order from L2 through registers, the "
@@ -271,9 +298,11 @@ def phase_device() -> str:
 # the sources whose registers and spills the build phase prints, and, by
 # source, a pattern of the kernels where a spill or a serialised wgmma
 # fails the phase (decoder_block.cu's wgmmas are its two backward
-# kernels', bf16 and float32; its forward kernels are not held to it)
+# kernels', bf16 and float32, and its float32 forward's; the bf16 forward
+# is not held to it)
 PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block")
-PTXAS_STRICT = {"mrf_block": "", "decoder_block": "bwd_(f32_)?kernel"}
+PTXAS_STRICT = {"mrf_block": "",
+                "decoder_block": "bwd_(f32_)?kernel|fwd_f32_kernel"}
 
 
 def ptxas_lines(log: str):
@@ -453,8 +482,9 @@ def phase_k2(synth, card: str):
             fail(f"{tag} stage {stage}: non-finite output")
         if got[valid_rows:].any():
             fail(f"{tag} stage {stage}: rows at or beyond valid are not zero")
-        if snr < bar:
-            fail(f"{tag} stage {stage}: SNR {snr:.1f} dB < {bar} dB")
+        need = bar if dt == torch.float32 else max(bar, K2_BF16_FLOOR_DB)
+        if snr < need:
+            fail(f"{tag} stage {stage}: SNR {snr:.1f} dB < {need} dB")
         ms, host_ms = time_ms(lambda: mrf_block.mrf_fused(
             x, chains, W_all, b_all, H, valid, nk), 20)
         plain_ms, _ = time_ms(lambda: mrf_block.mrf_fused_plain(
@@ -472,7 +502,7 @@ def phase_k2(synth, card: str):
             tile = (f"tile {pl.tm}, slots {pl.slots}, N chunks "
                     f"{'/'.join(','.join(map(str, c)) for c in pl.chunks)}")
         print(f"[{tag}] stage {stage}: T {t} x 128, halo {H}, {tile} "
-              f"| {flops / 1e9:.1f} GFLOP | SNR {snr:.1f} dB (tol >= {bar}) "
+              f"| {flops / 1e9:.1f} GFLOP | SNR {snr:.1f} dB (tol >= {need}) "
               f"max_abs_err {err:.3g} | kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} library_ms null bound_ms {b_ms:.4f} ({by})"
               f"{ffma_note(ffma_ms)} | achieved {flops / ms / 1e9:.1f} "
@@ -605,9 +635,12 @@ def phase_profile(synth, card: str):
           f"long request {dname(synth.dtype)}", card)
 
 
-def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB):
+def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB,
+               floors=None):
     """Fail unless every (name, kernel, plain) output is finite and holds
-    its plain version at ``bar`` dB; returns the worst max-abs error."""
+    its plain version at ``bar`` dB, and at its regression floor
+    ``floors[name]`` where ``floors`` names one; returns the worst
+    max-abs error."""
     worst = 0.0
     for name, got, want in pairs:
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -618,10 +651,12 @@ def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB):
         snr = snr_db(want, got)
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
-        print(f"[{tag}] {name}: SNR {snr:.1f} dB (tol >= {bar}) "
-              f"max_abs_err {err:.3g} | {card}")
-        if snr < bar:
-            fail(f"{tag} {name}: SNR {snr:.1f} dB < {bar} dB")
+        floor = (floors or {}).get(name, 0.0)
+        floor_note = f", floor {floor}" if floor else ""
+        print(f"[{tag}] {name}: SNR {snr:.1f} dB (tol >= {bar}"
+              f"{floor_note}) max_abs_err {err:.3g} | {card}")
+        if snr < max(bar, floor):
+            fail(f"{tag} {name}: SNR {snr:.1f} dB < {max(bar, floor)} dB")
     return worst
 
 
@@ -717,6 +752,8 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     dy = f(b, m, c).to(dt)
     print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
+    if dt == torch.float32:
+        print(f"[{tag} fwd] {k4.f32_fwd_plan(c)} | {card}")
     plan = k4.f32_bwd_plan(c) if dt == torch.float32 else k4.bf16_bwd_plan(c)
     print(f"[{tag} bwd] {plan} | {card}")
     err_f = _snr_check(f"{tag} fwd", [(
@@ -726,7 +763,7 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "d_dw_w", "d_dw_b", "d_pw_w", "d_pw_b", "d_ln_s", "d_ln_b"),
         grads, k4.decoder_block_bwd_plain(x, keep, *weights[:5], dy)), card,
-        bar)
+        bar, None if dt == torch.float32 else K4_BF16_BWD_FLOOR_DB[c])
     torch.cuda.synchronize()
     if grads[0][keep == 0].any():
         fail(f"{tag} bwd: dx is not zero on masked frames")

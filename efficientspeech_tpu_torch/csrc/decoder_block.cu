@@ -106,6 +106,7 @@ namespace {
 constexpr int K = 5;
 constexpr int PAD = K / 2;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
+constexpr size_t SM_SMEM = 233472;     // shared memory of an SM (228 KB)
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
@@ -356,9 +357,9 @@ __global__ void __launch_bounds__(Geo<C>::FWD_WARPS * 32, Geo<C>::FWD_BLOCKS)
 }
 
 // Phase stamps for probes/k4_bwd_phases.py: built with
-// -DDECODER_BLOCK_STAMPS, thread 0 of every block of a backward kernel
-// adds the %globaltimer time between consecutive stamps to
-// db_stamps[phase]; compiled out otherwise.
+// -DDECODER_BLOCK_STAMPS, thread 0 of every block of a backward kernel or
+// of the float32 forward adds the %globaltimer time between consecutive
+// stamps to db_stamps[phase]; compiled out otherwise.
 #ifdef DECODER_BLOCK_STAMPS
 constexpr int N_STAMPS = 10;
 __device__ unsigned long long db_stamps[N_STAMPS];
@@ -1138,261 +1139,17 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The float32 variant (x, y, dx, dy float32).  Nothing is rounded to bf16.
+// The float32 variant (x, y, dx, dy float32; nothing is rounded to bf16),
+// forward and backward on the tensor cores.  The backward (GeoB) comes
+// first: the forward (GeoF, below) runs its front half, and shares its
+// functions.
 //
-// The forward takes float32 operands into float32 sums on the CUDA cores
-// (FFMA), as the TPU kernel's Precision.HIGHEST float32 route does.  What
-// bounds it: operations, 2 N C^2 FLOP a pass (N = B M rows), 4.3 GFLOP at
-// C = 128 and 17.2 at C = 256, against 67 TFLOP/s of float32.  The float32
-// W is 64 KB at C = 128 and 256 KB at C = 256, more than a block has, so
-// the product streams W from L2 through shared memory in panels of 2,048
-// floats (16 rows at C = 128, 8 at C = 256), double-buffered through
-// registers.  Tiles are R = 64 rows: the block holds the masked input
-// (then v) and u.  Each thread owns RM x 8 outputs of the R x C product
-// (rows 4 apart, two runs of 4 columns 32 apart), so a warp's operand
-// reads are broadcasts or conflict-free 128-byte rows.  The backward
-// (GeoB, below) runs its three products on the tensor cores.
-//
-// Numerics: the depthwise taps are summed in tap order with separate
-// multiplies and adds (__fmul_rn, __fadd_rn), exactly as _recompute_to_t's
-// float32 arithmetic; the products' summation order and tanhf differ from
-// the plain version's, so the kernel is held to it by SNR.
-
-template <int C_>
-struct GeoF {
-  static constexpr int C = C_;
-  static constexpr int R = 64;                 // rows of u per tile
-  static constexpr int NT = 256, NW = NT / 32;
-  static constexpr int LD = C + 4;             // float32 row stride
-  static constexpr int XROWS = R + 2 * PAD;
-  static constexpr int FWD_OWN = R;
-  static constexpr int KP = 2048 / C;          // weight rows per panel
-  // R x C products: RM rows x 8 columns a thread, warps of 4 x 8 threads
-  static constexpr int RM = C == 128 ? 4 : 8;
-  static constexpr int WCOLS = C / 64;         // warps along the columns
-  static constexpr int GROUPS = NT / C;        // row groups of a column
-  static constexpr size_t XS_BYTES = align128((size_t)XROWS * LD * 4);
-  static constexpr size_t RS_BYTES = align128((size_t)R * LD * 4);
-  static constexpr size_t PANEL_BYTES = 2 * (size_t)KP * C * 4;
-  static constexpr size_t FWD_SMEM = XS_BYTES + RS_BYTES + PANEL_BYTES;
-  static constexpr int FWD_BLOCKS = C == 128 ? 2 : 1;
-  static_assert(NW / WCOLS * 4 * RM == R, "product rows split over warps");
-  static_assert(R % GROUPS == 0, "rows split evenly");
-  static_assert(FWD_SMEM * FWD_BLOCKS <= SMEM_LIMIT, "forward smem");
-};
-
-// xs row i <- x[b, u0 - PAD + i] * keep, zero outside [0, M)
-template <class G>
-__device__ void load_x_f32(const float* __restrict__ x,
-                           const float* __restrict__ keep, int b, int u0,
-                           int M, float* xs) {
-  constexpr int CH = G::C / 4;
-  for (int i = threadIdx.x; i < G::XROWS * CH; i += blockDim.x) {
-    const int r = i / CH, c4 = i - r * CH;
-    const int g = u0 - PAD + r;
-    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g >= 0 && g < M) {
-      const size_t row = (size_t)b * M + g;
-      q = reinterpret_cast<const float4*>(x + row * G::C)[c4];
-      const float kp = keep[row];
-      q.x *= kp; q.y *= kp; q.z *= kp; q.w *= kp;
-    }
-    *reinterpret_cast<float4*>(xs + r * G::LD + c4 * 4) = q;
-  }
-}
-
-// u rows [r0, r1) of column c, the taps summed in tap order
-template <class G>
-__device__ void depthwise_f32(const float* xs, float* us,
-                              const float* __restrict__ dww,
-                              const float* __restrict__ dwb, int c, int r0,
-                              int r1) {
-  float wt[K];
-#pragma unroll
-  for (int tap = 0; tap < K; ++tap) wt[tap] = dww[tap * G::C + c];
-  const float bb = dwb[c];
-  for (int r = r0; r < r1; ++r) {
-    float acc = __fmul_rn(xs[r * G::LD + c], wt[0]);
-#pragma unroll
-    for (int tap = 1; tap < K; ++tap)
-      acc = __fadd_rn(acc, __fmul_rn(xs[(r + tap) * G::LD + c], wt[tap]));
-    us[r * G::LD + c] = __fadd_rn(acc, bb);
-  }
-}
-
-// The thread's place in an R x C product: rows row0 + 4 i (i < RM),
-// columns col0 + 32 g + j (g < 2, j < 4).
-template <class G>
-__device__ __forceinline__ void mm_place(int& row0, int& col0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  row0 = (warp / G::WCOLS) * 4 * G::RM + (lane >> 3);
-  col0 = (warp % G::WCOLS) * 64 + 4 * (lane & 7);
-}
-
-// acc <- a (R x C, shared, stride LD) @ bm (C x C row-major, device
-// memory), bm streamed through `panel` (2 x KP x C floats).  Starts and
-// ends with a barrier: the caller's writes of `a` are visible, and every
-// thread is done with the panels (and with whatever it read before the
-// call) when it returns.
-template <class G>
-__device__ void mm_f32(const float* a, const float* __restrict__ bm,
-                       float* panel, float (&acc)[G::RM][8]) {
-  constexpr int C = G::C, KP = G::KP, NP = C / KP;
-  constexpr int PER = KP * C / 4 / G::NT;  // float4 a thread per panel
-  static_assert(PER * 4 * G::NT == KP * C, "panel split over threads");
-  const int tid = threadIdx.x;
-  int row0, col0;
-  mm_place<G>(row0, col0);
-#pragma unroll
-  for (int i = 0; i < G::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const float4* b4 = reinterpret_cast<const float4*>(bm);
-  float4* p4 = reinterpret_cast<float4*>(panel);
-  float4 pf[PER];
-#pragma unroll
-  for (int q = 0; q < PER; ++q) p4[tid + q * G::NT] = b4[tid + q * G::NT];
-  __syncthreads();
-  for (int p = 0; p < NP; ++p) {
-    const float* cur = panel + (p & 1) * KP * C;
-    if (p + 1 < NP) {
-#pragma unroll
-      for (int q = 0; q < PER; ++q)
-        pf[q] = b4[(p + 1) * (KP * C / 4) + tid + q * G::NT];
-    }
-#pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      const float4 b0 = *reinterpret_cast<const float4*>(cur + kk * C + col0);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(cur + kk * C + col0 + 32);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < G::RM; ++i) {
-        const float av = a[(row0 + 4 * i) * G::LD + p * KP + kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-      }
-    }
-    if (p + 1 < NP) {
-      float4* nxt = p4 + ((p + 1) & 1) * (KP * C / 4);
-#pragma unroll
-      for (int q = 0; q < PER; ++q) nxt[tid + q * G::NT] = pf[q];
-    }
-    __syncthreads();
-  }
-}
-
-// out (R x C, shared, stride LD) <- the thread's part of a product
-template <class G>
-__device__ __forceinline__ void store_rows(const float (&acc)[G::RM][8],
-                                           float* out) {
-  int row0, col0;
-  mm_place<G>(row0, col0);
-#pragma unroll
-  for (int i = 0; i < G::RM; ++i)
-#pragma unroll
-    for (int g = 0; g < 2; ++g)
-      *reinterpret_cast<float4*>(out + (row0 + 4 * i) * G::LD + col0 +
-                                 32 * g) =
-          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
-                      acc[i][4 * g + 3]);
-}
-
-// t of one row from v, and its LayerNorm statistics, over the lane's
-// columns: t = tanh(v + pb)
-template <int C>
-__device__ __forceinline__ void row_t_f32(const float* v_row, int lane,
-                                          const float* pb, float* t,
-                                          float eps, float& mean,
-                                          float& rstd) {
-  constexpr int CH = C / 128;
-  float s = 0.f;
-#pragma unroll
-  for (int h = 0; h < CH; ++h) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(v_row + h * 128 + lane * 4);
-    const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      t[h * 4 + i] = tanhf(vv[i] + pb[h * 4 + i]);
-      s += t[h * 4 + i];
-    }
-  }
-  mean = warp_sum(s) / C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4 * CH; ++i) {
-    const float d = t[i] - mean;
-    q += d * d;
-  }
-  rstd = 1.f / sqrtf(warp_sum(q) / C + eps);
-}
-
-template <int C>
-__global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
-    decoder_block_fwd_f32_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ keep,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ dww,
-                                 const float* __restrict__ dwb,
-                                 const float* __restrict__ pwb,
-                                 const float* __restrict__ lns,
-                                 const float* __restrict__ lnb,
-                                 float* __restrict__ y, int B, int M,
-                                 float eps) {
-  using G = GeoF<C>;
-  constexpr int NW = G::NW, CH = C / 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // masked input, then v
-  float* us = reinterpret_cast<float*>(smem + G::XS_BYTES);
-  float* panel = reinterpret_cast<float*>(smem + G::XS_BYTES + G::RS_BYTES);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int GROWS = G::R / G::GROUPS;
-  const int c = tid % C, grp = tid / C;
-  float pb[4 * CH], s[4 * CH], sb[4 * CH];
-  lane_cols<G>(pwb, lane, pb);
-  lane_cols<G>(lns, lane, s);
-  lane_cols<G>(lnb, lane, sb);
-
-  const int tiles_m = (M + G::FWD_OWN - 1) / G::FWD_OWN;
-  for (int tile = blockIdx.x; tile < B * tiles_m; tile += gridDim.x) {
-    const int b = tile / tiles_m;
-    const int u0 = (tile - b * tiles_m) * G::FWD_OWN;
-    load_x_f32<G>(x, keep, b, u0, M, xs);
-    __syncthreads();
-    depthwise_f32<G>(xs, us, dww, dwb, c, grp * GROWS, (grp + 1) * GROWS);
-    {
-      float acc[G::RM][8];
-      mm_f32<G>(us, w, panel, acc);
-      store_rows<G>(acc, xs);  // xs is past its last read
-    }
-    __syncthreads();
-    for (int r = warp; r < G::R && u0 + r < M; r += NW) {
-      float t[4 * CH], mean, rstd;
-      row_t_f32<C>(xs + r * G::LD, lane, pb, t, eps, mean, rstd);
-#pragma unroll
-      for (int i = 0; i < 4 * CH; ++i)
-        t[i] = (t[i] - mean) * rstd * s[i] + sb[i];
-#pragma unroll
-      for (int h = 0; h < CH; ++h)
-        *reinterpret_cast<float4*>(y + ((size_t)b * M + u0 + r) * C +
-                                   h * 128 + lane * 4) =
-            make_float4(t[h * 4], t[h * 4 + 1], t[h * 4 + 2], t[h * 4 + 3]);
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The float32 backward on the tensor cores.
-//
-// What bounds it: operations.  Three C x C products a row, v = u W (the
-// recomputed forward), the weight gradient u^T dv and du = dv W^T: 6 N C^2
-// FLOP a pass, 51.5 GFLOP at N = 131,072 and C = 256.  Each runs by 3xTF32
-// split products (csrc/tf32x3.cuh: three TF32 products a float32 one,
-// about 21 bits each, nothing rounded to plain TF32), 1.88 ms of
-// tensor-core time at C = 256 against 4.80 of FFMA.
+// The float32 backward.  What bounds it: operations.  Three C x C products
+// a row, v = u W (the recomputed forward), the weight gradient u^T dv and
+// du = dv W^T: 6 N C^2 FLOP a pass, 51.5 GFLOP at N = 131,072 and C = 256.
+// Each runs by 3xTF32 split products (csrc/tf32x3.cuh: three TF32
+// products a float32 one, about 21 bits each, nothing rounded to plain
+// TF32), 1.88 ms of tensor-core time at C = 256 against 4.80 of FFMA.
 //
 // Per tile of R rows (R = 16384 / C: 128 at C = 128, 64 at C = 256), of
 // which the inner OWN = R - 4 are the tile's own:
@@ -1435,10 +1192,12 @@ __global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
 // PERF.md: at C = 256 the weight gradient's mma.sync and its partial's
 // traffic first, then the two products' A loads from L2.
 //
-// Numerics: the depthwise taps as the forward's; the row pass is the
-// forward's tanh and LayerNorm with their gradients in float32; products
-// by 3xTF32, the small terms first.  Held to the plain version at SNR >=
-// 90 dB.
+// Numerics: the depthwise taps are summed in tap order with separate
+// multiplies and adds (__fmul_rn, __fadd_rn), exactly as
+// _recompute_to_t's float32 arithmetic; the row pass is the forward's tanh
+// and LayerNorm with their gradients in float32; products by 3xTF32, the
+// small terms first.  tanhf and the order of the float32 sums differ from
+// the plain version's: held to it at SNR >= 90 dB.
 
 template <int C_>
 struct GeoB {
@@ -1536,9 +1295,9 @@ __device__ __forceinline__ void put_split(unsigned char* smem, int r, int c4,
 }
 
 // u of the tile's R rows from the masked x rows xs (stride LD), the taps
-// summed in tap order as depthwise_f32, split into S.  A lane takes a row
-// and 4 channels; a warp's lanes take consecutive rows, so its 16-byte
-// stores into S meet every bank.
+// summed in tap order with separate multiplies and adds, split into S.  A
+// lane takes a row and 4 channels; a warp's lanes take consecutive rows,
+// so its 16-byte stores into S meet every bank.
 template <class G>
 __device__ void depthwise_split(const float* xs, const float* par,
                                 unsigned char* smem) {
@@ -1564,61 +1323,148 @@ __device__ void depthwise_split(const float* xs, const float* par,
   }
 }
 
-// V[r, c] <- sum_k S[r, k] w_op[k, c] over the tile's R rows: w_op is W
-// (C_in, C_out) for v and W^T (C_out, C_in) for du.  Runs transposed on
-// wgmma, this warpgroup's MB m-blocks of 64 output channels in turn; A
-// (w_op^T) from L2 through registers, split there; B the split rows of S.
+// u of the tile's R rows from the masked x rows xs (stride LD), the taps
+// summed in tap order with separate multiplies and adds, split into S,
+// sliding a window of K x rows down a column: thread (q, c4) takes
+// channels 4 c4 .. 4 c4 + 3 of rows q RW .. q RW + RW - 1, so it reads each
+// x row of them once.  A warp's lanes take consecutive c4: their loads are
+// one 512-byte row, and their 16-byte stores meet every bank when a chunk
+// of S is 16 bytes past a multiple of 128 (R_ALLOC = R + 1).
+template <class G>
+__device__ void depthwise_window(const float* xs, const float* par,
+                                 unsigned char* smem) {
+  constexpr int C4 = G::C / 4, RW = G::R * C4 / G::NT;
+  static_assert(RW * G::NT == G::R * C4, "rows split evenly");
+  static_assert(G::CHUNK % 128 == 16, "a warp's stores meet every bank");
+  const int c4 = threadIdx.x % C4, r0 = threadIdx.x / C4 * RW;
+  const float4* w4 = reinterpret_cast<const float4*>(par);
+  float4 wt[K];
+#pragma unroll
+  for (int tap = 0; tap < K; ++tap) wt[tap] = w4[tap * C4 + c4];
+  const float4 bb = w4[K * C4 + c4];
+  const float* xc = xs + r0 * G::LD + 4 * c4;
+  float4 xw[K];
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j)
+    xw[j] = *reinterpret_cast<const float4*>(xc + j * G::LD);
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    xw[K - 1] = *reinterpret_cast<const float4*>(xc + (r + K - 1) * G::LD);
+    float4 acc =
+        make_float4(__fmul_rn(xw[0].x, wt[0].x), __fmul_rn(xw[0].y, wt[0].y),
+                    __fmul_rn(xw[0].z, wt[0].z), __fmul_rn(xw[0].w, wt[0].w));
+#pragma unroll
+    for (int tap = 1; tap < K; ++tap) acc = tap_add(acc, xw[tap], wt[tap]);
+    put_split<G>(smem, r0 + r, c4,
+                 make_float4(__fadd_rn(acc.x, bb.x), __fadd_rn(acc.y, bb.y),
+                             __fadd_rn(acc.z, bb.z), __fadd_rn(acc.w, bb.w)));
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) xw[j] = xw[j + 1];
+  }
+}
+
+// This warpgroup's m-block mb of V[r, c] = sum_k S[r, k] w_op[k, c] over
+// the tile's R rows into acc: w_op is W (C_in, C_out) for v and W^T
+// (C_out, C_in) for du.  Runs transposed on wgmma: A (w_op^T, 64 output
+// channels) from L2 through registers, split there; B the split rows of S.
 // w_op comes in A's fragment order (decoder_block.py::a_fragments): for
 // m-block m, warp q, k-step s, lane 4 g + t, the four values w_op[8 s + t,
 // c], w_op[8 s + t, c + 1], w_op[8 s + t + 4, c], w_op[8 s + t + 4, c + 1]
 // (c = 64 m + 16 q + 2 g) are one 16-byte load.  Returns with this
-// warpgroup's products complete and stored.
+// warpgroup's products complete.
 template <class G>
-__device__ void product_to_v(const float* __restrict__ w_op,
-                             unsigned char* smem) {
+__device__ __forceinline__ void product_block(const float* __restrict__ w_op,
+                                              const unsigned char* smem,
+                                              int mb, float (&acc)[G::R / 2]) {
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int lane = tid & 31;
   constexpr int NS = G::C / 8;  // k-steps
   const uint32_t b_hi = sm90::smem_u32(smem);
   const uint64_t d_hi = tf32x3::desc(b_hi, G::CHUNK),
                  d_lo = tf32x3::desc(b_hi + G::LO_OFF, G::CHUNK);
-  float* V = reinterpret_cast<float*>(smem + G::V_OFF);
   const int rot = G::ROTATE ? (blockIdx.x * 5) % NS : 0;
+  const float4* wa = reinterpret_cast<const float4*>(w_op) +
+                     (size_t)((wg * G::MB + mb) * 4 + warp) * NS * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < G::R / 2; ++i) acc[i] = 0.f;
+  tf32x3::k_loop<G::KL_PD, G::KL_RING>(
+      NS,
+      [&](int s, float (&r)[4]) {  // k rows 8 s + t, 8 s + t + 4
+        const float4 a = __ldg(wa + 32 * ((s + rot) % NS));
+        r[0] = a.x;
+        r[1] = a.y;
+        r[2] = a.z;
+        r[3] = a.w;
+      },
+      [&](int s, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
+        s = (s + rot) % NS;
+        // channels 8 s .. 8 s + 7: chunk 2 s, in 16-byte units
+        const uint32_t k = 2 * s * G::R_ALLOC;
+        tf32x3::mma3<G::R>(acc, hi, lo, d_hi + k, d_lo + k, 1);
+      });
+#pragma unroll
+  for (int i = 0; i < G::R / 2; ++i) sm90::reg_fence(acc[i]);
+}
+
+// V's rows (stride LDV) <- m-block mb of product_block: A's rows g and g +
+// 8 of warp q's 16 are output channels ca and ca + 1 (ca = 64 m + 16 q +
+// 2 g), so acc[4 j + 2 h + e] is channel ca + h of row 8 j + 2 t + e.
+template <class G>
+__device__ __forceinline__ void store_block(const float (&acc)[G::R / 2],
+                                            int mb, float* V) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ca = 64 * (wg * G::MB + mb) + 16 * warp + 2 * g;
+#pragma unroll
+  for (int j = 0; j < G::R / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float2*>(V + (8 * j + 2 * t + e) * G::LDV + ca) =
+          make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+}
+
+// V <- S w_op over the tile's R rows, this warpgroup's MB m-blocks of 64
+// output channels in turn
+template <class G>
+__device__ void product_to_v(const float* __restrict__ w_op,
+                             unsigned char* smem) {
+  float* V = reinterpret_cast<float*>(smem + G::V_OFF);
 #pragma unroll 1
   for (int mb = 0; mb < G::MB; ++mb) {
-    // A's rows g and g + 8 of the warp's 16 are output channels ca and
-    // ca + 1
-    const int ca = 64 * (wg * G::MB + mb) + 16 * warp + 2 * g;
-    const float4* wa = reinterpret_cast<const float4*>(w_op) +
-                       (size_t)((wg * G::MB + mb) * 4 + warp) * NS * 32 + lane;
     float acc[G::R / 2];
-#pragma unroll
-    for (int i = 0; i < G::R / 2; ++i) acc[i] = 0.f;
-    tf32x3::k_loop<G::KL_PD, G::KL_RING>(
-        NS,
-        [&](int s, float (&r)[4]) {  // k rows 8 s + t, 8 s + t + 4
-          const float4 a = __ldg(wa + 32 * ((s + rot) % NS));
-          r[0] = a.x;
-          r[1] = a.y;
-          r[2] = a.z;
-          r[3] = a.w;
-        },
-        [&](int s, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
-          s = (s + rot) % NS;
-          // channels 8 s .. 8 s + 7: chunk 2 s, in 16-byte units
-          const uint32_t k = 2 * s * G::R_ALLOC;
-          tf32x3::mma3<G::R>(acc, hi, lo, d_hi + k, d_lo + k, 1);
-        });
-#pragma unroll
-    for (int i = 0; i < G::R / 2; ++i) sm90::reg_fence(acc[i]);
-    // acc[4 j + 2 h + e] is channel ca + h of row 8 j + 2 t + e
-#pragma unroll
-    for (int j = 0; j < G::R / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        *reinterpret_cast<float2*>(V + (8 * j + 2 * t + e) * G::LDV + ca) =
-            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+    product_block<G>(w_op, smem, mb, acc);
+    store_block<G>(acc, mb, V);
   }
+}
+
+// t of one row from v, and its LayerNorm statistics, over the lane's
+// columns: t = tanh(v + pb)
+template <int C>
+__device__ __forceinline__ void row_t_f32(const float* v_row, int lane,
+                                          const float* pb, float* t,
+                                          float eps, float& mean,
+                                          float& rstd) {
+  constexpr int CH = C / 128;
+  float s = 0.f;
+#pragma unroll
+  for (int h = 0; h < CH; ++h) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(v_row + h * 128 + lane * 4);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t[h * 4 + i] = tanhf(vv[i] + pb[h * 4 + i]);
+      s += t[h * 4 + i];
+    }
+  }
+  mean = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4 * CH; ++i) {
+    const float d = t[i] - mean;
+    q += d * d;
+  }
+  rstd = 1.f / sqrtf(warp_sum(q) / C + eps);
 }
 
 // D (16 x 8, float32) += A (16 x 8, TF32) B (8 x 8, TF32) for one warp:
@@ -1976,6 +1822,196 @@ __global__ void __launch_bounds__(GeoB<C>::NT, 1)
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// The float32 forward on the tensor cores (GeoF, C = 128 and 256).
+//
+// What bounds it: at C = 256 operations, the C x C product by 3xTF32
+// (three TF32 products a float32 one): 2 N C^2 FLOP a pass, 17.2 GFLOP at
+// N = B M = 131,072, 0.104 ms of tensor-core time; at C = 128 bytes, x
+// read and y written once, 134 MB, 0.040 ms at 3.35 TB/s (the products
+// 0.026 ms).  The design is the backward's front half; it shares the x
+// rows' load (load_x_async), the split stores (put_split), the product
+// (product_block, store_block) and t's row statistics (row_t_f32):
+// - Tiles of R = 64 rows, every row the tile's own: u of a row needs x of
+//   its two neighbours on each side, so a tile reads R + 4 rows of x.
+//   Rows of u at or beyond M are computed from zeros and not written.
+// - u by depthwise_window: a thread slides a window of 5 x rows down a
+//   column of 4 channels, so it reads each x row once (depthwise_split,
+//   the backward's, reads 5 for every row of u and is bound by
+//   shared-memory bandwidth), and splits u into hi and lo copies in shared
+//   memory (S), in chunks of R + 1 rows, so a warp's stores, a lane a
+//   chunk, meet every bank.
+// - v^T = W^T u^T on wgmma.m64n64k8 (product_block): M the output
+//   channels, 64 a warpgroup per m-block; N the tile's rows in one
+//   instruction; K the input channels.  A is W in A-fragment order from
+//   L2 through registers, split there; at C = 256 each block starts its k
+//   loop at its own step.  B is S.  At N = 64 the k loop is bound by A's
+//   loads from L2 (about half the TF32 peak, probes/tf32_wgmma.py); a
+//   tile of 128 rows, which would nearly double that, does not fit at
+//   C = 256 and is slower at C = 128 (one block an SM instead of two).
+// - A warpgroup holds all its m-blocks' accumulators until both
+//   warpgroups are done with S; v's float32 rows then go over S (V, 4
+//   banks a row, so the stores meet every bank), and the row pass (four
+//   rows a warp: t = tanh(v + pw_b), the LayerNorm with float32
+//   statistics, the vectors in registers) writes y as 16-byte row
+//   segments, 512 bytes a warp.
+// - x's rows of the block's next tile are asynchronous copies (cp.async),
+//   issued as soon as this tile's u is split into the x buffer, which
+//   nothing reads again this tile: they land during the product and the
+//   row pass.
+// - Shared memory (decoder_block.py::f32_fwd_plan holds the same plan):
+//   S (V over it), x's R + 4 rows, the keep values of two tiles' x rows,
+//   the depthwise's taps and bias: 104 KB at C = 128, two blocks an SM
+//   (four warpgroups: one block's loads and row pass run under the
+//   other's products); 206 KB at C = 256, one.
+//
+// Numerics: as the backward's front half (the note above).  Held to the
+// plain version at SNR >= 90 dB.
+
+template <int C_>
+struct GeoF {
+  static constexpr int C = C_;
+  static constexpr int R = 64;                // rows a tile (wgmma N)
+  static constexpr int NT = 256, NW = NT / 32;
+  static constexpr int MB = C / 128;          // 64-channel m-blocks a warpgroup
+  // rows of a channel chunk of S: its bytes 16 past a multiple of 128
+  static constexpr int R_ALLOC = R + 1;
+  static constexpr int CHUNK = R_ALLOC * 16;  // its bytes
+  static constexpr int LO_OFF = C / 4 * CHUNK;
+  static constexpr int V_OFF = 0;             // v's rows over S
+  // V's float32 row stride: 4 banks a row, so store_block's stores (rows
+  // 2 apart) meet every bank
+  static constexpr int LDV = C + 4;
+  static constexpr int LD = C + 4;            // the x rows' stride
+  static constexpr int XROWS = R + 2 * PAD;
+  static constexpr int X_OFF = 2 * LO_OFF;
+  // the keep values of x's rows, two tiles' (this one's, the next one's)
+  static constexpr int KP_OFF = X_OFF + XROWS * LD * 4;
+  static constexpr int KP_STRIDE = (XROWS + 3) / 4 * 4;
+  // the depthwise's taps (K x C) and bias
+  static constexpr int PAR_OFF = KP_OFF + 2 * KP_STRIDE * 4;
+  static constexpr int SMEM = PAR_OFF + (K + 1) * C * 4;
+  // blocks an SM: 1 KB of each block's shared memory is reserved
+  static constexpr int FWD_BLOCKS = (int)SM_SMEM / (SMEM + 1024);
+  // the product's k loop: A's loads PD steps ahead in a ring of RING
+  // register slots (with two blocks an SM, each with 128 registers a
+  // thread, a smaller ring: the other block's work covers the loads, and
+  // the larger ring was no faster)
+  static constexpr int KL_PD = FWD_BLOCKS > 1 ? 3 : 7;
+  static constexpr int KL_RING = FWD_BLOCKS > 1 ? 4 : 8;
+  static constexpr bool ROTATE = C == 256;
+  static constexpr int RP = 4;                // rows a warp at once
+  static_assert(R == 64 || R == 128, "one wgmma N of tf32x3::mma3");
+  static_assert(R % (RP * NW) == 0, "the row pass's rows split evenly");
+  static_assert(R * LDV * 4 <= X_OFF, "v's rows fit over S");
+  static_assert(FWD_BLOCKS >= 1 && SMEM <= (int)SMEM_LIMIT, "forward smem");
+};
+
+template <int C>
+__global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
+    decoder_block_fwd_f32_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ keep,
+                                 const float* __restrict__ w,
+                                 const float* __restrict__ dww,
+                                 const float* __restrict__ dwb,
+                                 const float* __restrict__ pwb,
+                                 const float* __restrict__ lns,
+                                 const float* __restrict__ lnb,
+                                 float* __restrict__ y, int B, int M,
+                                 float eps) {
+  using G = GeoF<C>;
+  constexpr int NT = G::NT, NW = G::NW, CH = C / 128, R = G::R;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* V = reinterpret_cast<float*>(smem + G::V_OFF);
+  float* xs = reinterpret_cast<float*>(smem + G::X_OFF);
+  float* kp_s = reinterpret_cast<float*>(smem + G::KP_OFF);
+  float* par = reinterpret_cast<float*>(smem + G::PAR_OFF);
+#ifdef DECODER_BLOCK_STAMPS
+  unsigned long long stamp_ns[N_STAMPS] = {}, stamp_last = global_ns();
+#endif
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < K * C; i += NT) par[i] = dww[i];
+  for (int i = tid; i < C; i += NT) par[K * C + i] = dwb[i];
+  // the row pass's vectors at the lane's columns
+  float pb[4 * CH], ls[4 * CH], lb[4 * CH];
+  lane_cols<G>(pwb, lane, pb);
+  lane_cols<G>(lns, lane, ls);
+  lane_cols<G>(lnb, lane, lb);
+  const int tiles_m = (M + R - 1) / R, tiles = B * tiles_m;
+  // x's rows of the block's first tile now; each next tile's once this
+  // tile's u is split
+  int tile = blockIdx.x, buf = 0;
+  if (tile < tiles && tid < G::XROWS) {
+    const int b = tile / tiles_m;
+    kp_s[tid] = keep_of(keep, b, (tile - b * tiles_m) * R, M, tid);
+  }
+  __syncthreads();
+  if (tile < tiles) {
+    const int b = tile / tiles_m;
+    load_x_async<G>(x, b, (tile - b * tiles_m) * R, M, kp_s, xs);
+  }
+  for (; tile < tiles; tile += gridDim.x) {
+    const int b = tile / tiles_m;
+    const int u0 = (tile - b * tiles_m) * R;  // row of u row 0
+    const int next = tile + gridDim.x;
+    const int nb = next / tiles_m, nu0 = (next - nb * tiles_m) * R;
+    float* kp_next = kp_s + (buf ^ 1) * G::KP_STRIDE;
+    if (next < tiles && tid < G::XROWS)
+      kp_next[tid] = keep_of(keep, nb, nu0, M, tid);
+    sm90::cp_async_wait_all();
+    __syncthreads();  // x's rows landed, kp_next written, V read
+    DB_STAMP(0);
+    depthwise_window<G>(xs, par, smem);
+    sm90::fence_proxy_async();
+    __syncthreads();  // S written, x's rows read
+    DB_STAMP(1);
+    if (next < tiles) load_x_async<G>(x, nb, nu0, M, kp_next, xs);
+    {
+      float acc[G::MB][R / 2];  // v = u W
+#pragma unroll
+      for (int mb = 0; mb < G::MB; ++mb)
+        product_block<G>(w, smem, mb, acc[mb]);
+      __syncthreads();  // every warpgroup is done with S
+      DB_STAMP(2);
+#pragma unroll
+      for (int mb = 0; mb < G::MB; ++mb) store_block<G>(acc[mb], mb, V);
+    }
+    __syncthreads();
+    DB_STAMP(3);
+    // t, its LayerNorm and y, RP rows a warp at once (their chains of
+    // warp sums interleave)
+    for (int r0 = warp; r0 < R; r0 += G::RP * NW) {
+      float t[G::RP][4 * CH], mean[G::RP], rstd[G::RP];
+#pragma unroll
+      for (int q = 0; q < G::RP; ++q)
+        row_t_f32<C>(V + (r0 + q * NW) * G::LDV, lane, pb, t[q], eps,
+                     mean[q], rstd[q]);
+#pragma unroll
+      for (int q = 0; q < G::RP; ++q) {
+        const int g = u0 + r0 + q * NW;
+        if (g >= M) continue;
+#pragma unroll
+        for (int i = 0; i < 4 * CH; ++i)
+          t[q][i] = (t[q][i] - mean[q]) * rstd[q] * ls[i] + lb[i];
+#pragma unroll
+        for (int h = 0; h < CH; ++h)
+          *reinterpret_cast<float4*>(y + ((size_t)b * M + g) * C + h * 128 +
+                                     lane * 4) =
+              make_float4(t[q][h * 4], t[q][h * 4 + 1], t[q][h * 4 + 2],
+                          t[q][h * 4 + 3]);
+      }
+    }
+    DB_STAMP(4);  // thread 0's warp; the next tile's first stamp waits
+                  // for the others
+    buf ^= 1;
+  }
+#ifdef DECODER_BLOCK_STAMPS
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N_STAMPS; ++i) atomicAdd(&db_stamps[i], stamp_ns[i]);
+#endif
+}
+
 template <int C>
 int fwd_launch(const void* x, const void* keep, const void* w,
                const void* dww, const void* dwb, const void* pwb,
@@ -2097,11 +2133,17 @@ int fwd_launch_f32(const void* x, const void* keep, const void* w,
                    const void* lns, const void* lnb, void* y, int B, int M,
                    float eps, int grid, cudaStream_t stream) {
   using G = GeoF<C>;
+  if (grid < 1) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       decoder_block_fwd_f32_kernel<C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::FWD_SMEM);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
-  decoder_block_fwd_f32_kernel<C><<<grid, G::NT, G::FWD_SMEM, stream>>>(
+  // the whole of the SM's shared memory, so FWD_BLOCKS blocks fit
+  e = cudaFuncSetAttribute(decoder_block_fwd_f32_kernel<C>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  decoder_block_fwd_f32_kernel<C><<<grid, G::NT, G::SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(keep),
       static_cast<const float*>(w), static_cast<const float*>(dww),
       static_cast<const float*>(dwb), static_cast<const float*>(pwb),
@@ -2168,7 +2210,7 @@ const char* kernel_error_string(int err) {
 int decoder_block_tile_rows(int channels, int backward, int f32) {
   return with_variant(channels, f32, 0, [&](auto c, auto f) {
     constexpr int C = decltype(c)::value;
-    if (decltype(f)::value) return backward ? GeoB<C>::OWN : GeoF<C>::FWD_OWN;
+    if (decltype(f)::value) return backward ? GeoB<C>::OWN : GeoF<C>::R;
     return backward ? GeoH<C>::OWN : Geo<C>::FWD_OWN;
   });
 }
@@ -2245,10 +2287,27 @@ int decoder_block_f32_bwd_plan(int channels, int field) {
   });
 }
 
+// The float32 forward's plan, decoder_block.py::f32_fwd_plan's fields in
+// its order: 0 tile rows, 1 blocks an SM, 2 warpgroups, 3 rows of a
+// channel chunk of the split buffer, 4 the byte offset of its lo copy (hi
+// at 0, v's rows over both), 5 v's float32 stride, 6 the byte offset of
+// the x rows and 7 their stride, byte offsets 8 of two tiles' keep values
+// and 9 of the weight vectors, 10 shared-memory bytes; -1 for another
+// field or width.
+int decoder_block_f32_fwd_plan(int channels, int field) {
+  return with_variant(channels, 1, -1, [&](auto c, auto) {
+    using G = GeoF<decltype(c)::value>;
+    const int v[] = {G::R,      G::FWD_BLOCKS, G::NT / 128, G::R_ALLOC,
+                     G::LO_OFF, G::LDV,        G::X_OFF,    G::LD,
+                     G::KP_OFF, G::PAR_OFF,    G::SMEM};
+    return field >= 0 && field < 11 ? v[field] : -1;
+  });
+}
+
 int decoder_block_taps() { return K; }
 
 #ifdef DECODER_BLOCK_STAMPS
-// The backward kernels' phase sums (ns, over every block's thread 0) into
+// The stamped kernels' phase sums (ns, over every block's thread 0) into
 // out[0 .. N_STAMPS), then set to 0; the probe's build only.
 int decoder_block_stamps(void* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, db_stamps, sizeof(db_stamps));
@@ -2259,8 +2318,9 @@ int decoder_block_stamps(void* out) {
 #endif
 
 // x, y: (B, M, C) bf16 (f32 = 0) or float32 (f32 = 1); keep (B, M) f32; w
-// (C_in, C_out) in x's dtype; dww (K, C) f32; dwb, pwb, lns, lnb (C,) f32.
-// grid: blocks (they stride over the tiles).
+// (C_in, C_out) in x's dtype, the float32 variant's in wgmma's A-fragment
+// order (decoder_block.py::a_fragments); dww (K, C) f32; dwb, pwb, lns, lnb
+// (C,) f32.  grid: blocks (they stride over the tiles).
 int decoder_block_fwd_launch(const void* x, const void* keep, const void* w,
                              const void* dww, const void* dwb,
                              const void* pwb, const void* lns,

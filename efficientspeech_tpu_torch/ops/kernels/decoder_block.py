@@ -38,8 +38,81 @@ launches_bwd = dict.fromkeys(VARIANTS, 0)
 
 TAPS = 5                # the depthwise conv's k (csrc: K)
 SMEM_LIMIT = 232448     # dynamic shared memory of a block (csrc: SMEM_LIMIT)
+SM_SMEM = 233472        # shared memory of an SM (csrc: SM_SMEM)
+F32_FWD_THREADS = 256   # two warpgroups (csrc: GeoF::NT)
 F32_BWD_THREADS = 256   # two warpgroups (csrc: GeoB::NT)
 BF16_BWD_THREADS = 256  # two warpgroups (csrc: GeoH::NT)
+
+
+class F32FwdPlan(NamedTuple):
+    """How the float32 forward tiles a decoder of width C (csrc: GeoF, in
+    this field order): ``tile_rows`` rows of u a tile (wgmma's N), every
+    one its own; ``blocks_per_sm`` blocks of ``warpgroups`` warpgroups an
+    SM; the split buffer of u in chunks of 4 channels × ``r_alloc`` rows
+    of 16 bytes, hi at 0 and lo at ``lo_off``, over which v's float32 rows
+    go, ``ld_v`` floats apart, once the products are done; the x rows
+    (``ld_x`` floats apart) at ``x_off``, which take the block's next
+    tile's rows while this tile's products and row pass run; the keep
+    values of two tiles' x rows at ``kp_off``; the depthwise taps and bias
+    at ``par_off``; ``smem`` bytes in all."""
+    tile_rows: int
+    blocks_per_sm: int
+    warpgroups: int
+    r_alloc: int
+    lo_off: int
+    ld_v: int
+    x_off: int
+    ld_x: int
+    kp_off: int
+    par_off: int
+    smem: int
+
+
+def f32_fwd_plan(c: int) -> F32FwdPlan:
+    """The float32 forward's plan at width ``c`` (one of ``WIDTHS``).
+    Tiles of 64 rows: 104 KB at C = 128, so two blocks share an SM, and
+    206 KB at C = 256, one.  A chunk is R + 1 rows, 16 bytes past a
+    multiple of 128, so the depthwise's stores, a lane a chunk, meet 32
+    banks; v's rows are 4 banks apart, so its stores, rows 2 apart, do
+    too."""
+    if c not in WIDTHS:
+        raise ValueError(f"decoder_block: no float32 forward plan for "
+                         f"C = {c}; built for {WIDTHS}")
+    r = 64
+    xrows = r + TAPS - 1
+    r_alloc = r + 1
+    lo_off = c // 4 * r_alloc * 16
+    x_off = 2 * lo_off
+    ld_v = ld_x = c + 4
+    kp_off = x_off + xrows * ld_x * 4
+    par_off = kp_off + 2 * -(-xrows // 4) * 16
+    smem = par_off + (TAPS + 1) * c * 4
+    return F32FwdPlan(r, SM_SMEM // (smem + 1024), F32_FWD_THREADS // 128,
+                      r_alloc, lo_off, ld_v, x_off, ld_x, kp_off, par_off,
+                      smem)
+
+
+# the float32 forward's phases in a tile's order
+F32_FWD_PHASES = ("load_x", "u", "v", "store_v", "rows")
+
+
+def f32_fwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
+    """The float32 forward's shared-memory buffers at width ``c``: name →
+    (byte offset, bytes, the phases in which it is live)."""
+    pl = f32_fwd_plan(c)
+    rows_x = (pl.tile_rows + TAPS - 1) * pl.ld_x * 4
+    live = lambda *names: frozenset(names)
+    every = live(*F32_FWD_PHASES)
+    return {
+        "u hi": (0, pl.lo_off, live("u", "v")),
+        "u lo": (pl.lo_off, pl.lo_off, live("u", "v")),
+        "v": (0, pl.tile_rows * pl.ld_v * 4, live("store_v", "rows")),
+        "x rows": (pl.x_off, rows_x, live("load_x", "u")),
+        "next tile's x rows": (pl.x_off, rows_x, live("v", "store_v",
+                                                      "rows")),
+        "keep of x's rows": (pl.kp_off, pl.par_off - pl.kp_off, every),
+        "depthwise taps and bias": (pl.par_off, (TAPS + 1) * c * 4, every),
+    }
 
 
 class F32BwdPlan(NamedTuple):
@@ -247,7 +320,7 @@ def bf16_bwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
 
 def a_fragments(w: torch.Tensor) -> torch.Tensor:
     """A (C x C, row-major: k rows, c columns) in the order the float32
-    backward's products load it as wgmma's A (csrc: product_to_v): for
+    kernels' products load it as wgmma's A (csrc: product_block): for
     each 64-column m-block m, warp q (16 columns), k-step s (8 rows) and
     lane 4 g + t, the four values (8 s + t, c), (8 s + t, c + 1),
     (8 s + t + 4, c), (8 s + t + 4, c + 1), c = 64 m + 16 q + 2 g."""
@@ -342,6 +415,7 @@ _SIGNATURES = {
     "decoder_block_fwd_blocks_per_sm": ([_I, _I], _I),
     "decoder_block_split": ([_I, _I], _I),
     "decoder_block_taps": ([], _I),
+    "decoder_block_f32_fwd_plan": ([_I, _I], _I),
     "decoder_block_f32_bwd_plan": ([_I, _I], _I),
     "decoder_block_bf16_bwd_plan": ([_I, _I], _I),
     "decoder_block_bwd_clusters": ([_I], _I),
@@ -354,6 +428,21 @@ _bwd_clusters: Dict[int, int] = {}
 
 def _lib():
     return build.load("decoder_block", _SIGNATURES)
+
+
+def check_f32_fwd_plan(lib, c: int):
+    """Raise unless the library's float32 forward (csrc: GeoF) has the
+    plan ``f32_fwd_plan`` gives: the two are kept in step by hand."""
+    if (c, "f32 fwd") in _plans_checked:
+        return
+    want = f32_fwd_plan(c)
+    got = tuple(lib.decoder_block_f32_fwd_plan(c, i)
+                for i in range(len(want)))
+    if got != tuple(want):
+        raise RuntimeError(f"decoder_block: the kernel's float32 forward "
+                           f"plan at C = {c} is {got}, f32_fwd_plan says "
+                           f"{tuple(want)}")
+    _plans_checked.add((c, "f32 fwd"))
 
 
 def check_f32_bwd_plan(lib, c: int):
@@ -431,13 +520,18 @@ def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
     """Persistent grids: the forward fills every SM with as many blocks as
     fit on one; the backward puts one block on each SM, at most one a
     tile: float32 one block a tile, bf16 a cluster of ``split`` blocks
-    (one per 128 columns), as many clusters as the card runs at once."""
-    tiles = b * len(owned_tiles(
-        m, lib.decoder_block_tile_rows(c, int(backward), f32)))
+    (one per 128 columns), as many clusters as the card runs at once.
+    The float32 forward's tile rows and blocks an SM are its plan's."""
+    if f32 and not backward:
+        plan = f32_fwd_plan(c)
+        rows, per_sm = plan.tile_rows, plan.blocks_per_sm
+    else:
+        rows = lib.decoder_block_tile_rows(c, int(backward), f32)
+        per_sm = lib.decoder_block_fwd_blocks_per_sm(c, f32)
+    tiles = b * len(owned_tiles(m, rows))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not backward:
-        return max(1, min(tiles,
-                          lib.decoder_block_fwd_blocks_per_sm(c, f32) * sms))
+        return max(1, min(tiles, per_sm * sms))
     if f32:
         return max(1, min(tiles, sms))
     if c not in _bwd_clusters:
@@ -450,9 +544,11 @@ def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
 
 
 def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
-                      eps: float = 1e-5) -> torch.Tensor:
+                      eps: float = 1e-5, *, grid: Optional[int] = None
+                      ) -> torch.Tensor:
     """x (B, M, C), keep (B, M) float32 → y (B, M, C).  On CUDA: x bf16 or
-    float32 and C in ``WIDTHS``."""
+    float32 and C in ``WIDTHS``.  ``grid``: the persistent grid's blocks
+    (by default as many as fit on the card, at most one a tile)."""
     if x.device.type == "cpu":
         return decoder_block_fwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
                                        ln_s, ln_b, eps)
@@ -464,14 +560,18 @@ def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
     build.check_tensor("ln_b", ln_b, torch.float32, (x.shape[2],), x.device)
     b, m, c = x.shape
     f32 = int(x.dtype == torch.float32)
+    if f32:  # the float32 product reads W in wgmma's A-fragment order
+        check_f32_fwd_plan(lib, c)
+        w_io = a_fragments(w_io)
+    if grid is None:
+        grid = _grid(lib, b, m, c, f32, False, x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.decoder_block_fwd_launch(
             x.data_ptr(), keep.data_ptr(), w_io.data_ptr(), dww.data_ptr(),
             dwb.data_ptr(), pwb.data_ptr(), lns.data_ptr(), ln_b.data_ptr(),
-            y.data_ptr(), b, m, c, f32, float(eps),
-            _grid(lib, b, m, c, f32, False, x.device), stream)
+            y.data_ptr(), b, m, c, f32, float(eps), grid, stream)
     build.check(lib, err, "decoder_block forward")
     launches_fwd[c, x.dtype] += 1
     return y

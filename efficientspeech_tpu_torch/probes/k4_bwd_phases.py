@@ -1,18 +1,22 @@
-"""Where K4's backward spends its time, on the card:
+"""Where K4's backward, or its float32 forward, spends its time, on the
+card:
 
     python -m efficientspeech_tpu_torch.probes.k4_bwd_phases [--dtype bf16]
+    python -m efficientspeech_tpu_torch.probes.k4_bwd_phases --pass fwd
 
 Builds ``csrc/decoder_block.cu`` once more with ``-DDECODER_BLOCK_STAMPS``
 (into ``build/kernels/``), which makes thread 0 of every block of the
-backward (float32 or bf16) add the ``%globaltimer`` time between the
-kernel's phase stamps to a device array, and runs the backward through
-that build at the training shape (128, 1024, C), C = 128 and 256, with
-chip_smoke.py's inputs.  It prints, per launch, each phase's time summed
-over a block's tiles and averaged over the blocks, its share, and the
-launch's CUDA-event time with and without the stamps, with the card's
-name and power limit.  A phase ends at the barrier after it, so it
-includes the wait for the block's slowest warp (in bf16 at C = 256, for
-the other block of its cluster too).  It needs a card and raises without
+backward (float32 or bf16) or of the float32 forward add the
+``%globaltimer`` time between the kernel's phase stamps to a device
+array, and runs the kernel through that build at the training shape
+(128, 1024, C), C = 128 and 256, with chip_smoke.py's inputs.  It prints,
+per launch, each phase's time summed over a block's tiles and averaged
+over the blocks, its share, and the launch's CUDA-event time with and
+without the stamps, with the card's name and power limit.  A phase ends
+at the barrier after it, so it includes the wait for the block's slowest
+warp (in bf16 at C = 256, for the other block of its cluster too; the
+forward's row pass is thread 0's warp's, the wait for the others falls
+in the next tile's first phase).  It needs a card and raises without
 one.
 """
 
@@ -27,8 +31,12 @@ from efficientspeech_tpu_torch.ops.kernels import build
 from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 from efficientspeech_tpu_torch.utils.timing import card, time_ms
 
-# the stamps' phases, in the kernel's order, by dtype (csrc: DB_STAMP)
+# the stamps' phases, in the kernel's order, by pass and dtype (csrc:
+# DB_STAMP)
 PHASES = {
+    "fwd f32": ("wait for x's rows and the slowest warp",
+                "depthwise + split u", "v = u W (wgmma)",
+                "v's rows over the split buffer", "row pass: t, LayerNorm, y"),
     "f32": ("load x", "depthwise + split u", "v = u W (wgmma)",
             "row pass: t, LayerNorm, dv", "weight gradient (mma.sync)",
             "split dv", "du = dv W^T (wgmma)", "load x again",
@@ -41,6 +49,7 @@ PHASES = {
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 LAUNCHES = 10
+N_STAMPS = 10  # the stamps' device array (csrc: N_STAMPS)
 
 
 def _stamped_lib() -> ctypes.CDLL:
@@ -75,27 +84,38 @@ def _inputs(c: int, dt: torch.dtype, dev):
     x = f(b, m, c).to(dt)
     lengths = torch.randint(2 * m // 3, m + 1, (b,), generator=gen)
     keep = (torch.arange(m)[None, :] < lengths[:, None]).float().to(dev)
+    # the depthwise and pointwise weights and biases, the LayerNorm scale
+    # and bias (the backward skips the last)
     weights = [f(c, 1, k, sd=0.4), f(c, sd=0.1),
                f(c, c, 1, sd=0.09 * (128 / c) ** 0.5), f(c, sd=0.1),
-               1 + f(c, sd=0.2)]
-    f(c, sd=0.1)  # chip_smoke's LayerNorm bias, which the backward skips
+               1 + f(c, sd=0.2), f(c, sd=0.1)]
     return x, keep, weights, f(b, m, c).to(dt)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    parser.add_argument("--pass", dest="direction", choices=("bwd", "fwd"),
+                        default="bwd")
     args = parser.parse_args()
-    dt, phases = DTYPES[args.dtype], PHASES[args.dtype]
+    fwd = args.direction == "fwd"
+    if fwd and args.dtype != "f32":
+        parser.error("--pass fwd stamps the float32 forward only")
+    dt = DTYPES[args.dtype]
+    phases = PHASES[f"fwd {args.dtype}" if fwd else args.dtype]
     f32 = int(dt == torch.float32)
     dev = resolve_device(None)
     name = card()
     plain_lib, stamped, lib_fn = k4._lib(), _stamped_lib(), k4._lib
-    sums = (ctypes.c_ulonglong * len(phases))()
+    sums = (ctypes.c_ulonglong * N_STAMPS)()
     for c in k4.WIDTHS:
         x, keep, weights, dy = _inputs(c, dt, dev)
-        run = lambda: k4.decoder_block_bwd(x, keep, *weights, dy)
-        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, f32, True, dev)
+        if fwd:
+            run = lambda: k4.decoder_block_fwd(x, keep, *weights)
+        else:
+            run = lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy)
+        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, f32, not fwd,
+                        dev)
         ms_plain, _ = time_ms(run, 20)
         k4._lib = lambda: stamped
         try:
@@ -107,9 +127,9 @@ def main():
             build.check(stamped, stamped.decoder_block_stamps(sums), "stamps")
         finally:
             k4._lib = lib_fn
-        per = [v / 1e6 / LAUNCHES / grid for v in sums]
+        per = [v / 1e6 / LAUNCHES / grid for v in sums[:len(phases)]]
         total = sum(per)
-        tag = f"k4 {args.dtype} bwd C={c}"
+        tag = f"k4 {args.dtype} {args.direction} C={c}"
         print(f"[{tag}] kernel_ms {ms_plain:.4f} (stamped {ms_stamped:.4f}), "
               f"{grid} blocks, phases sum {total:.4f} ms a block | {name}")
         for phase, ms in zip(phases, per):

@@ -42,10 +42,22 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
 
 # bf16 kernels against float32 plain versions: bf16 operand rounding;
 # float32 kernels: float32 accuracy (3xTF32 split products in K1, K2
-# and K4's backward, the CUDA cores in K3 and K4's forward), sums in
-# another order; one TF32
+# and K4, the CUDA cores in K3), sums in another order; one TF32
 # product would land near the bf16 figures, so this bar shows none did
 SNR_BAR = {torch.bfloat16: 35.0, torch.float32: 90.0}
+# regression floors of K4's bf16 backward beside that bar, by width and
+# output: about 6 dB under the least the card gives it over this file's
+# cases (NVIDIA H100 80GB HBM3; each test records its readings, see
+# --junitxml), C = 128 / 256: dx 76.0 / 70.5, dw_w
+# 84.2 / 80.7, dw_b 93.3 / 85.9, pw_w 84.9 / 81.7, pw_b 94.5 / 95.2,
+# ln_s 88.4 / 87.4, ln_b 151.2 / 148.7; dx no lower than 74 / 70.  A
+# build whose compiler contracted the depthwise's bf16 multiply and add
+# gave 46-58 dB
+BF16_BWD_FLOOR_DB = {
+    128: {"dx": 74.0, "dw_w": 78.0, "dw_b": 87.0, "pw_w": 78.0,
+          "pw_b": 88.0, "ln_s": 82.0, "ln_b": 145.0},
+    256: {"dx": 70.0, "dw_w": 74.0, "dw_b": 79.0, "pw_w": 75.0,
+          "pw_b": 89.0, "ln_s": 81.0, "ln_b": 142.0}}
 
 
 @pytest.fixture(scope="module")
@@ -305,11 +317,11 @@ def test_layer_norm_kernel(card, rows, c, dtype):
     pytest.param(2, 1024, 128, id="2-1024"),
     pytest.param(3, 200, 256, id="3-200-C256"),
     pytest.param(2, 1024, 256, id="2-1024-C256")])
-def test_decoder_block_kernel(card, b, m, c, dtype):
+def test_decoder_block_kernel(card, b, m, c, dtype, record_property):
     """K4 forward and backward against the plain version on a keep mask
     with padded tails: y, dx and the six weight gradients each at
-    SNR >= 35 dB (bf16) or 90 dB (float32), dx exactly zero on padded
-    frames."""
+    SNR >= 35 dB (bf16) or 90 dB (float32), the bf16 gradients also at
+    their regression floor, dx exactly zero on padded frames."""
     k = 5
     g = torch.Generator(device="cpu").manual_seed(m)
     f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
@@ -330,10 +342,50 @@ def test_decoder_block_kernel(card, b, m, c, dtype):
         assert counts[c, dtype] == was[c, dtype] + 1
     assert y.dtype == dtype and snr_db(y_plain, y) >= SNR_BAR[dtype]
     names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
+    floors = BF16_BWD_FLOOR_DB[c] if dtype == torch.bfloat16 else {}
     for name, a, w in zip(names, grads, grads_plain):
         assert a.dtype == w.dtype and a.shape == w.shape, name
+        record_property(f"snr_db {name}", round(snr_db(w, a), 1))
         assert snr_db(w, a) >= SNR_BAR[dtype], name
+        assert snr_db(w, a) >= floors.get(name, 0.0), (name, snr_db(w, a))
     assert not grads[0][keep == 0].any()
+
+
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("case", ["below-one-tile", "one-tile",
+                                  "one-past-tile", "masked-sequence",
+                                  "small-grid"])
+def test_decoder_block_f32_fwd_edges(card, c, case):
+    """The float32 forward (3xTF32 on the tensor cores) at its edges: a
+    sequence shorter than one tile, exactly one tile, one row past a
+    tile, a fully masked sequence, and a grid smaller than the tile count;
+    a few frames keep half their input.  y at SNR >= 90 dB against the
+    plain version, and two launches bit-equal."""
+    k, rows = 5, k4.f32_fwd_plan(c).tile_rows
+    b, m, grid = {"below-one-tile": (3, rows // 2, None),
+                  "one-tile": (3, rows, None),
+                  "one-past-tile": (2, rows + 1, None),
+                  "masked-sequence": (3, 2 * rows, None),
+                  "small-grid": (4, 5 * rows + 7, 3)}[case]
+    g = torch.Generator(device="cpu").manual_seed(c + m)
+    f = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(card)
+    x = f(b, m, c)
+    keep = torch.ones(b, m, device=card)
+    keep[0, m - m // 5:] = 0
+    keep[-1, 1::7] = 0.5
+    if case == "masked-sequence":
+        keep[1] = 0
+    weights = [f(c, 1, k, s=0.4), f(c, s=0.1),
+               f(c, c, 1, s=0.09 * (128 / c) ** 0.5), f(c, s=0.1),
+               1 + f(c, s=0.2), f(c, s=0.1)]
+    assert grid is None or grid < b * -(-m // rows)
+    y = k4.decoder_block_fwd(x, keep, *weights, grid=grid)
+    again = k4.decoder_block_fwd(x, keep, *weights, grid=grid)
+    plain = k4.decoder_block_fwd_plain(x, keep, *weights)
+    torch.cuda.synchronize()
+    assert y.dtype == plain.dtype and y.shape == plain.shape
+    assert snr_db(plain, y) >= SNR_BAR[torch.float32], snr_db(plain, y)
+    assert torch.equal(y, again)
 
 
 @pytest.mark.parametrize("c", [128, 256])
@@ -378,13 +430,14 @@ def test_decoder_block_f32_bwd_edges(card, c, case):
 @pytest.mark.parametrize("case", ["one-frame", "below-one-tile",
                                   "one-past-owned", "masked-sequence",
                                   "large-grid", "one-sequence"])
-def test_decoder_block_bf16_bwd_edges(card, c, case):
+def test_decoder_block_bf16_bwd_edges(card, c, case, record_property):
     """The bf16 backward (wgmma; a tile over a cluster of C / 128 blocks)
     at its edges: M = 1, a sequence shorter than one tile, one row past a
     multiple of the owned rows, a fully masked sequence, a grid of more
     clusters than tiles, and B = 1 at the training length.  Each output
     at SNR >= 35 dB against the plain version, dx exactly zero on masked
-    frames, and two launches bit-equal."""
+    frames, and two launches bit-equal; each output also at the bf16
+    backward's regression floor."""
     k = 5
     plan = k4.bf16_bwd_plan(c)
     own = plan.owned_rows
@@ -414,7 +467,10 @@ def test_decoder_block_bf16_bwd_edges(card, c, case):
     names = ("dx", "dw_w", "dw_b", "pw_w", "pw_b", "ln_s", "ln_b")
     for name, a, a2, w in zip(names, grads, again, plain):
         assert a.dtype == w.dtype and a.shape == w.shape, name
+        record_property(f"snr_db {name}", round(snr_db(w, a), 1))
         assert snr_db(w, a) >= SNR_BAR[torch.bfloat16], name
+        assert snr_db(w, a) >= BF16_BWD_FLOOR_DB[c][name], (name,
+                                                            snr_db(w, a))
         assert torch.equal(a, a2), name
     assert not grads[0][keep == 0].any()
 
@@ -430,6 +486,16 @@ def test_decoder_block_bf16_bwd_plan_matches_kernel(card):
         assert lib.decoder_block_bwd_clusters(c) >= 1
     assert lib.decoder_block_bf16_bwd_plan(384, 0) == -1
     assert lib.decoder_block_bwd_clusters(384) == 0
+
+
+def test_decoder_block_f32_fwd_plan_matches_kernel(card):
+    """The library's float32 forward geometry is f32_fwd_plan's."""
+    lib = k4._lib()
+    for c in (128, 256):
+        k4.check_f32_fwd_plan(lib, c)
+        fields = len(k4.f32_fwd_plan(c))
+        assert lib.decoder_block_f32_fwd_plan(c, fields) == -1
+    assert lib.decoder_block_f32_fwd_plan(384, 0) == -1
 
 
 def test_decoder_block_f32_bwd_plan_matches_kernel(card):

@@ -175,6 +175,64 @@ def test_check_supported_names_the_kernel_widths():
 
 
 @pytest.mark.parametrize("c", WIDTHS)
+def test_f32_fwd_plan_fits_and_buffers_do_not_overlap(c):
+    """The float32 forward's shared memory at each width: every buffer lies
+    inside the plan's bytes, its blocks an SM (with the 1 KB each reserves)
+    fit the SM's 228 KB, and no two buffers that are live in the same
+    phase overlap.  The tile is one wgmma N, a chunk of the split buffer
+    is 16 bytes past a multiple of 128 (the depthwise's stores, a lane a
+    chunk, meet 32 banks), v's rows fit over the split buffer, and the x
+    rows sit on 16-byte boundaries for cp.async."""
+    pl = k4.f32_fwd_plan(c)
+    assert pl.smem <= k4.SMEM_LIMIT
+    assert pl.blocks_per_sm >= 1
+    assert pl.blocks_per_sm * (pl.smem + 1024) <= k4.SM_SMEM
+    assert (pl.blocks_per_sm + 1) * (pl.smem + 1024) > k4.SM_SMEM
+    assert pl.tile_rows in (64, 128) and pl.warpgroups == 2
+    assert pl.r_alloc >= pl.tile_rows and (pl.r_alloc * 16) % 128 == 16
+    assert pl.lo_off == c // 4 * pl.r_alloc * 16 and pl.x_off == 2 * pl.lo_off
+    assert pl.tile_rows * pl.ld_v * 4 <= pl.x_off
+    assert pl.ld_x % 32 == 4 and pl.ld_v % 32 == 4
+    for off in (pl.x_off, pl.kp_off, pl.par_off):
+        assert off % 16 == 0
+    bufs = k4.f32_fwd_buffers(c)
+    for name, (off, size, phases) in bufs.items():
+        assert 0 <= off and off + size <= pl.smem, name
+        assert phases <= set(k4.F32_FWD_PHASES), name
+    assert {p for _, _, ph in bufs.values() for p in ph} == set(
+        k4.F32_FWD_PHASES)
+    names = sorted(bufs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            (oa, sa, pa), (ob, sb, pb) = bufs[a], bufs[b]
+            if pa & pb:
+                assert oa + sa <= ob or ob + sb <= oa, (a, b)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("m", [1, 5, 63, 64, 65, 127, 128, 129, 1000,
+                               1024])
+def test_f32_fwd_tiles_cover_every_frame_once(c, m):
+    """The float32 forward's tiles, which own all their rows, cover a
+    sequence of any length exactly once: below one tile, at a multiple of
+    the tile and one row past it, and at the training length."""
+    pl = k4.f32_fwd_plan(c)
+    tiles = k4.owned_tiles(m, pl.tile_rows)
+    assert len(tiles) == -(-m // pl.tile_rows)
+    covered = np.zeros(m, int)
+    for m0, rows in tiles:
+        assert 0 < rows <= pl.tile_rows
+        covered[m0:m0 + rows] += 1
+    assert (covered == 1).all()
+
+
+def test_f32_fwd_plan_refuses_other_widths():
+    for c in (64, 192, 384):
+        with pytest.raises(ValueError, match="no float32 forward plan"):
+            k4.f32_fwd_plan(c)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
 def test_f32_bwd_plan_fits_and_buffers_do_not_overlap(c):
     """The float32 backward's shared memory at each width: every buffer
     lies inside the plan's bytes, which fit a block's 227 KB, and no two

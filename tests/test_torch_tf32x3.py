@@ -2,13 +2,14 @@
 the CPU before the card runs them.
 
 The float32 variants of folded_matmul (K1) and mrf_fused (K2), and the
-float32 backward of decoder_block_fused (K4), multiply on the tensor
-cores by splitting each operand into TF32 hi and lo parts
+float32 forward and backward of decoder_block_fused (K4), multiply on the
+tensor cores by splitting each operand into TF32 hi and lo parts
 (csrc/tf32x3.cuh) and summing lo·hi′ + hi·lo′ + hi·hi′ in float32.  This
 file emulates that arithmetic in numpy (float32 bit masking, hi rounded
 to nearest with ties away from zero, as cvt.rna.tf32.f32 does, then lo
 = x − hi rounded the same way) and holds the emulated K1, K2 and K4
-backward against the JAX package's Pallas kernels in interpret mode, as the existing
+forward and backward against the JAX package's Pallas kernels in
+interpret mode, as the existing
 parity tests run them: at ≥ 90 dB, the bar the card tests hold the
 kernels to.  TF32 products alone (hi·hi′) land below that bar, so it
 does tell the two apart.  The emulation is test-only: nothing on the
@@ -204,6 +205,53 @@ def test_mrf_3xtf32_matches_pallas(folded, stage, t, valid):
     assert not got[valid:].any()
     assert snr_db(want[:valid], got[:valid]) >= BAR_DB
     assert snr_db(want[:valid], one[:valid]) < BAR_DB
+
+
+def emulated_decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
+                               eps=1e-5, mm=matmul3):
+    """K4's float32 forward (the JAX ``_fwd_kernel``) with its product v =
+    u W made as the float32 kernel makes it; everything else float32.
+    JAX layouts: dw_w (k, 1, C), pw_w (1, C_in, C_out)."""
+    b, m, c = x.shape
+    k = dw_w.shape[0]
+    pad = k // 2
+    xp = np.pad(x * keep[..., None], ((0, 0), (pad, pad), (0, 0)))
+    u = xp[:, 0:m] * dw_w[0, 0]
+    for tap in range(1, k):
+        u = u + xp[:, tap:tap + m] * dw_w[tap, 0]
+    u = (u + dw_b).reshape(-1, c)
+    t = np.tanh(mm(u, pw_w[0]) + pw_b)
+    cen = t - t.mean(-1, keepdims=True)
+    rstd = np.float32(1) / np.sqrt((cen * cen).mean(-1, keepdims=True)
+                                   + np.float32(eps))
+    return (cen * rstd * ln_s + ln_b).reshape(b, m, c).astype(np.float32)
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_decoder_block_fwd_3xtf32_matches_pallas(c):
+    """K4's float32 forward with its 3xTF32 product against the JAX
+    kernel (float32, Precision.HIGHEST, interpret mode) at ≥ 90 dB, on
+    sequences with padded tails; with one TF32 product y falls below the
+    bar."""
+    rng = np.random.default_rng(c + 1)
+    b, m, k = 2, 37, 5
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x = f(b, m, c)
+    keep = np.ones((b, m), np.float32)
+    keep[0, 30:] = 0
+    keep[1, 19:] = 0
+    weights = [f(k, 1, c) * np.float32(0.4), f(c) * np.float32(0.1),
+               f(1, c, c) * np.float32(0.09 * np.sqrt(128 / c)),
+               f(c) * np.float32(0.1), 1 + np.float32(0.2) * f(c),
+               np.float32(0.1) * f(c)]
+    want = np.asarray(jax_decoder_block_fused(
+        jnp.asarray(x), jnp.asarray(keep), *map(jnp.asarray, weights), k,
+        1e-5, 2, 2, True))
+    got = emulated_decoder_block_fwd(x, keep, *weights)
+    one = emulated_decoder_block_fwd(x, keep, *weights, mm=matmul1)
+    assert got.shape == want.shape
+    assert snr_db(want, got) >= BAR_DB
+    assert snr_db(want, one) < BAR_DB
 
 
 def emulated_decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
