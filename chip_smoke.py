@@ -10,8 +10,7 @@ Phases (each prints its lines; any failure exits non-zero):
                and prints the registers and spills (-Xptxas -v) of the
                kernels of folded_matmul.cu, mrf_block.cu and
                decoder_block.cu (a spill or a serialised wgmma in
-               mrf_block.cu, in either of K4's backward kernels or in its
-               float32 forward fails the phase);
+               mrf_block.cu or in any of K4's kernels fails the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
                against its plain PyTorch version, with CUDA-event timings of
@@ -38,8 +37,7 @@ Phases (each prints its lines; any failure exits non-zero):
   8. K4      - decoder_block_fused forward and backward at (128, 1024, C)
                with about 1/6 of the frames masked, the same way, for
                C = 128 (tiny) and C = 256 (small, base), in bf16 and in
-               float32 (each backward, and the float32 forward, with its
-               tile plan);
+               float32 (each kernel with its tile plan);
   9. K5      - int8_window_matmul, bf16 input with tile quantisation and
                int8 input, at the int8 probe's shape (T 49,152, 128 -> 128,
                5 taps, tm 512) against its plain version, with
@@ -76,8 +74,8 @@ Tolerances: the bf16 kernels multiply in bf16 with float32 accumulation
 (the TPU's MXU arithmetic) while the plain versions multiply in float32,
 so each is held to its plain version at SNR >= 35 dB (the bar the JAX
 package's own folded-vocoder test sets), and rows at or beyond `valid`
-must be exactly zero; K2 bf16 and K4's bf16 backward are also held to a
-regression floor a few dB under the figures the card gives them.  The
+must be exactly zero; every bf16 row but K5's is also held to a
+regression floor a few dB under the figures the card gives it.  The
 end-to-end waveform of the bf16 kernel route is held to the plain route's
 (bf16 operands, float32 products) at SNR >= 30 dB.  K3 and K4 in bf16 are held to their plain versions (which follow the
 TPU kernels op for op in bf16) at SNR >= 35 dB on every output: y, dx and
@@ -131,6 +129,17 @@ F32_KERNEL_SNR_DB = 90.0
 # compiler contracted the depthwise's bf16 multiply and add gave K4
 # 46-58 dB
 K2_BF16_FLOOR_DB = 62.0
+# the other bf16 rows' floors, about 6 dB under the card's readings
+# (NVIDIA H100 80GB HBM3, 700 W; this script): K1 by main-path op (up0-3
+# 55.6 / 55.7 / 55.6 / 54.8, post 54.7); K3 by width and output, C = 128
+# / 256: y 95.3 / 95.0, dx 97.4 / 97.1, dscale 127.6 / 129.8, dbias
+# 133.9 / 133.5; K4's forward, y 92.1 / 88.7
+K1_BF16_FLOOR_DB = {"up0": 49.0, "up1": 49.0, "up2": 49.0, "up3": 48.0,
+                    "post": 48.0}
+K3_BF16_FLOOR_DB = {
+    128: {"y": 89.0, "dx": 91.0, "dscale": 121.0, "dbias": 127.0},
+    256: {"y": 89.0, "dx": 91.0, "dscale": 123.0, "dbias": 127.0}}
+K4_BF16_FWD_FLOOR_DB = {128: 86.0, 256: 82.0}
 K4_BF16_BWD_FLOOR_DB = {
     128: {"dx": 75.0, "d_dw_w": 84.0, "d_dw_b": 89.0, "d_pw_w": 84.0,
           "d_pw_b": 99.0, "d_ln_s": 92.0, "d_ln_b": 126.0},
@@ -179,6 +188,19 @@ DESIGNS = {
                   "LayerNorm sums by st.async, mbarrier-signalled), so no "
                   "tile's u, v, t or dv is computed twice; each block "
                   "keeps its 256 x 128 weight gradient in registers",
+    "k4_fwd_128": "Hopper redesign: the backward's front half; 64-row tiles "
+                  "owning every row, x by TMA tensor copies a tile ahead "
+                  "(rows outside the sequence as zeros), u by a window "
+                  "sliding down each column two channels an instruction "
+                  "into 128-byte-swizzled K-major tiles, v = u W on wgmma "
+                  "(W's swizzled tiles loaded once a block), t and the "
+                  "LayerNorm in the accumulators, y staged over u's "
+                  "tiles for one TMA tensor store a warpgroup; three "
+                  "blocks an SM; tile plan in Python",
+    "k4_fwd_256": "Hopper redesign: as C = 128, four warpgroups a block "
+                  "(one per 64 columns, the rows' statistics combined over "
+                  "four slots), all of W in one block's shared memory, "
+                  "one block an SM",
     "k4_fwd_128_f32": "Hopper redesign: 3xTF32 split products on the "
                       "tensor cores; v transposed on wgmma (W in A-fragment "
                       "order from L2 through registers, the split rows of u "
@@ -297,12 +319,10 @@ def phase_device() -> str:
 
 # the sources whose registers and spills the build phase prints, and, by
 # source, a pattern of the kernels where a spill or a serialised wgmma
-# fails the phase (decoder_block.cu's wgmmas are its two backward
-# kernels', bf16 and float32, and its float32 forward's; the bf16 forward
-# is not held to it)
+# fails the phase (every kernel of mrf_block.cu, and of decoder_block.cu:
+# K4's forward and backward in bf16 and float32, all four on wgmma)
 PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block")
-PTXAS_STRICT = {"mrf_block": "",
-                "decoder_block": "bwd_(f32_)?kernel|fwd_f32_kernel"}
+PTXAS_STRICT = {"mrf_block": "", "decoder_block": ""}
 
 
 def ptxas_lines(log: str):
@@ -407,8 +427,10 @@ def phase_k1(synth, card: str):
             fail(f"{tag} {name}: non-finite output")
         if got[valid_rows:].any():
             fail(f"{tag} {name}: rows at or beyond valid are not zero")
-        if snr < bar:
-            fail(f"{tag} {name}: SNR {snr:.1f} dB < {bar} dB")
+        need = max(bar, K1_BF16_FLOOR_DB.get(name, 0.0)
+                   if dt == torch.bfloat16 else 0.0)
+        if snr < need:
+            fail(f"{tag} {name}: SNR {snr:.1f} dB < {need} dB")
         win = fm.window(fm.leaky(x, kw["lrelu_slope"]), w).to(dt)
         ms, host_ms = time_ms(
             lambda: fm.folded_matmul(x, W, b, w, valid, **kw), 50)
@@ -421,7 +443,7 @@ def phase_k1(synth, card: str):
                   + t * d_out * 4 * (1 + (res is not None) + (acc is not None)))
         b_ms, by, ffma_ms = product_bound(flops, nbytes, dt)
         print(f"[{tag}] {name}: T {t} x {d_in} -> {d_out}, w {w} | SNR "
-              f"{snr:.1f} dB (tol >= {bar}) max_abs_err {err:.3g} "
+              f"{snr:.1f} dB (tol >= {need}) max_abs_err {err:.3g} "
               f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({by}){ffma_note(ffma_ms)} "
               f"| wrapper host_ms {host_ms:.4f} | {card}")
@@ -702,12 +724,13 @@ def phase_k3(card: str, c: int, per_step: int, dt=torch.bfloat16):
     s = (torch.randn(c, generator=gen) * 0.5 + 1).to(dev)
     b = (torch.randn(c, generator=gen) * 0.1).to(dev)
     dy = torch.randn(rows, c, generator=gen).to(dev, dt)
+    floors = K3_BF16_FLOOR_DB[c] if dt == torch.bfloat16 else None
     err_f = _snr_check(f"{tag} fwd", [("y", k3.layer_norm_fwd(x, s, b),
                                        k3.layer_norm_fwd_plain(x, s, b))],
-                       card, bar)
+                       card, bar, floors)
     err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "dscale", "dbias"), k3.layer_norm_bwd(x, s, dy),
-        k3.layer_norm_bwd_plain(x, s, dy)), card, bar)
+        k3.layer_norm_bwd_plain(x, s, dy)), card, bar, floors)
     torch.cuda.synchronize()
 
     xs = x.clone().requires_grad_()
@@ -752,13 +775,15 @@ def phase_k4(card: str, c: int, per_step: int, dt=torch.bfloat16):
     dy = f(b, m, c).to(dt)
     print(f"[{tag}] (B, M, C) ({b}, {m}, {c}), masked frames "
           f"{1 - float(keep.mean()):.3f} | {card}")
-    if dt == torch.float32:
-        print(f"[{tag} fwd] {k4.f32_fwd_plan(c)} | {card}")
-    plan = k4.f32_bwd_plan(c) if dt == torch.float32 else k4.bf16_bwd_plan(c)
+    f32 = dt == torch.float32
+    plan = k4.f32_fwd_plan(c) if f32 else k4.bf16_fwd_plan(c)
+    print(f"[{tag} fwd] {plan} | {card}")
+    plan = k4.f32_bwd_plan(c) if f32 else k4.bf16_bwd_plan(c)
     print(f"[{tag} bwd] {plan} | {card}")
     err_f = _snr_check(f"{tag} fwd", [(
         "y", k4.decoder_block_fwd(x, keep, *weights),
-        k4.decoder_block_fwd_plain(x, keep, *weights))], card, bar)
+        k4.decoder_block_fwd_plain(x, keep, *weights))], card, bar,
+        None if f32 else {"y": K4_BF16_FWD_FLOOR_DB[c]})
     grads = k4.decoder_block_bwd(x, keep, *weights[:5], dy)
     err_b = _snr_check(f"{tag} bwd", zip(
         ("dx", "d_dw_w", "d_dw_b", "d_pw_w", "d_pw_b", "d_ln_s", "d_ln_b"),

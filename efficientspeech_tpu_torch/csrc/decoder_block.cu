@@ -18,17 +18,42 @@
 // both kernels (x, y, dx, dy float32, every step in float32) follows the
 // bf16 ones below, with its own note.
 //
-// The bf16 forward.  What bounds it on an H100: bytes.  At B = 128, M =
-// 1024 it reads x and writes y (67 MB at C = 256); the pointwise product
-// is 17.2 GFLOP, 17 us of tensor-core time.  It keeps every intermediate
-// in shared memory and registers.  The C x C bf16 weight (32 KB at C =
-// 128, 135 KB at C = 256) is loaded into shared memory once per block:
-// the grid is persistent and each block walks over tiles of R consecutive
-// frames of one sequence (R = 64 at C = 128, 32 at C = 256; 2 more input
-// rows on each side for the depthwise conv, rows outside [0, M) read as
-// zero, as the TPU kernel's padding does).  The product runs on WMMA
-// (bf16 operands, float32 accumulation).
-//
+// The bf16 forward (GeoHF, C = 128 and 256).  What bounds it on an H100:
+// bytes.  At B = 128, M = 1024 it reads x and writes y once (67 MB at C =
+// 256, 0.040 ms at 3.35 TB/s); the pointwise product is 17.2 GFLOP, 17 us
+// of tensor-core time.  It keeps every intermediate in shared memory and
+// registers, and it is the backward's front half (GeoH, below), sharing
+// its parts.  Design:
+// - Tiles of R = 64 rows (wgmma's M), every row the tile's own: u of a
+//   row needs x of its two neighbours on each side, so a tile reads R + 4
+//   x rows.  Blocks of C / 64 warpgroups (two at C = 128, four at C =
+//   256) are persistent over the tiles; C = 128 fits three blocks an SM
+//   (70 KB each), C = 256 one (203 KB: all of W).
+// - x's rows by TMA tensor copies (the backward's x map: boxes of 64
+//   channels x 68 rows, rows outside [0, M) as zeros) into one slot; the
+//   next tile's are issued as soon as this tile's u is written, and land
+//   during the product and the row pass.
+// - u by a window of x rows sliding down a column, two channels an
+//   instruction (bf16x2): a thread takes one 16-byte chunk of 4 rows and
+//   reads each of its 8 x rows once, scaling a row whose keep is not 1,
+//   and writes u straight into 128-byte-swizzled K-major tiles; warpgroup
+//   wg writes the tile of channels 64 wg ...
+// - v = u W on wgmma.m64n64k16 (bf16, float32 accumulation), warpgroup wg
+//   taking output columns 64 wg ..; W's C x C in 128-byte-swizzled
+//   MN-major tiles, loaded once a block.
+// - t = tanh(bf16(v) + pw_b) and the LayerNorm in the accumulators: a
+//   row's mean and sum of squared deviations over a warpgroup's 64
+//   columns from a lane quad, combined across the row's C / 64 slots by
+//   Chan's pairwise formulas, one exchange a tile.  y is staged in bf16
+//   over the warpgroup's u tile (free once every warpgroup's product is
+//   done) in the 128-byte swizzle and written by one TMA tensor store a
+//   warpgroup (y's map: boxes of 64 channels x 64 rows, rows at or beyond
+//   M clipped); the warpgroup waits for the store to have read the tile
+//   before its next u, so only its own four warps meet at those
+//   barriers.  (y written straight from the accumulators as 16-byte row
+//   segments, a quad's lanes trading their pairs, was slower: PERF.md.)
+// - The shared-memory plan is decoder_block.py::bf16_fwd_plan.
+
 // The bf16 backward (GeoH, C = 128 and 256).  What bounds it: bytes, x
 // and dy read and dx written, 201 MB at C = 256 (0.060 ms at 3.35 TB/s),
 // with its three C x C products close behind (v = u W recomputed, du = dv
@@ -68,8 +93,9 @@
 // - Loads: x's and dy's rows by TMA tensor copies ((C, M, B) maps, so
 //   rows outside [0, M) arrive as zeros) into three rotating slots, the
 //   next tile's issued once this tile's dy and t are read, landing during
-//   the dx pass; rows whose keep is not 1 are scaled in place.  The
-//   depthwise conv runs two channels an instruction (bf16x2).  The
+//   the dx pass; rows whose keep is not 1 are scaled in place (the taps'
+//   gradient reads them again).  u is the forward's depthwise: a window
+//   sliding down each column, two channels an instruction (bf16x2).  The
 //   column sums of the vector gradients (pw bias, LN scale and bias) come
 //   from a pass over t (kept in bf16, exactly) and dy in shared memory.
 // - No float atomics: each cluster writes one float32 partial of each
@@ -91,15 +117,12 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "sm90.cuh"
 #include "tf32x3.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -108,258 +131,10 @@ constexpr int PAD = K / 2;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 constexpr size_t SM_SMEM = 233472;     // shared memory of an SM (228 KB)
 
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// The bf16 forward's geometry at one width.
-template <int C_>
-struct Geo {
-  static constexpr int C = C_;
-  static constexpr int R = C == 128 ? 64 : 32;  // rows of u and t per tile
-  static constexpr int FWD_WARPS = C == 128 ? 8 : 16;
-  static constexpr int FWD_BLOCKS = C == 128 ? 2 : 1;  // forward blocks/SM
-  static constexpr int LDB = C + 8;  // bf16 row stride in shared memory
-  static constexpr int LDF = C + 4;  // float32 row stride in shared memory
-  static constexpr int XROWS = R + 2 * PAD;
-  static constexpr int FWD_OWN = R;            // every row is an output row
-  static constexpr size_t WS_BYTES = align128((size_t)C * LDB * 2);
-  static constexpr size_t XS_BYTES = align128((size_t)XROWS * LDB * 2);
-  static constexpr size_t US_BYTES = align128((size_t)R * LDB * 2);
-  static constexpr size_t ST_BYTES = align128((size_t)R * LDF * 4);
-  static constexpr size_t FWD_SMEM = WS_BYTES + XS_BYTES + US_BYTES + ST_BYTES;
-  static_assert(C % 128 == 0 && R % 16 == 0, "tile shape");
-  static_assert(FWD_SMEM * FWD_BLOCKS <= SMEM_LIMIT, "forward smem");
-};
-
-__device__ __forceinline__ float bfr(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<unsigned*>(&a);
-  q.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-
-// W (C_in, C_out) bf16 -> shared memory, row stride LDB
-template <class G>
-__device__ void load_weight(const __nv_bfloat16* __restrict__ w,
-                            __nv_bfloat16* ws) {
-  constexpr int CH = G::C / 8;
-  for (int i = threadIdx.x; i < G::C * CH; i += blockDim.x) {
-    const int r = i / CH, c8 = i - r * CH;
-    *reinterpret_cast<uint4*>(ws + r * G::LDB + c8 * 8) =
-        reinterpret_cast<const uint4*>(w)[i];
-  }
-}
-
-// xs row i <- bf16(x[b, u0 - PAD + i] * keep), zero outside [0, M)
-template <class G>
-__device__ void load_x(const __nv_bfloat16* __restrict__ x,
-                       const float* __restrict__ keep, int b, int u0, int M,
-                       __nv_bfloat16* xs) {
-  constexpr int CH = G::C / 8;
-  for (int i = threadIdx.x; i < G::XROWS * CH; i += blockDim.x) {
-    const int r = i / CH, c8 = i - r * CH;
-    const int g = u0 - PAD + r;
-    uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (g >= 0 && g < M) {
-      const size_t row = (size_t)b * M + g;
-      q = *reinterpret_cast<const uint4*>(x + row * G::C + c8 * 8);
-      const float kp = keep[row];
-      if (kp != 1.f) {
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h[j]);
-          h[j] = __floats2bfloat162_rn(f.x * kp, f.y * kp);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(xs + r * G::LDB + c8 * 8) = q;
-  }
-}
-
-// u rows [r0, r1) of column c: the depthwise conv in bf16 arithmetic, with
-// the taps and the bias rounded to bf16.
-template <class G>
-__device__ void depthwise(const __nv_bfloat16* xs, __nv_bfloat16* us,
-                          const float* __restrict__ dww,
-                          const float* __restrict__ dwb, int c, int r0,
-                          int r1) {
-  float wb[K];
-#pragma unroll
-  for (int tap = 0; tap < K; ++tap) wb[tap] = bfr(dww[tap * G::C + c]);
-  const float bb = bfr(dwb[c]);
-  for (int r = r0; r < r1; ++r) {
-    float acc = bfr(__fmul_rn(__bfloat162float(xs[r * G::LDB + c]), wb[0]));
-#pragma unroll
-    for (int tap = 1; tap < K; ++tap)
-      acc = bfr(__fadd_rn(
-          acc, bfr(__fmul_rn(__bfloat162float(xs[(r + tap) * G::LDB + c]),
-                             wb[tap]))));
-    us[r * G::LDB + c] = __float2bfloat16_rn(__fadd_rn(acc, bb));
-  }
-}
-
-// st[:, 0 : 16 NCB] (R rows, float32) <- a (R x C, bf16) @ W[:, 0 : 16
-// NCB]; ws holds W as (C_in, C_out).  The R/16 x NCB output tiles are
-// dealt to the NW warps in column-major order, so a warp's tiles share
-// their B fragments.
-template <class G, int NW, int NCB>
-__device__ void mma_rows(const __nv_bfloat16* a, const __nv_bfloat16* ws,
-                         float* st, int warp) {
-  constexpr int RB = G::R / 16, KB = G::C / 16;
-  constexpr int PER = RB * NCB / NW;           // tiles per warp
-  constexpr int NRB = PER < RB ? PER : RB;     // row blocks per warp
-  constexpr int NCBW = PER / NRB;              // column blocks per warp
-  static_assert(RB * NCB % NW == 0 && (RB % PER == 0 || PER % RB == 0),
-                "tiles split evenly over the warps");
-  const int t0 = warp * PER;
-  const int rb0 = t0 % RB, cb0 = t0 / RB;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NCBW][NRB];
-#pragma unroll
-  for (int j = 0; j < NCBW; ++j)
-#pragma unroll
-    for (int i = 0; i < NRB; ++i) wmma::fill_fragment(acc[j][i], 0.f);
-#pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        af[NRB];
-#pragma unroll
-    for (int i = 0; i < NRB; ++i)
-      wmma::load_matrix_sync(af[i], a + (rb0 + i) * 16 * G::LDB + kb * 16,
-                             G::LDB);
-#pragma unroll
-    for (int j = 0; j < NCBW; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          bf;
-      wmma::load_matrix_sync(bf, ws + kb * 16 * G::LDB + (cb0 + j) * 16,
-                             G::LDB);
-#pragma unroll
-      for (int i = 0; i < NRB; ++i) wmma::mma_sync(acc[j][i], af[i], bf, acc[j][i]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NCBW; ++j)
-#pragma unroll
-    for (int i = 0; i < NRB; ++i)
-      wmma::store_matrix_sync(st + (rb0 + i) * 16 * G::LDF + (cb0 + j) * 16,
-                              acc[j][i], G::LDF, wmma::mem_row_major);
-}
-
-// The lane's C/32 columns: 4 consecutive ones in each 128-column chunk,
-// chunk h's at 128 h + 4 lane.  v[h * 4 + i] <- p[128 h + 4 lane + i].
-template <class G>
-__device__ __forceinline__ void lane_cols(const float* __restrict__ p,
-                                          int lane, float* v) {
-#pragma unroll
-  for (int h = 0; h < G::C / 128; ++h)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[h * 4 + i] = p[h * 128 + lane * 4 + i];
-}
-
-// t of one row from v, and its LayerNorm statistics, over the lane's
-// columns: t = tanh(bf16(v) + pb) in bf16, pb the pointwise bias rounded
-// to bf16.
-template <class G>
-__device__ __forceinline__ void row_t(const float* st_row, int lane,
-                                      const float* pb, float* t, float eps,
-                                      float& mean, float& rstd) {
-  constexpr int CH = G::C / 128;
-  float s = 0.f;
-#pragma unroll
-  for (int h = 0; h < CH; ++h) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(st_row + h * 128 + lane * 4);
-    const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      t[h * 4 + i] = bfr(tanhf(bfr(__fadd_rn(bfr(vv[i]), pb[h * 4 + i]))));
-      s += t[h * 4 + i];
-    }
-  }
-  mean = warp_sum(s) / G::C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4 * CH; ++i) {
-    const float d = t[i] - mean;
-    q += d * d;
-  }
-  rstd = 1.f / sqrtf(warp_sum(q) / G::C + eps);
-}
-
-template <int C>
-__global__ void __launch_bounds__(Geo<C>::FWD_WARPS * 32, Geo<C>::FWD_BLOCKS)
-    decoder_block_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                             const float* __restrict__ keep,
-                             const __nv_bfloat16* __restrict__ w,
-                             const float* __restrict__ dww,
-                             const float* __restrict__ dwb,
-                             const float* __restrict__ pwb,
-                             const float* __restrict__ lns,
-                             const float* __restrict__ lnb,
-                             __nv_bfloat16* __restrict__ y, int B, int M,
-                             float eps) {
-  using G = Geo<C>;
-  constexpr int NW = G::FWD_WARPS, CH = C / 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + G::WS_BYTES);
-  __nv_bfloat16* us =
-      reinterpret_cast<__nv_bfloat16*>(smem + G::WS_BYTES + G::XS_BYTES);
-  float* st = reinterpret_cast<float*>(smem + G::WS_BYTES + G::XS_BYTES +
-                                       G::US_BYTES);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // depthwise: column c, one of NT/C row groups
-  constexpr int GROUPS = NW * 32 / C;
-  constexpr int GROWS = G::R / GROUPS;
-  const int c = tid % C, grp = tid / C;
-  // epilogue constants of the lane's columns, held in registers
-  float pb[4 * CH], s[4 * CH], sb[4 * CH];
-  lane_cols<G>(pwb, lane, pb);
-  lane_cols<G>(lns, lane, s);
-  lane_cols<G>(lnb, lane, sb);
-#pragma unroll
-  for (int i = 0; i < 4 * CH; ++i) pb[i] = bfr(pb[i]);
-  load_weight<G>(w, ws);
-
-  const int tiles_m = (M + G::FWD_OWN - 1) / G::FWD_OWN;
-  for (int tile = blockIdx.x; tile < B * tiles_m; tile += gridDim.x) {
-    const int b = tile / tiles_m;
-    const int u0 = (tile - b * tiles_m) * G::FWD_OWN;
-    load_x<G>(x, keep, b, u0, M, xs);
-    __syncthreads();
-    depthwise<G>(xs, us, dww, dwb, c, grp * GROWS, (grp + 1) * GROWS);
-    __syncthreads();
-    mma_rows<G, NW, C / 16>(us, ws, st, warp);
-    __syncthreads();
-    for (int r = warp; r < G::R && u0 + r < M; r += NW) {
-      float t[4 * CH], mean, rstd;
-      row_t<G>(st + r * G::LDF, lane, pb, t, eps, mean, rstd);
-#pragma unroll
-      for (int i = 0; i < 4 * CH; ++i) t[i] = (t[i] - mean) * rstd * s[i] + sb[i];
-#pragma unroll
-      for (int h = 0; h < CH; ++h)
-        store4(y + ((size_t)b * M + u0 + r) * C + h * 128 + lane * 4, t + h * 4);
-    }
-  }
-}
-
 // Phase stamps for probes/k4_bwd_phases.py: built with
-// -DDECODER_BLOCK_STAMPS, thread 0 of every block of a backward kernel or
-// of the float32 forward adds the %globaltimer time between consecutive
-// stamps to db_stamps[phase]; compiled out otherwise.
+// -DDECODER_BLOCK_STAMPS, thread 0 of every block of each kernel adds the
+// %globaltimer time between consecutive stamps to db_stamps[phase];
+// compiled out otherwise.
 #ifdef DECODER_BLOCK_STAMPS
 constexpr int N_STAMPS = 10;
 __device__ unsigned long long db_stamps[N_STAMPS];
@@ -379,6 +154,27 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #else
 #define DB_STAMP(i)
 #endif
+
+__device__ __forceinline__ float bfr(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The lane's C/32 columns: 4 consecutive ones in each 128-column chunk,
+// chunk h's at 128 h + 4 lane.  v[h * 4 + i] <- p[128 h + 4 lane + i].
+template <class G>
+__device__ __forceinline__ void lane_cols(const float* __restrict__ p,
+                                          int lane, float* v) {
+#pragma unroll
+  for (int h = 0; h < G::C / 128; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[h * 4 + i] = p[h * 128 + lane * 4 + i];
+}
 
 // keep of x row u0 - PAD + i of sequence b, 0 outside [0, M)
 __device__ __forceinline__ float keep_of(const float* __restrict__ keep,
@@ -526,6 +322,138 @@ __device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a,
   return d;
 }
 
+// u of rows r0 .. r0 + RW - 1 of one 16-byte chunk (8 channels) in bf16
+// arithmetic, two channels an instruction (mul_rn and add_rn round as
+// bfr(__fmul_rn) and bfr(__fadd_rn) do: a product of two bf16 values is
+// exact in float32), into column chunk `ch` of a 128-byte-swizzled
+// K-major tile: a window of K x rows slides down the chunk's column of a
+// plain box of x rows (128 bytes apart), so each x row is read once.  xc:
+// the chunk in x row r0 (u row r0's first tap); wv: the chunk's K taps and
+// bias; KEEP: scale each x row by its keep value kr[i] (in float32, then
+// rounded) where that is not 1 (else the rows are already scaled and kr
+// is not read).
+template <int RW, bool KEEP>
+__device__ __forceinline__ void depthwise_chunk(const unsigned char* xc,
+                                                const float* kr,
+                                                const uint4 (&wv)[K + 1],
+                                                unsigned char* ut, int r0,
+                                                int ch) {
+  auto x_row = [&](int i) {
+    uint4 v = *reinterpret_cast<const uint4*>(xc + i * 128);
+    const float k = KEEP ? kr[i] : 1.f;
+    if (k != 1.f) {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        h[e] = __floats2bfloat162_rn(f.x * k, f.y * k);
+      }
+    }
+    return v;
+  };
+  uint4 xw[K];
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) xw[j] = x_row(j);
+  const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&wv[K]);
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    xw[K - 1] = x_row(j + K - 1);
+    __nv_bfloat162 acc[4];
+#pragma unroll
+    for (int tap = 0; tap < K; ++tap) {
+      const __nv_bfloat162* xh =
+          reinterpret_cast<const __nv_bfloat162*>(&xw[tap]);
+      const __nv_bfloat162* wh =
+          reinterpret_cast<const __nv_bfloat162*>(&wv[tap]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 m = mul_rn(xh[e], wh[e]);
+        acc[e] = tap ? add_rn(acc[e], m) : m;
+      }
+    }
+    uint4 o;
+    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oh[e] = add_rn(acc[e], bh[e]);
+    *reinterpret_cast<uint4*>(ut + sw128(r0 + j, ch)) = o;
+#pragma unroll
+    for (int i = 0; i < K - 1; ++i) xw[i] = xw[i + 1];
+  }
+}
+
+// t = bf16(tanh(bf16(bf16(v) + pb))) in place over a warpgroup's 64
+// accumulator columns (v's layout: wgmma64's D; pb, already rounded to
+// bf16, at the lane's columns lc0 + 8 j of pbs; the bf16 addition by
+// add_rn), and the mean and M2 = sum (t - mean)^2 of each of the lane's
+// two rows over those 64 columns, from its lane quad; each(j, h, tb) sees
+// every pair of t as it is made
+template <class F>
+__device__ __forceinline__ void tanh_row_stats(float (&acc)[32],
+                                               const float* pbs, int lc0,
+                                               float (&mk)[2],
+                                               float (&sq)[2], F&& each) {
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 pf = *reinterpret_cast<const float2*>(pbs + lc0 + 8 * j);
+    const __nv_bfloat162 pb = __floats2bfloat162_rn(pf.x, pf.y);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float& a0 = acc[4 * j + 2 * h];
+      float& a1 = acc[4 * j + 2 * h + 1];
+      const float2 vb =
+          __bfloat1622float2(add_rn(__floats2bfloat162_rn(a0, a1), pb));
+      const __nv_bfloat162 tb =
+          __floats2bfloat162_rn(tanhf(vb.x), tanhf(vb.y));
+      each(j, h, tb);
+      const float2 tf = __bfloat1622float2(tb);
+      a0 = tf.x;
+      a1 = tf.y;
+      s[h] += a0 + a1;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    mk[h] = s[h] * (1.f / 64);
+    sq[h] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float c0 = acc[4 * j + 2 * h] - mk[h];
+      const float c1 = acc[4 * j + 2 * h + 1] - mk[h];
+      sq[h] += c0 * c0 + c1 * c1;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+  }
+}
+
+// a row's mean and rstd = 1 / sqrt(var + eps) over its S 64-column slots,
+// from each slot's mean mk[k] and M2 m2[k] (Chan's pairwise formulas, as
+// stable as two passes)
+template <int S>
+__device__ __forceinline__ void chan_stats(const float (&mk)[S],
+                                           const float (&m2)[S], float eps,
+                                           float& mean, float& rstd) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) s += mk[k];
+  mean = s / S;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const float dm = mk[k] - mean;
+    q += m2[k] + 64.f * dm * dm;
+  }
+  rstd = 1.f / sqrtf(q / (64 * S) + eps);
+}
+
 // du's float32 rows (stride GeoH::LDU): columns in 8-column blocks XORed
 // with the row, so the stores from the accumulators meet 32 banks
 __device__ __forceinline__ int du_at(int r, int col) {
@@ -533,7 +461,7 @@ __device__ __forceinline__ int du_at(int r, int col) {
 }
 
 // x's and dy's tensor maps: (C, M, B) bf16, boxes of 64 channels x rows
-// x 68 rows, plain; dy 64 rows, in the 128-byte swizzle (bwd_maps)
+// x 68 rows, plain; dy 64 rows, in the 128-byte swizzle (tensor_map)
 template <int C>
 __global__ void __launch_bounds__(GeoH<C>::NT, 1)
     decoder_block_bwd_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -724,44 +652,18 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
     __syncthreads();
     DB_STAMP(0);
 
-    // u of the block's channels in bf16 arithmetic, two channels an
-    // instruction (mul_rn and add_rn round as bfr(__fmul_rn) and
-    // bfr(__fadd_rn) do: a product of two bf16 values is exact in
-    // float32): chunk c (8 channels) of rows 4 q .. 4 q + 3
+    // u of the block's channels: chunk c (8 channels) of rows 4 q .. 4 q +
+    // 3, x's rows scaled above
     {
       const int c = tid & 15, q = tid >> 4;
-      const unsigned char* xb = reinterpret_cast<const unsigned char*>(xs) +
-                                (c >> 3) * G::XBOX + (c & 7) * 16;
       const uint4* w8 = reinterpret_cast<const uint4*>(dwt) + c;
-      unsigned char* ut = us + (2 * p + (c >> 3)) * TILE;
       uint4 wv[K + 1];
 #pragma unroll
       for (int tap = 0; tap <= K; ++tap) wv[tap] = w8[tap * 16];
-#pragma unroll
-      for (int r = 4 * q; r < 4 * q + 4; ++r) {
-        __nv_bfloat162 acc[4];
-#pragma unroll
-        for (int tap = 0; tap < K; ++tap) {
-          const uint4 xv = *reinterpret_cast<const uint4*>(
-              xb + (r + tap) * 128);
-          const __nv_bfloat162* xh =
-              reinterpret_cast<const __nv_bfloat162*>(&xv);
-          const __nv_bfloat162* wh =
-              reinterpret_cast<const __nv_bfloat162*>(&wv[tap]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const __nv_bfloat162 m = mul_rn(xh[e], wh[e]);
-            acc[e] = tap ? add_rn(acc[e], m) : m;
-          }
-        }
-        const __nv_bfloat162* bh =
-            reinterpret_cast<const __nv_bfloat162*>(&wv[K]);
-        uint4 o;
-        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oh[e] = add_rn(acc[e], bh[e]);
-        *reinterpret_cast<uint4*>(ut + sw128(r, c & 7)) = o;
-      }
+      depthwise_chunk<4, false>(
+          reinterpret_cast<const unsigned char*>(xs) + (c >> 3) * G::XBOX +
+              4 * q * 128 + (c & 7) * 16,
+          nullptr, wv, us + (2 * p + (c >> 3)) * TILE, 4 * q, c & 7);
     }
     sm90::fence_proxy_async();
     __syncthreads();
@@ -812,38 +714,15 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
     // t = tanh(bf16(v) + pb) in place (kept in ts too: a bf16 value, so
     // exactly), and each row's statistics over the warpgroup's 64
     // columns: the mean, M2 = sum (t - mean)^2, sum g and sum g (t -
-    // mean), g = dy ln_s; combined across the row's slots below (Chan's
-    // pairwise update, as stable as two passes)
+    // mean), g = dy ln_s; combined across the row's slots below
     {
-      float s[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 pf = *reinterpret_cast<const float2*>(pbs + lc0 + 8 * j);
-        const __nv_bfloat162 pb = __floats2bfloat162_rn(pf.x, pf.y);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float& a0 = acc[4 * j + 2 * h];
-          float& a1 = acc[4 * j + 2 * h + 1];
-          // bf16(v) + pb in bf16 (add.rn.bf16x2), tanh rounded to bf16
-          const float2 vb = __bfloat1622float2(
-              add_rn(__floats2bfloat162_rn(a0, a1), pb));
-          const __nv_bfloat162 tb =
-              __floats2bfloat162_rn(tanhf(vb.x), tanhf(vb.y));
-          *reinterpret_cast<__nv_bfloat162*>(ts + (r0 + 8 * h) * G::LDY +
-                                             lc0 + 8 * j) = tb;
-          const float2 tf = __bfloat1622float2(tb);
-          a0 = tf.x;
-          a1 = tf.y;
-          s[h] += a0 + a1;
-        }
-      }
-      float mk[2], sq[2] = {0.f, 0.f}, sg[2] = {0.f, 0.f}, sx[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
-        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
-        mk[h] = s[h] * (1.f / 64);
-      }
+      float mk[2], sq[2];
+      tanh_row_stats(acc, pbs, lc0, mk, sq,
+                     [&](int j, int h, __nv_bfloat162 tb) {
+                       *reinterpret_cast<__nv_bfloat162*>(
+                           ts + (r0 + 8 * h) * G::LDY + lc0 + 8 * j) = tb;
+                     });
+      float sg[2] = {0.f, 0.f}, sx[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = lc0 + 8 * j;
@@ -855,7 +734,6 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
           const float g0 = d.x * ls.x, g1 = d.y * ls.y;
           const float c0 = acc[4 * j + 2 * h] - mk[h];
           const float c1 = acc[4 * j + 2 * h + 1] - mk[h];
-          sq[h] += c0 * c0 + c1 * c1;
           sg[h] += g0 + g1;
           sx[h] += g0 * c0 + g1 * c1;
         }
@@ -864,7 +742,6 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
       for (int o = 1; o < 4; o <<= 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], o);
           sg[h] += __shfl_xor_sync(0xffffffffu, sg[h], o);
           sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], o);
         }
@@ -894,22 +771,20 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
         float4 sk[SLOTS];
-        float s = 0.f;
+        float mk[SLOTS], m2[SLOTS];
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
           sk[k] = st[k * R + r];
-          s += sk[k].x;
+          mk[k] = sk[k].x;
+          m2[k] = sk[k].y;
         }
-        mean[h] = s / SLOTS;
-        float q = 0.f, gs = 0.f, gx = 0.f;
+        chan_stats(mk, m2, eps, mean[h], rstd[h]);
+        float gs = 0.f, gx = 0.f;
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
-          const float dm = sk[k].x - mean[h];
-          q += sk[k].y + 64.f * dm * dm;
           gs += sk[k].z;
-          gx += sk[k].w + dm * sk[k].z;
+          gx += sk[k].w + (sk[k].x - mean[h]) * sk[k].z;
         }
-        rstd[h] = 1.f / sqrtf(q / C + eps);
         gm[h] = gs / C;
         gxm[h] = rstd[h] * gx / C;
         if (wg == 0 && t == 0) {
@@ -1133,6 +1008,254 @@ __global__ void __launch_bounds__(GeoH<C>::NT, 1)
             make_float2(accw[mb][4 * j + 2 * h], accw[mb][4 * j + 2 * h + 1]);
 #ifdef DECODER_BLOCK_STAMPS
   DB_STAMP(9);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N_STAMPS; ++i) atomicAdd(&db_stamps[i], stamp_ns[i]);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward (GeoHF; the design is in the note at the top): the
+// backward's front half, sharing its operand tiles (sw128, wgmma64), its
+// depthwise (depthwise_chunk), t and the row statistics (tanh_row_stats,
+// chan_stats) and its x map (tensor_map).
+
+template <int C_>
+struct GeoHF {
+  static constexpr int C = C_;
+  static constexpr int R = 64;                 // rows a tile (wgmma M)
+  static constexpr int NCH = C / 64;           // 64-channel tiles, warpgroups
+  static constexpr int NT = 128 * NCH;
+  static constexpr int TILE = 64 * 64 * 2;     // an operand tile's bytes
+  static constexpr int XROWS = R + 2 * PAD;
+  static constexpr int XBOX = XROWS * 128;     // x rows of 64 channels
+  static constexpr int RW = 4;                 // rows of u a thread
+  // W's NCH x NCH tiles at 0, u's NCH tiles, the x rows' NCH boxes
+  static constexpr int U_OFF = NCH * NCH * TILE;
+  static constexpr int X_OFF = U_OFF + NCH * TILE;
+  // the rows' mean and sum of squared deviations over each 64-column slot
+  static constexpr int ST_OFF = X_OFF + NCH * XBOX;
+  static constexpr int KP_OFF = ST_OFF + NCH * R * 8;
+  static constexpr int KP_STRIDE = (XROWS + 3) / 4 * 4;
+  // the depthwise taps and bias in bf16, the pw bias (rounded to bf16),
+  // the LN scale and bias
+  static constexpr int PAR_OFF = KP_OFF + 2 * KP_STRIDE * 4;
+  static constexpr int BAR_OFF = PAR_OFF + (K + 1) * C * 2 + 3 * C * 4;
+  static constexpr int SMEM = BAR_OFF + 8;
+  static constexpr int SMEM_ALLOC = SMEM + 1024;  // room to align the base
+  // blocks an SM: 1 KB of each block's shared memory is reserved
+  static constexpr int FWD_BLOCKS = (int)SM_SMEM / (SMEM_ALLOC + 1024);
+  static_assert(NCH == 2 || NCH == 4, "C = 128 or 256");
+  static_assert(SMEM_ALLOC <= (int)SMEM_LIMIT && FWD_BLOCKS >= 1,
+                "forward smem");
+  static_assert(16 * RW == R, "a warpgroup's 128 threads: 8 chunks x 16");
+  static_assert(X_OFF % 128 == 0 && XBOX % 128 == 0, "TMA boxes aligned");
+};
+
+template <int C>
+__global__ void __launch_bounds__(GeoHF<C>::NT, GeoHF<C>::FWD_BLOCKS)
+    decoder_block_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_y,
+                             const float* __restrict__ keep,
+                             const __nv_bfloat16* __restrict__ w,
+                             const float* __restrict__ dww,
+                             const float* __restrict__ dwb,
+                             const float* __restrict__ pwb,
+                             const float* __restrict__ lns,
+                             const float* __restrict__ lnb, int B, int M,
+                             float eps) {
+  using G = GeoHF<C>;
+  constexpr int NT = G::NT, R = G::R, NCH = G::NCH, TILE = G::TILE;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* us = smem + G::U_OFF;  // u, NCH tiles of 64 channels
+  unsigned char* xs = smem + G::X_OFF;  // x rows, NCH boxes of 64 channels
+  float2* st = reinterpret_cast<float2*>(smem + G::ST_OFF);  // [NCH][R]
+  float* kps = reinterpret_cast<float*>(smem + G::KP_OFF);   // two tiles'
+  __nv_bfloat16* dwt =
+      reinterpret_cast<__nv_bfloat16*>(smem + G::PAR_OFF);  // [K + 1][C]
+  float* pbs = reinterpret_cast<float*>(smem + G::PAR_OFF + (K + 1) * C * 2);
+  float* lss = pbs + C;
+  float* lbs = lss + C;
+  uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem + G::BAR_OFF);
+#ifdef DECODER_BLOCK_STAMPS
+  unsigned long long stamp_ns[N_STAMPS] = {}, stamp_last = global_ns();
+#endif
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int tiles_m = (M + R - 1) / R, n_tiles = B * tiles_m;
+  // u row 0's row in its sequence, and the sequence, of tile `tl`
+  auto tile_u0 = [&](int tl, int& tb) {
+    tb = tl / tiles_m;
+    return (tl - tb * tiles_m) * R;
+  };
+  // the keep value of x row tid of tile `tl` (threads below XROWS)
+  auto keep_at = [&](int tl) {
+    int tb;
+    const int tu0 = tile_u0(tl, tb);
+    return tid < G::XROWS && tl < n_tiles ? keep_of(keep, tb, tu0, M, tid)
+                                          : 0.f;
+  };
+  // tile `tl`'s x rows (u0 - 2 .. u0 + 65) into xs: NCH TMA boxes, rows
+  // outside [0, M) as zeros, counted on bar_x
+  auto load_x = [&](int tl) {
+    int tb;
+    const int tu0 = tile_u0(tl, tb);
+    sm90::mbar_expect_tx(bar_x, NCH * G::XBOX);
+#pragma unroll
+    for (int h = 0; h < NCH; ++h)
+      sm90::tma_load_3d(xs + h * G::XBOX, &tm_x, 64 * h, tu0 - PAD, tb,
+                        bar_x);
+  };
+
+  // W's tiles, once: tile (a, b) (input channels 64 a .., output columns
+  // 64 b ..) at slot a NCH + b, MN-major in the 128-byte swizzle
+  for (int i = tid; i < NCH * NCH * 64 * 8; i += NT) {
+    const int s = i >> 9, r = (i >> 3) & 63, c = i & 7;
+    sm90::cp_async16(smem + s * TILE + sw128(r, c),
+                     w + (size_t)(64 * (s / NCH) + r) * C + 64 * (s % NCH) +
+                         8 * c);
+  }
+  sm90::cp_async_commit();
+  for (int i = tid; i < C; i += NT) {
+#pragma unroll
+    for (int tap = 0; tap < K; ++tap)
+      dwt[tap * C + i] = __float2bfloat16_rn(dww[tap * C + i]);
+    dwt[K * C + i] = __float2bfloat16_rn(dwb[i]);
+    pbs[i] = bfr(pwb[i]);
+    lss[i] = lns[i];
+    lbs[i] = lnb[i];
+  }
+  if (tid == 0) {
+    sm90::mbar_init(bar_x, 1);
+    sm90::fence_mbar_init();
+  }
+  if (tid < G::XROWS) kps[tid] = keep_at(blockIdx.x);
+  __syncthreads();  // the mbarrier, the vectors and the first keep values
+  if (tid == 0 && (int)blockIdx.x < n_tiles) load_x(blockIdx.x);
+
+  // the depthwise: chunk dc (8 channels) of warpgroup wg's 64, rows
+  // RW dq .. RW dq + RW - 1
+  const int dc = tid & 7, dq = (tid >> 3) & 15;
+  // the row pass: lane (g, t) of warp warp % 4 holds rows r0 and r0 + 8,
+  // columns lc0 + 8 j and lc0 + 8 j + 1 (j < 8) of the warpgroup's 64
+  const int r0 = 16 * (warp & 3) + g, lc0 = 64 * wg + 2 * t;
+
+  int it = 0;  // the block's tiles so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    int b;
+    const int u0 = tile_u0(tile, b);
+    const int next = tile + gridDim.x;
+    const float* kp = kps + (it & 1) * G::KP_STRIDE;
+    // the next tile's keep values, stored after v, when they have come
+    const float keep_next = keep_at(next);
+    // the warpgroup's y tile of the last tile has been read out of its u
+    // tile (its TMA store's source)
+    if ((tid & 127) == 0) sm90::bulk_wait_read<0>();
+    sm90::named_barrier(1 + wg, 128);
+    sm90::mbar_wait(bar_x, it & 1);  // this tile's x rows
+    DB_STAMP(0);
+
+    // u of the warpgroup's 64 channels: chunk dc of rows RW dq .., each x
+    // row scaled by its keep as it is read
+    {
+      const uint4* w8 =
+          reinterpret_cast<const uint4*>(dwt + 64 * wg + 8 * dc);
+      uint4 wv[K + 1];
+#pragma unroll
+      for (int tap = 0; tap <= K; ++tap) wv[tap] = w8[tap * (C / 8)];
+      depthwise_chunk<G::RW, true>(
+          xs + wg * G::XBOX + G::RW * dq * 128 + 16 * dc, kp + G::RW * dq, wv,
+          us + wg * TILE, G::RW * dq, dc);
+    }
+    if (it == 0) sm90::cp_async_wait<0>();  // W's tiles
+    sm90::fence_proxy_async();
+    __syncthreads();  // u written, x's rows read
+    DB_STAMP(1);
+    // the next tile's x rows into the slot this tile's leave, landing
+    // during the product and the row pass
+    if (tid == 0 && next < n_tiles) load_x(next);
+
+    // v = u W: warpgroup wg's 64 columns (k-step s: channels 16 s ..)
+    float acc[32];
+    {
+      const uint32_t u_a = sm90::smem_u32(us), w_a = sm90::smem_u32(smem);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < C / 16; ++s)
+        wgmma64<0, 1>(acc,
+                      sw128_desc(u_a + (s >> 2) * TILE + 32 * (s & 3), 16),
+                      sw128_desc(w_a + ((s >> 2) * NCH + wg) * TILE +
+                                     2048 * (s & 3),
+                                 TILE),
+                      s > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::reg_fence(acc[i]);
+    }
+    if (tid < G::XROWS) kps[((it + 1) & 1) * G::KP_STRIDE + tid] = keep_next;
+    DB_STAMP(2);
+
+    // t = tanh(bf16(v) + pb) in bf16, in place, and each row's mean and
+    // M2 over the warpgroup's 64 columns; combined across the row's slots
+    // below
+    {
+      float mk[2], sq[2];
+      tanh_row_stats(acc, pbs, lc0, mk, sq, [](int, int, __nv_bfloat162) {});
+      if (t == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st[wg * R + r0 + 8 * h] = make_float2(mk[h], sq[h]);
+    }
+    __syncthreads();  // the row sums; every warpgroup is done with u
+    DB_STAMP(3);
+
+    // the rows' statistics from their slots, then y = (t - mean) rstd
+    // ln_s + ln_b in bf16, written by TMA
+    {
+      float mean[2], rstd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mk[NCH], m2[NCH];
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) {
+          const float2 sk = st[k * R + r0 + 8 * h];
+          mk[k] = sk.x;
+          m2[k] = sk.y;
+        }
+        chan_stats(mk, m2, eps, mean[h], rstd[h]);
+      }
+      // staged over the warpgroup's u tile (free since the barrier) for
+      // one TMA store of 64 rows x 64 channels (rows >= M are clipped)
+      unsigned char* yt = us + wg * TILE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 ls = *reinterpret_cast<const float2*>(lss + lc0 + 8 * j);
+        const float2 lb = *reinterpret_cast<const float2*>(lbs + lc0 + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(yt + sw128(r0 + 8 * h, j) +
+                                             4 * t) =
+              __floats2bfloat162_rn(
+                  (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * ls.x + lb.x,
+                  (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * ls.y +
+                      lb.y);
+      }
+      sm90::fence_proxy_async();
+      sm90::named_barrier(1 + wg, 128);
+      if ((tid & 127) == 0) {
+        sm90::tma_store_3d(&tm_y, yt, 64 * wg, u0, b);
+        sm90::bulk_commit();
+      }
+    }
+    DB_STAMP(4);  // thread 0's warp; the next tile's first stamp waits
+                  // for the others
+  }
+  sm90::cp_async_wait<0>();  // W's tiles, in a block without a tile
+  if ((tid & 127) == 0) sm90::bulk_wait<0>();  // the last y stores
+#ifdef DECODER_BLOCK_STAMPS
   if (threadIdx.x == 0)
     for (int i = 0; i < N_STAMPS; ++i) atomicAdd(&db_stamps[i], stamp_ns[i]);
 #endif
@@ -2012,33 +2135,14 @@ __global__ void __launch_bounds__(GeoF<C>::NT, GeoF<C>::FWD_BLOCKS)
 #endif
 }
 
-template <int C>
-int fwd_launch(const void* x, const void* keep, const void* w,
-               const void* dww, const void* dwb, const void* pwb,
-               const void* lns, const void* lnb, void* y, int B, int M,
-               float eps, int grid, cudaStream_t stream) {
-  using G = Geo<C>;
-  cudaError_t e = cudaFuncSetAttribute(
-      decoder_block_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::FWD_SMEM);
-  if (e != cudaSuccess) return e;
-  decoder_block_fwd_kernel<C><<<grid, G::FWD_WARPS * 32, G::FWD_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(keep),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(dww),
-      static_cast<const float*>(dwb), static_cast<const float*>(pwb),
-      static_cast<const float*>(lns), static_cast<const float*>(lnb),
-      static_cast<__nv_bfloat16*>(y), B, M, eps);
-  return cudaGetLastError();
-}
-
-// The bf16 backward's tensor maps of x and dy, (C, M, B) bf16 (rows of a
-// sequence outside [0, M) come as zeros): boxes of 64 channels x 68 rows
-// of x, plain, and 64 x 64 of dy in the 128-byte swizzle (sw128's
-// layout).  cuTensorMapEncodeTiled is found through the runtime's
+// A tensor map of a (B, M, C) bf16 tensor as (C, M, B): boxes of 64
+// channels x `rows` rows, plain or in the 128-byte swizzle (sw128's
+// layout); rows of a sequence outside [0, M) load as zeros and are not
+// stored.  cuTensorMapEncodeTiled is found through the runtime's
 // entry-point query, so nothing links against libcuda.
 template <int C>
-cudaError_t bwd_maps(CUtensorMap* mx, CUtensorMap* mdy, const void* x,
-                     const void* dy, int B, int M) {
+cudaError_t tensor_map(CUtensorMap* map, const void* p, int B, int M,
+                       int rows, bool swizzle) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -2063,21 +2167,45 @@ cudaError_t bwd_maps(CUtensorMap* mx, CUtensorMap* mdy, const void* x,
   const cuuint64_t dims[3] = {C, static_cast<cuuint64_t>(M),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {C * 2, static_cast<cuuint64_t>(M) * C * 2};
-  const cuuint32_t box_x[3] = {64, GeoH<C>::XROWS, 1};
-  const cuuint32_t box_dy[3] = {64, GeoH<C>::R, 1};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = encode(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                      const_cast<void*>(x), dims, strides, box_x, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_NONE,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  r = encode(mdy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(dy),
-             dims, strides, box_dy, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int C>
+int fwd_launch(const void* x, const void* keep, const void* w,
+               const void* dww, const void* dwb, const void* pwb,
+               const void* lns, const void* lnb, void* y, int B, int M,
+               float eps, int grid, cudaStream_t stream) {
+  using G = GeoHF<C>;
+  if (grid < 1) return cudaErrorInvalidValue;
+  // x's rows (boxes of 68, plain) and y's (64, swizzled as u's tiles)
+  CUtensorMap mx, my;
+  cudaError_t e = tensor_map<C>(&mx, x, B, M, G::XROWS, false);
+  if (e != cudaSuccess) return e;
+  e = tensor_map<C>(&my, y, B, M, G::R, true);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(decoder_block_fwd_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           G::SMEM_ALLOC);
+  if (e != cudaSuccess) return e;
+  // the whole of the SM's shared memory, so FWD_BLOCKS blocks fit
+  e = cudaFuncSetAttribute(decoder_block_fwd_kernel<C>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  decoder_block_fwd_kernel<C><<<grid, G::NT, G::SMEM_ALLOC, stream>>>(
+      mx, my, static_cast<const float*>(keep),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(dww),
+      static_cast<const float*>(dwb), static_cast<const float*>(pwb),
+      static_cast<const float*>(lns), static_cast<const float*>(lnb), B, M,
+      eps);
+  return cudaGetLastError();
 }
 
 // the bf16 backward's launch: grid blocks in clusters of GeoH::SPLIT
@@ -2107,8 +2235,11 @@ int bwd_launch(const void* x, const void* keep, const void* w,
                cudaStream_t stream) {
   using G = GeoH<C>;
   if (grid < G::SPLIT || grid % G::SPLIT) return cudaErrorInvalidValue;
+  // x's rows (boxes of 68, plain) and dy's (64, in u's swizzle)
   CUtensorMap mx, mdy;
-  cudaError_t e = bwd_maps<C>(&mx, &mdy, x, dy, B, M);
+  cudaError_t e = tensor_map<C>(&mx, x, B, M, G::XROWS, false);
+  if (e != cudaSuccess) return e;
+  e = tensor_map<C>(&mdy, dy, B, M, G::R, true);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(decoder_block_bwd_kernel<C>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2193,41 +2324,12 @@ int with_variant(int channels, int f32, int fallback, F f) {
   }
 }
 
-// The geometry of one variant
-template <int C, bool F32>
-using GeoOf = typename std::conditional<F32, GeoF<C>, Geo<C>>::type;
-
 }  // namespace
 
 extern "C" {
 
 const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Rows of x a tile covers (forward: all R; backward: the inner R - 4), or
-// 0 for a width the kernels are not built for.  f32: the float32 variant.
-int decoder_block_tile_rows(int channels, int backward, int f32) {
-  return with_variant(channels, f32, 0, [&](auto c, auto f) {
-    constexpr int C = decltype(c)::value;
-    if (decltype(f)::value) return backward ? GeoB<C>::OWN : GeoF<C>::R;
-    return backward ? GeoH<C>::OWN : Geo<C>::FWD_OWN;
-  });
-}
-
-// Forward blocks that fit on one SM (the backward fits one), or 0.
-int decoder_block_fwd_blocks_per_sm(int channels, int f32) {
-  return with_variant(channels, f32, 0, [](auto c, auto f) {
-    return GeoOf<decltype(c)::value, decltype(f)::value>::FWD_BLOCKS;
-  });
-}
-
-// Backward blocks that share a tile (bf16: a cluster, one block per 128
-// columns; float32: one), or 0.
-int decoder_block_split(int channels, int f32) {
-  return with_variant(channels, f32, 0, [](auto c, auto f) {
-    return decltype(f)::value ? 1 : GeoH<decltype(c)::value>::SPLIT;
-  });
 }
 
 // Clusters of the bf16 backward that the card runs at once (one block an
@@ -2304,6 +2406,22 @@ int decoder_block_f32_fwd_plan(int channels, int field) {
   });
 }
 
+// The bf16 forward's plan, decoder_block.py::bf16_fwd_plan's fields in
+// its order: 0 tile rows, 1 blocks an SM, 2 warpgroups, byte offsets 3 of
+// u's tiles (W's at 0) and 4 of the x rows' boxes, 5 an x box's bytes,
+// byte offsets 6 of the rows' sums, 7 of two tiles' keep values, 8 of the
+// weight vectors and 9 of the mbarrier, 10 shared-memory bytes (past the
+// 1024-byte aligned base); -1 for another field or width.
+int decoder_block_bf16_fwd_plan(int channels, int field) {
+  return with_variant(channels, 0, -1, [&](auto c, auto) {
+    using G = GeoHF<decltype(c)::value>;
+    const int v[] = {G::R,      G::FWD_BLOCKS, G::NT / 128, G::U_OFF,
+                     G::X_OFF,  G::XBOX,       G::ST_OFF,   G::KP_OFF,
+                     G::PAR_OFF, G::BAR_OFF,   G::SMEM};
+    return field >= 0 && field < 11 ? v[field] : -1;
+  });
+}
+
 int decoder_block_taps() { return K; }
 
 #ifdef DECODER_BLOCK_STAMPS
@@ -2344,8 +2462,9 @@ int decoder_block_fwd_launch(const void* x, const void* keep, const void* w,
 // (decoder_block.py::a_fragments); part_pw (grid / split, C_in,
 // C_out) f32 (the float32 variant's in its accumulators' order, see
 // weight_grad); part_vec (grid / split, K + 4, C) f32: dw taps, dw bias, pw
-// bias, LN scale, LN bias.  grid is a multiple of decoder_block_split(C)
-// (bf16: the blocks of a cluster).
+// bias, LN scale, LN bias.  grid is a multiple of the blocks a tile
+// shares (bf16: a cluster's, decoder_block_bf16_bwd_plan field 3;
+// float32: one).
 int decoder_block_bwd_launch(const void* x, const void* keep, const void* w,
                              const void* wt, const void* dww,
                              const void* dwb, const void* pwb,

@@ -115,6 +115,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
       : "memory");
 }
 
+// a 3-D box of shared memory at `src` to a tensor map's box at (c0, c1,
+// c2), as a bulk group of this thread (bulk_commit, bulk_wait_read);
+// rows outside the tensor are not written
+__device__ __forceinline__ void tma_store_3d(const void* tmap, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(tmap), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// waits until all but N of this thread's committed groups of bulk copies
+// have completed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
@@ -146,6 +165,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // later reads by the async proxy (wgmma's shared-memory operands)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the `count` threads (whole warps) that name barrier `id` (1..15; 0 is
+// __syncthreads') wait for each other
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- clusters and distributed shared memory --------------------------------

@@ -39,9 +39,85 @@ launches_bwd = dict.fromkeys(VARIANTS, 0)
 TAPS = 5                # the depthwise conv's k (csrc: K)
 SMEM_LIMIT = 232448     # dynamic shared memory of a block (csrc: SMEM_LIMIT)
 SM_SMEM = 233472        # shared memory of an SM (csrc: SM_SMEM)
+BF16_TILE = 64 * 64 * 2  # a bf16 operand tile's bytes (csrc: GeoH::TILE)
 F32_FWD_THREADS = 256   # two warpgroups (csrc: GeoF::NT)
 F32_BWD_THREADS = 256   # two warpgroups (csrc: GeoB::NT)
 BF16_BWD_THREADS = 256  # two warpgroups (csrc: GeoH::NT)
+
+
+class BF16FwdPlan(NamedTuple):
+    """How the bf16 forward tiles a decoder of width C (csrc: GeoHF, in
+    this field order): ``tile_rows`` rows a tile (wgmma's M), every one
+    its own; ``blocks_per_sm`` blocks of ``warpgroups`` warpgroups (one
+    per 64 columns) an SM.  Byte offsets from the 1024-byte aligned base:
+    W's (C/64)² 64 × 64 bf16 tiles (8 KB, the 128-byte swizzle) at 0, u's
+    C/64 tiles at ``u_off`` (over which y is staged for its TMA stores,
+    a tile a warpgroup), the x rows' C/64 TMA boxes of 64 channels
+    (``x_box`` bytes each) at ``x_off``, which take the block's next
+    tile's rows while this tile's product and row pass run; the rows'
+    mean and sum of squared deviations over each 64-column slot at
+    ``st_off``, two tiles' keep values of the x rows at ``kp_off``, the
+    weight vectors at ``par_off``, the x rows' mbarrier at ``bar_off``;
+    ``smem`` bytes from the base."""
+    tile_rows: int
+    blocks_per_sm: int
+    warpgroups: int
+    u_off: int
+    x_off: int
+    x_box: int
+    st_off: int
+    kp_off: int
+    par_off: int
+    bar_off: int
+    smem: int
+
+
+def bf16_fwd_plan(c: int) -> BF16FwdPlan:
+    """The bf16 forward's plan at width ``c`` (one of ``WIDTHS``).  A
+    block holds all of W: 70 KB at C = 128, so three blocks share an SM,
+    and 203 KB at C = 256, one; each reserves 1 KB more to align its base
+    and the SM 1 KB a block."""
+    if c not in WIDTHS:
+        raise ValueError(f"decoder_block: no bf16 forward plan for "
+                         f"C = {c}; built for {WIDTHS}")
+    r, nch = 64, c // 64
+    xrows = r + TAPS - 1
+    u_off = nch * nch * BF16_TILE
+    x_off = u_off + nch * BF16_TILE
+    x_box = xrows * 128
+    st_off = x_off + nch * x_box
+    kp_off = st_off + nch * r * 8
+    par_off = kp_off + 2 * -(-xrows // 4) * 16
+    bar_off = par_off + (TAPS + 1) * c * 2 + 3 * c * 4
+    smem = bar_off + 8
+    return BF16FwdPlan(r, SM_SMEM // (smem + 2048), nch, u_off, x_off,
+                       x_box, st_off, kp_off, par_off, bar_off, smem)
+
+
+# the bf16 forward's phases in a tile's order
+BF16_FWD_PHASES = ("wait_x", "u", "v", "row_sums", "y")
+
+
+def bf16_fwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
+    """The bf16 forward's shared-memory buffers at width ``c``: name →
+    (byte offset, bytes, the phases in which it is live)."""
+    pl = bf16_fwd_plan(c)
+    nch = c // 64
+    live = lambda *names: frozenset(names)
+    every = live(*BF16_FWD_PHASES)
+    return {
+        "W tiles": (0, pl.u_off, every),
+        "u": (pl.u_off, nch * BF16_TILE, live("u", "v")),
+        # y staged for its TMA stores, read out before the next tile's u
+        "y": (pl.u_off, nch * BF16_TILE, live("y", "wait_x")),
+        "x rows": (pl.x_off, nch * pl.x_box, live("wait_x", "u")),
+        "next tile's x rows": (pl.x_off, nch * pl.x_box,
+                               live("v", "row_sums", "y")),
+        "row sums": (pl.st_off, pl.kp_off - pl.st_off, live("row_sums", "y")),
+        "keep of x rows": (pl.kp_off, pl.par_off - pl.kp_off, every),
+        "weight vectors": (pl.par_off, pl.bar_off - pl.par_off, every),
+        "mbarrier": (pl.bar_off, pl.smem - pl.bar_off, every),
+    }
 
 
 class F32FwdPlan(NamedTuple):
@@ -252,7 +328,6 @@ class BF16BwdPlan(NamedTuple):
     smem: int
 
 
-BF16_BWD_TILE = 64 * 64 * 2   # an operand tile's bytes (csrc: GeoH::TILE)
 
 
 def bf16_bwd_plan(c: int) -> BF16BwdPlan:
@@ -267,11 +342,11 @@ def bf16_bwd_plan(c: int) -> BF16BwdPlan:
     r, nch, split = 64, c // 64, c // 128
     xrows = r + TAPS - 1
     w_tiles = 4 * nch - 4
-    u_off = w_tiles * BF16_BWD_TILE
-    dv_off = u_off + nch * BF16_BWD_TILE
+    u_off = w_tiles * BF16_TILE
+    dv_off = u_off + nch * BF16_TILE
     x_box = xrows * 64 * 2
     slot = 2 * x_box
-    slot_off = dv_off + nch * BF16_BWD_TILE
+    slot_off = dv_off + nch * BF16_TILE
     st_off = slot_off + 3 * slot
     cs_off = st_off + 20 * r * 4
     kp_off = cs_off + 4 * 3 * 128 * 4
@@ -294,11 +369,11 @@ def bf16_bwd_buffers(c: int) -> Dict[str, Tuple[int, int, FrozenSet[str]]]:
     live in every phase of a tile: it holds this tile's x, dy or t, or the
     next tile's x or dy landing."""
     pl = bf16_bwd_plan(c)
-    r, tiles = pl.tile_rows, c // 64 * BF16_BWD_TILE
+    r, tiles = pl.tile_rows, c // 64 * BF16_TILE
     live = lambda *names: frozenset(names)
     tile = live(*BF16_BWD_PHASES[:-1])
     bufs = {
-        "W tiles": (0, pl.w_tiles * BF16_BWD_TILE, tile),
+        "W tiles": (0, pl.w_tiles * BF16_TILE, tile),
         "u": (pl.u_off, tiles, live("u", "send_u", "v", "row_sums", "dv",
                                     "products")),
         "dv": (pl.dv_off, tiles, live("dv", "products")),
@@ -411,13 +486,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "decoder_block_fwd_launch": ([_P] * 9 + [_I] * 4 + [_F, _I, _P], _I),
     "decoder_block_bwd_launch": ([_P] * 12 + [_I] * 4 + [_F, _I, _P], _I),
-    "decoder_block_tile_rows": ([_I, _I, _I], _I),
-    "decoder_block_fwd_blocks_per_sm": ([_I, _I], _I),
-    "decoder_block_split": ([_I, _I], _I),
     "decoder_block_taps": ([], _I),
     "decoder_block_f32_fwd_plan": ([_I, _I], _I),
     "decoder_block_f32_bwd_plan": ([_I, _I], _I),
     "decoder_block_bf16_bwd_plan": ([_I, _I], _I),
+    "decoder_block_bf16_fwd_plan": ([_I, _I], _I),
     "decoder_block_bwd_clusters": ([_I], _I),
 }
 
@@ -445,6 +518,21 @@ def check_f32_fwd_plan(lib, c: int):
     _plans_checked.add((c, "f32 fwd"))
 
 
+def check_bf16_fwd_plan(lib, c: int):
+    """Raise unless the library's bf16 forward (csrc: GeoHF) has the plan
+    ``bf16_fwd_plan`` gives: the two are kept in step by hand."""
+    if (c, "bf16 fwd") in _plans_checked:
+        return
+    want = bf16_fwd_plan(c)
+    got = tuple(lib.decoder_block_bf16_fwd_plan(c, i)
+                for i in range(len(want)))
+    if got != tuple(want):
+        raise RuntimeError(f"decoder_block: the kernel's bf16 forward "
+                           f"plan at C = {c} is {got}, bf16_fwd_plan says "
+                           f"{tuple(want)}")
+    _plans_checked.add((c, "bf16 fwd"))
+
+
 def check_f32_bwd_plan(lib, c: int):
     """Raise unless the library's float32 backward (csrc: GeoB) has the
     plan ``f32_bwd_plan`` gives: the two are kept in step by hand."""
@@ -457,9 +545,6 @@ def check_f32_bwd_plan(lib, c: int):
         raise RuntimeError(f"decoder_block: the kernel's float32 backward "
                            f"plan at C = {c} is {got}, f32_bwd_plan says "
                            f"{tuple(want)}")
-    if lib.decoder_block_tile_rows(c, 1, 1) != want.owned_rows:
-        raise RuntimeError("decoder_block: float32 backward tile rows "
-                           "disagree with f32_bwd_plan")
     _plans_checked.add(c)
 
 
@@ -475,10 +560,6 @@ def check_bf16_bwd_plan(lib, c: int):
         raise RuntimeError(f"decoder_block: the kernel's bf16 backward "
                            f"plan at C = {c} is {got}, bf16_bwd_plan says "
                            f"{tuple(want)}")
-    if (lib.decoder_block_tile_rows(c, 1, 0) != want.owned_rows
-            or lib.decoder_block_split(c, 0) != want.cluster):
-        raise RuntimeError("decoder_block: bf16 backward tile rows or "
-                           "cluster disagree with bf16_bwd_plan")
     _plans_checked.add((c, "bf16"))
 
 
@@ -519,19 +600,16 @@ def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
           dev) -> int:
     """Persistent grids: the forward fills every SM with as many blocks as
     fit on one; the backward puts one block on each SM, at most one a
-    tile: float32 one block a tile, bf16 a cluster of ``split`` blocks
+    tile: float32 one block a tile, bf16 a cluster of ``_split`` blocks
     (one per 128 columns), as many clusters as the card runs at once.
-    The float32 forward's tile rows and blocks an SM are its plan's."""
-    if f32 and not backward:
-        plan = f32_fwd_plan(c)
-        rows, per_sm = plan.tile_rows, plan.blocks_per_sm
-    else:
-        rows = lib.decoder_block_tile_rows(c, int(backward), f32)
-        per_sm = lib.decoder_block_fwd_blocks_per_sm(c, f32)
-    tiles = b * len(owned_tiles(m, rows))
+    Tile rows and blocks an SM are the plans'."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not backward:
-        return max(1, min(tiles, per_sm * sms))
+        plan = f32_fwd_plan(c) if f32 else bf16_fwd_plan(c)
+        tiles = b * len(owned_tiles(m, plan.tile_rows))
+        return max(1, min(tiles, plan.blocks_per_sm * sms))
+    plan = f32_bwd_plan(c) if f32 else bf16_bwd_plan(c)
+    tiles = b * len(owned_tiles(m, plan.owned_rows))
     if f32:
         return max(1, min(tiles, sms))
     if c not in _bwd_clusters:
@@ -540,18 +618,27 @@ def _grid(lib, b: int, m: int, c: int, f32: int, backward: bool,
         if _bwd_clusters[c] < 1:
             raise RuntimeError(f"decoder_block: no cluster of the bf16 "
                                f"backward fits the card at C = {c}")
-    return lib.decoder_block_split(c, f32) * min(tiles, _bwd_clusters[c])
+    return _split(c, f32) * min(tiles, _bwd_clusters[c])
+
+
+def _split(c: int, f32: int) -> int:
+    """Backward blocks that share a tile: bf16 a cluster, one block per
+    128 columns; float32 one."""
+    return 1 if f32 else bf16_bwd_plan(c).cluster
 
 
 def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
-                      eps: float = 1e-5, *, grid: Optional[int] = None
-                      ) -> torch.Tensor:
+                      eps: float = 1e-5, *, grid: Optional[int] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, M, C), keep (B, M) float32 → y (B, M, C).  On CUDA: x bf16 or
     float32 and C in ``WIDTHS``.  ``grid``: the persistent grid's blocks
-    (by default as many as fit on the card, at most one a tile)."""
+    (by default as many as fit on the card, at most one a tile); ``out``:
+    where y is written (by default a new tensor), on the card a contiguous
+    tensor that does not overlap x."""
     if x.device.type == "cpu":
-        return decoder_block_fwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b,
-                                       ln_s, ln_b, eps)
+        y = decoder_block_fwd_plain(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s,
+                                    ln_b, eps)
+        return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise ValueError(f"decoder_block: unsupported device {x.device}")
     lib = _lib()
@@ -563,9 +650,17 @@ def decoder_block_fwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, ln_b,
     if f32:  # the float32 product reads W in wgmma's A-fragment order
         check_f32_fwd_plan(lib, c)
         w_io = a_fragments(w_io)
+    else:
+        check_bf16_fwd_plan(lib, c)
     if grid is None:
         grid = _grid(lib, b, m, c, f32, False, x.device)
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else out
+    build.check_tensor("out", y, x.dtype, (b, m, c), x.device)
+    # the kernel reads x's rows by TMA (a tile's halo rows too) while it
+    # stores y's tiles: y over x would race
+    nbytes = x.numel() * x.element_size()
+    if abs(y.data_ptr() - x.data_ptr()) < nbytes:
+        raise ValueError("decoder_block: out must not overlap x")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.decoder_block_fwd_launch(
@@ -608,7 +703,7 @@ def decoder_block_bwd(x, keep, dw_w, dw_b, pw_w, pw_b, ln_s, dy,
     k = dw_w.shape[2]
     if grid is None:
         grid = _grid(lib, b, m, c, f32, True, dev)
-    groups = grid // lib.decoder_block_split(c, f32)
+    groups = grid // _split(c, f32)
     dx = torch.empty_like(x)
     part_pw = torch.empty((groups, c, c), dtype=torch.float32, device=dev)
     part_vec = torch.empty((groups, k + 4, c), dtype=torch.float32,

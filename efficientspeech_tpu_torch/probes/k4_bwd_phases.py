@@ -1,23 +1,22 @@
-"""Where K4's backward, or its float32 forward, spends its time, on the
-card:
+"""Where K4's kernels spend their time, on the card:
 
     python -m efficientspeech_tpu_torch.probes.k4_bwd_phases [--dtype bf16]
-    python -m efficientspeech_tpu_torch.probes.k4_bwd_phases --pass fwd
+    python -m efficientspeech_tpu_torch.probes.k4_bwd_phases --pass fwd \
+        [--dtype bf16]
 
 Builds ``csrc/decoder_block.cu`` once more with ``-DDECODER_BLOCK_STAMPS``
-(into ``build/kernels/``), which makes thread 0 of every block of the
-backward (float32 or bf16) or of the float32 forward add the
-``%globaltimer`` time between the kernel's phase stamps to a device
-array, and runs the kernel through that build at the training shape
-(128, 1024, C), C = 128 and 256, with chip_smoke.py's inputs.  It prints,
-per launch, each phase's time summed over a block's tiles and averaged
-over the blocks, its share, and the launch's CUDA-event time with and
-without the stamps, with the card's name and power limit.  A phase ends
-at the barrier after it, so it includes the wait for the block's slowest
-warp (in bf16 at C = 256, for the other block of its cluster too; the
-forward's row pass is thread 0's warp's, the wait for the others falls
-in the next tile's first phase).  It needs a card and raises without
-one.
+(into ``build/kernels/``), which makes thread 0 of every block of each
+kernel add the ``%globaltimer`` time between the kernel's phase stamps to
+a device array, and runs the backward or the forward (float32 or bf16)
+through that build at the training shape (128, 1024, C), C = 128 and
+256, with chip_smoke.py's inputs.  It prints, per launch, each phase's
+time summed over a block's tiles and averaged over the blocks, its share,
+and the launch's CUDA-event time with and without the stamps, with the
+card's name and power limit.  A phase ends at the barrier after it, so it
+includes the wait for the block's slowest warp (in bf16 at C = 256, for
+the other block of its cluster too; a forward's row pass is thread 0's
+warp's, the wait for the others falls in the next tile's first phase).
+It needs a card and raises without one.
 """
 
 import argparse
@@ -37,6 +36,9 @@ PHASES = {
     "fwd f32": ("wait for x's rows and the slowest warp",
                 "depthwise + split u", "v = u W (wgmma)",
                 "v's rows over the split buffer", "row pass: t, LayerNorm, y"),
+    "fwd bf16": ("wait for x's rows and the slowest warp", "depthwise u",
+                 "v = u W (wgmma)", "t and the row sums",
+                 "LayerNorm and y"),
     "f32": ("load x", "depthwise + split u", "v = u W (wgmma)",
             "row pass: t, LayerNorm, dv", "weight gradient (mma.sync)",
             "split dv", "du = dv W^T (wgmma)", "load x again",
@@ -99,8 +101,6 @@ def main():
                         default="bwd")
     args = parser.parse_args()
     fwd = args.direction == "fwd"
-    if fwd and args.dtype != "f32":
-        parser.error("--pass fwd stamps the float32 forward only")
     dt = DTYPES[args.dtype]
     phases = PHASES[f"fwd {args.dtype}" if fwd else args.dtype]
     f32 = int(dt == torch.float32)
@@ -110,12 +110,12 @@ def main():
     sums = (ctypes.c_ulonglong * N_STAMPS)()
     for c in k4.WIDTHS:
         x, keep, weights, dy = _inputs(c, dt, dev)
+        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, f32, not fwd,
+                        dev)
         if fwd:
             run = lambda: k4.decoder_block_fwd(x, keep, *weights)
         else:
             run = lambda: k4.decoder_block_bwd(x, keep, *weights[:5], dy)
-        grid = k4._grid(plain_lib, x.shape[0], x.shape[1], c, f32, not fwd,
-                        dev)
         ms_plain, _ = time_ms(run, 20)
         k4._lib = lambda: stamped
         try:

@@ -108,6 +108,16 @@ def test_matches_jax_kernel(dtype, c):
                                        err_msg=name)
 
 
+def test_fwd_writes_out_on_cpu():
+    """``out`` receives y on the CPU too, and is what comes back."""
+    a = _inputs(1)
+    x, keep = torch.from_numpy(a["x"]), torch.from_numpy(a["keep"])
+    w = _torch_weights(a)
+    out = torch.full_like(x, float("nan"))
+    assert k4.decoder_block_fwd(x, keep, *w, out=out) is out
+    assert torch.equal(out, k4.decoder_block_fwd(x, keep, *w))
+
+
 def test_padding_is_masked_and_keep_has_no_grad():
     a = _inputs(1)
     x = torch.from_numpy(a["x"]).requires_grad_()
@@ -172,6 +182,65 @@ def test_check_supported_names_the_kernel_widths():
     widths = {p: MelDecoder(ModelConfig.preset(p)).proj_norm.weight.shape[0]
               for p in ("tiny", "small", "base")}
     assert widths == {"tiny": 128, "small": 256, "base": 256}
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bf16_fwd_plan_fits_and_buffers_do_not_overlap(c):
+    """The bf16 forward's shared memory at each width: every buffer lies
+    inside the plan's bytes, which with the 1,024 bytes that align the
+    base fit a block's 227 KB, its blocks an SM (each with 1 KB more
+    reserved) fit the SM's 228 KB, and no two buffers that are live in the
+    same phase overlap.  A tile is one wgmma M (64 rows), a warpgroup per
+    64 columns; W's and u's operand tiles sit on 8 KB boundaries, the x
+    rows' TMA boxes (68 rows of 64 channels) on 128-byte ones."""
+    pl = k4.bf16_fwd_plan(c)
+    assert pl.smem + 1024 <= k4.SMEM_LIMIT
+    assert pl.blocks_per_sm >= 1
+    assert pl.blocks_per_sm * (pl.smem + 2048) <= k4.SM_SMEM
+    assert (pl.blocks_per_sm + 1) * (pl.smem + 2048) > k4.SM_SMEM
+    assert pl.tile_rows == 64 and pl.warpgroups == c // 64
+    assert pl.u_off == (c // 64) ** 2 * k4.BF16_TILE
+    assert pl.x_off == pl.u_off + c // 64 * k4.BF16_TILE
+    assert pl.x_box == (pl.tile_rows + K - 1) * 128
+    assert pl.x_off % 128 == 0 and pl.x_box % 128 == 0
+    for off in (pl.st_off, pl.kp_off, pl.par_off):
+        assert off % 16 == 0
+    assert pl.bar_off % 8 == 0
+    bufs = k4.bf16_fwd_buffers(c)
+    for name, (off, size, phases) in bufs.items():
+        assert 0 <= off and off + size <= pl.smem, name
+        assert phases <= set(k4.BF16_FWD_PHASES), name
+    assert {p for _, _, ph in bufs.values() for p in ph} == set(
+        k4.BF16_FWD_PHASES)
+    names = sorted(bufs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            (oa, sa, pa), (ob, sb, pb) = bufs[a], bufs[b]
+            if pa & pb:
+                assert oa + sa <= ob or ob + sb <= oa, (a, b)
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("m", [1, 5, 63, 64, 65, 127, 128, 129, 1000,
+                               1024])
+def test_bf16_fwd_tiles_cover_every_frame_once(c, m):
+    """The bf16 forward's tiles, which own all their rows, cover a
+    sequence of any length exactly once: below one tile, at a multiple of
+    the tile and one row past it, and at the training length."""
+    pl = k4.bf16_fwd_plan(c)
+    tiles = k4.owned_tiles(m, pl.tile_rows)
+    assert len(tiles) == -(-m // pl.tile_rows)
+    covered = np.zeros(m, int)
+    for m0, rows in tiles:
+        assert 0 < rows <= pl.tile_rows
+        covered[m0:m0 + rows] += 1
+    assert (covered == 1).all()
+
+
+def test_bf16_fwd_plan_refuses_other_widths():
+    for c in (64, 192, 384):
+        with pytest.raises(ValueError, match="no bf16 forward plan"):
+            k4.bf16_fwd_plan(c)
 
 
 @pytest.mark.parametrize("c", WIDTHS)
@@ -327,9 +396,9 @@ def test_bf16_bwd_plan_fits_and_buffers_do_not_overlap(c):
     assert pl.cluster == c // 128 and pl.warpgroups == 2
     assert pl.w_tiles == 4 * (c // 64) - 4 <= (c // 64) ** 2
     for off in (pl.u_off, pl.dv_off):
-        assert off % k4.BF16_BWD_TILE == 0
+        assert off % k4.BF16_TILE == 0
     assert pl.x_box == (pl.tile_rows + K - 1) * 128 and pl.ld_t // 2 % 32 == 4
-    assert pl.slot >= max(2 * pl.x_box, 2 * k4.BF16_BWD_TILE,
+    assert pl.slot >= max(2 * pl.x_box, 2 * k4.BF16_TILE,
                           pl.tile_rows * pl.ld_t * 2)
     assert pl.slot_off % 1024 == 0 and pl.slot % 1024 == 0
     assert pl.tile_rows * pl.ld_du * 4 <= pl.slot_off - pl.u_off
