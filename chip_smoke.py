@@ -8,8 +8,9 @@ Phases (each prints its lines; any failure exits non-zero):
                power limit; TF32 is switched off for cuBLAS and cuDNN;
   2. build   - compiles the CUDA kernels of csrc/ with nvcc, in parallel,
                and prints the registers and spills (-Xptxas -v) of the
-               kernels of folded_matmul.cu, mrf_block.cu and
-               decoder_block.cu (a spill or a serialised wgmma in
+               kernels of folded_matmul.cu, mrf_block.cu,
+               decoder_block.cu and adpcm_encode.cu (a spill or a
+               serialised wgmma in
                mrf_block.cu or in any of K4's kernels fails the phase);
   3. K1      - folded_matmul at the main path's shapes for 2,048 mel frames
                (+ one w = 13 case with residual, accum and out_scale),
@@ -26,9 +27,23 @@ Phases (each prints its lines; any failure exits non-zero):
                frames, so the kernels engage) and three short ones, with
                launch counts, a check of every waveform, and the long
                request held against the plain vocoder route;
+     batch   - tts_batch on the adpcm3 wire: 128 copies of the long text
+               (K1 5 and K2 4 launches a row through the kernel route's
+               row loop, one ADPCM encode) and a mixed batch of the long
+               and short texts, each row held to its text's single
+               request on the same wire, with wall time and voice seconds;
+     stream  - tts_stream of the long text (segment count, each finite),
+               and the long request in vocoder_mode "chunked" held to the
+               folded kernel route at the end-to-end bar;
   6. f32     - phases 3-5 again for a float32 synthesizer (the same model,
                folded in float32: --precision f32), through the kernels'
-               float32 variants, with one long and one short request;
+               float32 variants, with one long and one short request, and
+               a batch of 4 long requests;
+     ADPCM   - the ADPCM encoder (csrc/adpcm_encode.cu) against its plain
+               version, bit-equal, for 4, 3 and 2 bits at the long
+               request's and the batch's shapes, with times and its byte
+               bound; a speech-like signal through each wire at the JAX
+               tests' SNR bars;
   7. K3      - layer_norm_fused forward and backward at the training shape
                (131,072 rows of C) against the plain version, with
                F.layer_norm and its autograd backward as the yardstick,
@@ -58,17 +73,20 @@ Phases (each prints its lines; any failure exits non-zero):
                cost of the epoch boundary, finite losses, the loss falling
                over repeated steps on one batch, and the kernel route's
                loss and gradients held against the plain route's on one
-               batch.
-The kernel table goes on a JSON line before the last, 22 rows, each with
+               batch;
+ 11. bench   - python -m efficientspeech_tpu_torch.bench --iter 5 --warmup
+               2 --batch 16 in a process of its own, its lines printed.
+The kernel table goes on a JSON line before the last, 23 rows, each with
 its dtype (the rows of kernels redesigned for Hopper also name the
 design; float32 product bounds at the faster of FFMA's 67 TFLOP/s and
 3xTF32 on the tensor cores, the FFMA-route bound printed beside; K1/K2 times per utterance at 2,048 frames, K3/K4 times per
 train step: the per-launch time × the launches of a step, tiny preset for
-C = 128 and small for C = 256; K5 per call at the probe's shape); the last
-line is {"ok": true, "device": {...}}.  With --profile, the slice and
-train phases also trace a long request and a train step with
-torch.profiler and print where the device time goes and the device's
-idle share.
+C = 128 and small for C = 256; K5 per call at the probe's shape; the
+ADPCM encoder per call at the batch's shape, adpcm3); the last
+line is {"ok": true, "device": {...}}.  With --profile, the slice, batch and
+train phases also trace a long request, a batch of 128 long requests
+(bf16) and a train step with torch.profiler and print where the device
+time goes and the device's idle share.
 
 Tolerances: the bf16 kernels multiply in bf16 with float32 accumulation
 (the TPU's MXU arithmetic) while the plain versions multiply in float32,
@@ -91,7 +109,16 @@ largest magnitude (the one float32 multiply by the scale).  A bf16 train
 step of the kernel route is held to the plain route's at loss relative
 difference <= 1e-2 and cosine >= 0.99 for every parameter gradient that is
 not zero (both run bf16 activations that round at other places); a
-float32 step at 1e-4 and 0.999.
+float32 step at 1e-4 and 0.999.  The ADPCM encoder is integer
+arithmetic on float32 values that are exact, so it is held bit-equal.  A
+batch row is held to its text's single request on the same wire at SNR
+>= 35 dB, the bf16 kernels' bar: the acoustic model runs at another batch
+size than the single request (the library picks other kernels, so bf16
+rounds at other places), the mixed batch's short rows take the kernel
+route at the long row's buffer where their single requests take the
+plain route, and where such a difference moves an ADPCM block's step or
+a quantiser decision the codec's error moves with it; a row holding
+another row's audio, or shifted by a frame, lands near or below 0 dB.
 """
 
 import argparse
@@ -146,6 +173,15 @@ K4_BF16_BWD_FLOOR_DB = {
     256: {"dx": 71.0, "d_dw_w": 81.0, "d_dw_b": 86.0, "d_pw_w": 81.0,
           "d_pw_b": 94.0, "d_ln_s": 88.0, "d_ln_b": 128.0}}
 F32_E2E_SNR_DB = 80.0
+# the batch phase: the bench's batch size and wire
+BATCH_ROWS = 128
+BATCH_TRANSFER = "adpcm3"
+# a batch row against its text's single request on the same wire (see
+# the module's note): the card gives 43.0-43.3 dB in bf16, 82.4 in f32
+# (NVIDIA H100 80GB HBM3, 700 W; this script)
+BATCH_SNR_DB = 35.0
+# the JAX package's codec tests' bars on a speech-like signal
+ADPCM_SNR_DB = {"adpcm4": 32.0, "adpcm3": 32.0, "adpcm2": 22.0}
 K5_REL_ERR = 1e-6
 # the training shape: train.py's defaults
 TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
@@ -321,7 +357,8 @@ def phase_device() -> str:
 # source, a pattern of the kernels where a spill or a serialised wgmma
 # fails the phase (every kernel of mrf_block.cu, and of decoder_block.cu:
 # K4's forward and backward in bf16 and float32, all four on wgmma)
-PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block")
+PTXAS_SOURCES = ("folded_matmul", "mrf_block", "decoder_block",
+                 "adpcm_encode")
 PTXAS_STRICT = {"mrf_block": "", "decoder_block": ""}
 
 
@@ -650,11 +687,227 @@ def trace(fn, label: str, card: str):
               f"x{e.count:<5d} {e.key[:90]}")
 
 
-def phase_profile(synth, card: str):
-    """Trace one long request."""
+def phase_profile(synth, card: str, batch: bool = False):
+    """Trace one long request and, with ``batch``, one batch of
+    BATCH_ROWS long requests on the batch's wire."""
     seq = synth.phonemize(LONG_TEXT)
     trace(lambda: synth.synthesize_ids(seq),
           f"long request {dname(synth.dtype)}", card)
+    if batch:
+        transfer, synth.transfer = synth.transfer, BATCH_TRANSFER
+        trace(lambda: synth.tts_batch([LONG_TEXT] * BATCH_ROWS),
+              f"batch of {BATCH_ROWS} long requests, {BATCH_TRANSFER} wire, "
+              f"{dname(synth.dtype)}", card)
+        synth.transfer = transfer
+
+
+def _reset_counts(*modules):
+    for m in modules:
+        m.launches.update(dict.fromkeys(m.launches, 0))
+
+
+def phase_batch(synth, card: str, rows: int = BATCH_ROWS):
+    """``tts_batch`` on the ADPCM3 wire: ``rows`` copies of the long text
+    (the bench's batch) and a mixed batch of the long and short texts,
+    with the launches of K1, K2 and the ADPCM encoder counted from 0 just
+    before each batch and read just after (K1 5 and K2 4 a row of the
+    padded batch, in the serving dtype; one encode a program); each row
+    held to its text's single request on the same wire.  Returns the
+    batch's launches and the speculative frames of its program."""
+    from efficientspeech_tpu_torch.ops.kernels import adpcm
+    from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+    from efficientspeech_tpu_torch.ops.kernels import mrf_block
+
+    dt = synth.dtype
+    tag = "batch" + f32_suffix(dt)
+    up = synth.hifigan_cfg.total_upsample
+    transfer, synth.transfer = synth.transfer, BATCH_TRANSFER
+    cases = [(f"{rows} x long", [LONG_TEXT] * rows)]
+    if dt == torch.bfloat16:
+        cases.append(("mixed", [LONG_TEXT, *SHORT_TEXTS]))
+    singles = {}
+    for text in {t for _, texts in cases for t in texts}:
+        synth.tts(text)  # warm-up, and the ratio observed
+        singles[text] = synth.tts(text)[0]
+    launches, spec = {}, None
+    for name, texts in cases:
+        synth.tts_batch(texts)  # warm-up: first-call set-up stays out
+        seqs = [synth.phonemize(t) for t in texts]
+        bucket = synth._pad_to_bucket(max(seqs, key=len))[2]
+        frames = synth._spec_frames(max(len(q) for q in seqs), bucket)
+        b_pad = 1 << (len(texts) - 1).bit_length()
+        torch.cuda.synchronize()
+        _reset_counts(fm, mrf_block, adpcm)
+        t0 = time.perf_counter()
+        outs = synth.tts_batch(texts)
+        wall = time.perf_counter() - t0
+        k1, k2, enc = (fm.launches[dt], mrf_block.launches[dt],
+                       adpcm.launches[3])
+        voice = sum(info["voice_secs"] for _, info in outs)
+        print(f"[{tag}] {name}: {len(texts)} rows (padded to {b_pad}), "
+              f"{frames} speculative frames, {BATCH_TRANSFER} wire | wall "
+              f"{wall * 1e3:.1f} ms (the program and the copy to the host "
+              f"{outs[0][1]['batch_secs'] * 1e3:.1f}, the rest the host's "
+              f"decode), voice {voice:.2f} s, RTF {voice / wall:.1f} | "
+              f"launches K1 {k1} K2 {k2} ADPCM {enc} | {card}")
+        if (k1, k2, enc) != (5 * b_pad, 4 * b_pad, 1):
+            fail(f"{tag} {name}: launches K1 {k1} K2 {k2} ADPCM {enc}; "
+                 f"expected {5 * b_pad}, {4 * b_pad} and 1")
+        other = sum(n for m in (fm, mrf_block) for k, n in m.launches.items()
+                    if k != dt) + sum(adpcm.launches.values()) - enc
+        if other:
+            fail(f"{tag} {name}: {other} launches of another variant")
+        worst, equal = float("inf"), 0
+        for i, (text, (wav, info)) in enumerate(zip(texts, outs)):
+            want = singles[text]
+            if wav.shape != (info["mel_len"] * up,) or len(want) != len(wav):
+                fail(f"{tag} {name} row {i}: {len(wav)} samples, the single "
+                     f"request {len(want)}")
+            if not np.isfinite(wav).all():
+                fail(f"{tag} {name} row {i}: non-finite samples")
+            equal += bool(np.array_equal(wav, want))
+            worst = min(worst, snr_db(torch.from_numpy(want),
+                                      torch.from_numpy(wav)))
+        print(f"[{tag}] {name}: rows against their single requests: "
+              f"{equal} of {len(texts)} bit-equal, worst SNR {worst:.1f} dB "
+              f"(tol >= {BATCH_SNR_DB}) | {card}")
+        if worst < BATCH_SNR_DB:
+            fail(f"{tag} {name}: a row at {worst:.1f} dB < {BATCH_SNR_DB} dB "
+                 f"of its single request")
+        if name != "mixed":
+            launches = {"folded_matmul" + f32_suffix(dt, "_"): k1,
+                        "mrf_fused" + f32_suffix(dt, "_"): k2,
+                        "adpcm_encode": enc}
+            spec = frames
+    synth.transfer = transfer
+    return launches, spec
+
+
+def phase_stream_chunked(synth, card: str):
+    """``tts_stream`` of the long text (its segments, each finite), and
+    the long request in ``vocoder_mode="chunked"`` (the conv generator
+    over 128-frame chunks) held to the folded kernel route's waveform at
+    the end-to-end bar."""
+    seq = synth.phonemize(LONG_TEXT)
+    max_len = synth.phoneme_buckets[-1] // 4
+    want = len(synth._segment(seq, max_len))
+    list(synth.tts_stream(LONG_TEXT))  # warm-up
+    t0 = time.perf_counter()
+    segs = list(synth.tts_stream(LONG_TEXT))
+    wall = time.perf_counter() - t0
+    if len(segs) != want or want < 2:
+        fail(f"stream: {len(segs)} segments, expected {want} (>= 2)")
+    for wav, info in segs:
+        if (not np.isfinite(wav).all() or info["mel_len"] <= 0
+                or len(wav) != info["mel_len"]
+                * synth.hifigan_cfg.total_upsample):
+            fail(f"stream: segment {info['segment']} is not a finite "
+                 f"waveform of its mel length")
+    print(f"[stream] long text: {len(segs)} segments of <= {max_len} "
+          f"phonemes, first after {segs[0][1]['secs'] * 1e3:.1f} ms, all "
+          f"in {wall * 1e3:.1f} ms | {card}")
+
+    wav_f, mel_f, _ = synth.synthesize_ids(seq)
+    synth.vocoder_mode = "chunked"
+    synth.synthesize_ids(seq)  # warm-up
+    t0 = time.perf_counter()
+    wav_c, mel_c, _ = synth.synthesize_ids(seq)
+    wall = time.perf_counter() - t0
+    synth.vocoder_mode = "folded_kernel"
+    if mel_c != mel_f:
+        fail(f"chunked mode mel_len {mel_c} != folded route {mel_f}")
+    snr = snr_db(torch.from_numpy(wav_f), torch.from_numpy(wav_c))
+    print(f"[chunked] long request, chunked mode vs folded kernel route: SNR "
+          f"{snr:.1f} dB (tol >= {E2E_SNR_DB}) | {wall * 1e3:.1f} ms | {card}")
+    if not np.isfinite(wav_c).all() or snr < E2E_SNR_DB:
+        fail(f"chunked mode: SNR {snr:.1f} dB < {E2E_SNR_DB} dB")
+
+
+def speechlike(n: int, seed: int = 0) -> np.ndarray:
+    """A harmonic stack under an amplitude envelope and breath noise (the
+    JAX package's codec tests' signal)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 22050.0
+    f0 = 140 + 40 * np.sin(2 * np.pi * 2.1 * t)
+    phase = np.cumsum(2 * np.pi * f0 / 22050.0)
+    x = (0.5 * np.sin(phase) + 0.25 * np.sin(2 * phase)
+         + 0.12 * np.sin(3 * phase))
+    env = 0.3 + 0.7 * (0.5 + 0.5 * np.sin(2 * np.pi * 3.7 * t)) ** 2
+    x = x * env + 0.01 * rng.normal(size=n)
+    return (0.8 * x / np.abs(x).max()).astype(np.float32)
+
+
+def phase_adpcm(card: str, batch_frames: int):
+    """The ADPCM encoder against its plain version, bit-equal, for each
+    width at the long request's shape (1 x 4,096 frames) and the batch's
+    (BATCH_ROWS x its speculative frames), with constant, full-scale and
+    clipped blocks among random ones; times by CUDA events, the bound the
+    bytes read and written over the memory rate.  Then the decoded
+    waveform of a speech-like signal at the codec's SNR bar."""
+    from efficientspeech_tpu_torch.audio.transfer import decode_host
+    from efficientspeech_tpu_torch.ops.kernels import adpcm
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    shapes = (("long", 1, 4096 * 256),
+              ("batch", BATCH_ROWS, batch_frames * 256))
+    row = None
+    for name, b, t in shapes:
+        x = torch.rand(b, t, generator=gen) * 2.4 - 1.2
+        lanes = x.view(-1, 256)
+        lanes[0::16] = 0.3
+        lanes[1::16] = torch.where(lanes[1::16] > 0, 1.0, -1.0)
+        lanes[2::16] *= 3.0
+        x = x.cuda()
+        for bits in adpcm.BITS:
+            got = adpcm.adpcm_encode(x, bits)
+            want = adpcm.adpcm_encode_plain(x, bits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"ADPCM{bits} {name}: {int((got != want).sum())} bytes "
+                     f"differ from the plain version")
+            ms, host_ms = time_ms(lambda: adpcm.adpcm_encode(x, bits), 20)
+            plain_ms, _ = time_ms(lambda: adpcm.adpcm_encode_plain(x, bits),
+                                  2)
+            b_ms, by = bound(0.0, x.numel() * 4 + got.numel())
+            print(f"[ADPCM{bits}] {name}: {b} x {t} samples -> {got.numel()} "
+                  f"bytes | bit-equal | kernel_ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms null bound_ms {b_ms:.4f} "
+                  f"({by}) | wrapper host_ms {host_ms:.4f} | {card}")
+            if (name, bits) == ("batch", 3):
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=by, max_abs_err=0.0, library_ms=None)
+        del x, got, want
+    n = 64 * 256
+    sig = speechlike(n)
+    for fmt, bar in ADPCM_SNR_DB.items():
+        bits = int(fmt[-1])
+        wire = adpcm.adpcm_encode(torch.from_numpy(sig[None]).cuda(), bits)
+        y = decode_host(wire.cpu().numpy()[0], fmt)
+        snr = 10 * np.log10((sig ** 2).sum() / ((sig - y) ** 2).sum())
+        print(f"[ADPCM{bits}] speech-like signal through the wire: SNR "
+              f"{snr:.1f} dB (tol > {bar}) | {card}")
+        if len(y) != n or not snr > bar:
+            fail(f"{fmt}: decoded SNR {snr:.1f} dB <= {bar} dB")
+    return row
+
+
+def phase_bench(card: str):
+    """The bench entry point once, in a process of its own, at a small
+    size; its lines are printed as they come."""
+    cmd = [sys.executable, "-m", "efficientspeech_tpu_torch.bench",
+           "--iter", "5", "--warmup", "2", "--batch", "16"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in out.stdout.splitlines():
+        print(f"[bench] {line}")
+    if out.returncode != 0:
+        fail(f"{' '.join(cmd[1:])} exited {out.returncode}:\n"
+             f"{out.stderr[-4000:]}")
+    last = json.loads(out.stdout.splitlines()[-1])
+    if last["metric"] != "text_to_wav_rtf" or not last["value"] > 0:
+        fail(f"bench: the last line is not a text_to_wav_rtf: {last}")
+    print(f"[bench] {time.perf_counter() - t0:.1f} s | {card}")
 
 
 def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB,
@@ -1111,8 +1364,11 @@ def main():
     k1 = {"bf16": phase_k1(synth, card)}
     k2 = {"bf16": phase_k2(synth, card)}
     launches = phase_slice(synth, card)
+    batch_launches, batch_frames = phase_batch(synth, card)
+    launches["adpcm_encode"] = batch_launches["adpcm_encode"]
+    phase_stream_chunked(synth, card)
     if args.profile:
-        phase_profile(synth, card)
+        phase_profile(synth, card, batch=True)
     del synth
     torch.cuda.empty_cache()
 
@@ -1128,6 +1384,7 @@ def main():
     k2["f32"] = phase_k2(synth, card)
     launches.update(phase_slice(synth, card,
                                 texts=(LONG_TEXT, SHORT_TEXTS[0])))
+    phase_batch(synth, card, rows=4)
     if args.profile:
         phase_profile(synth, card)
     del synth
@@ -1141,6 +1398,7 @@ def main():
             k3[c, dname(dt)] = phase_k3(card, c, per_step, dt)
         for c, per_step in ((128, 4), (256, 6)):
             k4[c, dname(dt)] = phase_k4(card, c, per_step, dt)
+    adpcm_row = phase_adpcm(card, batch_frames)
     k5, k5_launches = phase_k5(card)
     launches.update(k5_launches)
     with tempfile.TemporaryDirectory() as root:
@@ -1155,6 +1413,8 @@ def main():
                     card, preset, data,
                     os.path.join(root, f"{preset}_{dname(dt)}"),
                     args.profile, dt))
+
+    phase_bench(card)
 
     csrc = "efficientspeech_tpu_torch/csrc/"
     pallas = "efficientspeech_tpu/ops/pallas/"
@@ -1185,6 +1445,10 @@ def main():
                  csrc + "int8_window.cu", probe, k5["bf16"]),
                 ("int8_window_matmul int8-in", "k5_int8", "int8",
                  csrc + "int8_window.cu", probe, k5["int8"])]
+    # not a Pallas kernel: the JAX package's lax.scan encoder, one launch
+    rows.append(("adpcm_encode adpcm3", "adpcm_encode", "f32 in, uint8 out",
+                 csrc + "adpcm_encode.cu", "efficientspeech_tpu/audio/"
+                 "adpcm.py:59", adpcm_row))
     table = []
     for name, key, dn, src, replaces, stats in rows:
         if launches[key] == 0:

@@ -760,12 +760,30 @@ bool parse_spec(const int* spec, MrfOps& ops) {
   return true;
 }
 
+// The maps of the last few W_all encoded, by pointer and rows: a map holds
+// nothing else, so a hit is the map the encoder would give, and a batch,
+// which launches each stage once a row, encodes each stage's map once.
+struct MapEntry {
+  CUtensorMap map;
+  const void* W;
+  int rows;
+};
+constexpr int MAP_CACHE = 8;
+MapEntry map_cache[MAP_CACHE] = {};
+int map_next = 0;
+
 // The tensor map of the bf16 W_all (rows x 128, row-major) in boxes of 128
 // k rows x 64 columns with the 128-byte swizzle: a box is half a tap
 // slice (one warpgroup's output channels), laid out as
 // bf16v::slice_offset lays it.  The driver's encoder is found through the
 // runtime, so nothing links against the driver library.
 cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
+  for (const MapEntry& m : map_cache) {
+    if (m.W == W && m.rows == rows) {
+      *map = m.map;
+      return cudaSuccess;
+    }
+  }
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -796,7 +814,10 @@ cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  map_cache[map_next] = {*map, W, rows};
+  map_next = (map_next + 1) % MAP_CACHE;
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -16,6 +16,9 @@ import os
 
 import numpy as np
 
+from efficientspeech_tpu_torch.audio.transfer import FORMATS
+from efficientspeech_tpu_torch.infer import VOCODER_MODES
+
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -31,9 +34,15 @@ def get_args(argv=None):
                         help="serving dtype: bf16, or float32 throughout "
                              "(TF32 off)")
     parser.add_argument("--transfer", default="int16",
-                        choices=["f32", "int16", "mulaw"])
+                        choices=list(FORMATS),
+                        help="card → host PCM wire format (adpcm4/3/2: "
+                             "block-ADPCM encoded by a CUDA kernel)")
     parser.add_argument("--vocoder", default="folded_kernel",
-                        choices=["folded", "folded_kernel"])
+                        choices=list(VOCODER_MODES),
+                        help="folded_kernel: the CUDA kernels from 2,048 "
+                             "speculative frames on; folded: plain "
+                             "matmuls; chunked: the conv generator over "
+                             "128-frame chunks (split pipeline)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--bench-duration-bias", type=float, default=4.0,
                         help="duration head bias for random weights")

@@ -1,29 +1,38 @@
 """Inference engine: text → waveform on one card (counterpart of the JAX
-package's ``infer.py``, single-utterance path).
+package's ``infer.py``).
 
 The host does the text frontend (cleaners + lexicon/G2P) and pads the
-phoneme IDs to a length bucket.  On the card, the acoustic model predicts
-a mel spectrogram into a buffer sized speculatively from the phoneme
+phoneme IDs to a length bucket.  On the card, the fused route runs the
+acoustic model into a mel buffer sized speculatively from the phoneme
 count, the folded HiFi-GAN vocodes it, and the waveform is wire-encoded.
 The mel length is clamped on the card and reaches the vocoder (and its
 kernels) as a device tensor, so nothing waits for the host between the
 two models; the host reads the mel length once at the end and copies only
-the valid ``mel_len × hop`` samples.
+the valid ``mel_len × hop`` samples.  ``tts_batch`` runs a whole batch
+through one such program (the vocoder's kernels row by row);
+``tts_stream`` yields the audio of each pause-bounded segment as it is
+done.  The split pipeline (``vocoder_mode="chunked"`` or
+``fused_pipeline=False``) runs the acoustic model at the bucket's full
+mel size, reads the mel length, and vocodes only the chunks that cover
+it.
 """
 
 import collections
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from efficientspeech_tpu_torch.audio.transfer import (
-    FORMATS, decode_host, encode_device)
+    FORMATS, decode_host, elements_for_samples, encode_device,
+    samples_for_elements)
 from efficientspeech_tpu_torch.config import (
     HifiGanConfig, ModelConfig, PreprocessConfig)
 from efficientspeech_tpu_torch.device import resolve_device
 from efficientspeech_tpu_torch.models.efficientspeech import EfficientSpeech
+from efficientspeech_tpu_torch.models.hifigan import chunked_vocoder_call
 from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, folded_plan_apply, prepare_for_kernels)
 from efficientspeech_tpu_torch.models.modules import cast_params_
@@ -47,7 +56,7 @@ SPEC_MIN_FRAMES = 512
 # package measured this threshold on a TPU v5e; it has not been
 # re-measured on the card yet.
 KERNEL_MIN_FRAMES = 2048
-VOCODER_MODES = ("folded", "folded_kernel")
+VOCODER_MODES = ("folded", "folded_kernel", "chunked")
 
 
 class Synthesizer:
@@ -57,6 +66,16 @@ class Synthesizer:
     # one outlier inflates the buffers for at most this many requests
     OBS_WINDOW = 64
 
+    # the split pipeline vocodes the mel in chunks of VOCODER_CHUNK frames
+    # (the chunk count rounded up to a power of two); the chunked mode's
+    # conv generator gives each chunk a halo of VOCODER_HALO frames, more
+    # than its receptive field (~13.7 frames)
+    VOCODER_CHUNK = 128
+    VOCODER_HALO = 16
+    # mel frames per phoneme the split pipeline's first vocoder call
+    # assumes (an undershoot re-runs the vocoder at the known length)
+    SPECULATIVE_EXPANSION = 9
+
     def __init__(self, cfg: ModelConfig, hifigan_cfg: HifiGanConfig,
                  model: EfficientSpeech,
                  preprocess_cfg: Optional[PreprocessConfig] = None,
@@ -64,25 +83,34 @@ class Synthesizer:
                  phoneme_buckets=DEFAULT_PHONEME_BUCKETS,
                  mel_expansion: int = MEL_EXPANSION,
                  vocoder_mode: str = "folded_kernel",
+                 fused_pipeline: bool = True,
                  transfer: str = "int16",
                  spec_expansion: int = SPEC_EXPANSION,
                  device=None):
         """``vocoder_mode``: "folded" runs every vocoder op as a plain
         matmul; "folded_kernel" runs the 128-wide ops and each stage's MRF
         in the CUDA kernels from ``KERNEL_MIN_FRAMES`` speculative frames
-        on.  ``transfer``: the PCM wire format ("int16", "mulaw", "f32").
-        ``dtype``: the acoustic model's compute dtype and the vocoder's
-        matmul operand precision."""
+        on; "chunked" runs the conv generator over time-folded chunks in
+        the split pipeline, which ``fused_pipeline=False`` selects for the
+        folded modes too.  ``transfer``: the PCM wire format of the fused
+        route (one of ``FORMATS``).  ``dtype``: the acoustic model's
+        compute dtype and the vocoder's matmul operand precision."""
         if vocoder_mode not in VOCODER_MODES:
             raise ValueError(f"vocoder_mode {vocoder_mode!r} not in "
                              f"{VOCODER_MODES}")
         if transfer not in FORMATS:
             raise ValueError(f"transfer {transfer!r} not in {FORMATS}")
+        if transfer == "adpcm2":
+            warnings.warn(
+                "transfer='adpcm2' is a bandwidth-stretch codec (27 dB SNR "
+                "on speech, audibly gritty); prefer 'adpcm4' unless the "
+                "batched wire's bandwidth is the bottleneck", stacklevel=2)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.hifigan_cfg = hifigan_cfg
         self.dtype = dtype
         self.vocoder_mode = vocoder_mode
+        self.fused_pipeline = fused_pipeline
         self.transfer = transfer
         self.phoneme_buckets = tuple(phoneme_buckets)
         self.mel_expansion = mel_expansion
@@ -103,6 +131,8 @@ class Synthesizer:
             arrays, self.fold_meta = fold_hifigan(model.hifigan, dtype)
             self.folded, self.mrf = prepare_for_kernels(
                 arrays, self.fold_meta, hifigan_cfg)
+        # the conv generator, computing in ``dtype``: the chunked mode's
+        self.generator = cast_params_(model.hifigan, dtype)
 
     # --- frontend ----------------------------------------------------------
     def phonemize(self, text: str) -> np.ndarray:
@@ -154,32 +184,95 @@ class Synthesizer:
                 return level
         return bucket * self.mel_expansion
 
-    # --- the device program ----------------------------------------------------
-    @torch.no_grad()
-    def _run(self, phoneme: np.ndarray, frames: int,
-             speaker: Optional[int] = None):
-        """Phoneme IDs → (wire-encoded PCM (1, frames·hop) on the card,
-        unclamped mel_len (1,) on the card, durations)."""
+    # --- the device programs --------------------------------------------
+    def _predict(self, phoneme: np.ndarray, frames: int,
+                 speaker: Optional[int] = None):
+        """The acoustic model on phoneme IDs (B, bucket) at ``frames`` mel
+        frames, on the card."""
         ph = torch.from_numpy(phoneme).to(self.device)
         spk = (None if speaker is None else
                torch.tensor([speaker], dtype=torch.long, device=self.device))
-        pred = self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
+        return self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
                              speaker=spk)
-        mel_len = torch.clamp(pred["mel_len"], max=frames)
+
+    def _vocode_folded(self, mel: torch.Tensor,
+                       mel_len: torch.Tensor) -> torch.Tensor:
+        """The folded vocoder (B, T, M) → (B, T·hop) float32, through the
+        kernels from ``KERNEL_MIN_FRAMES`` frames on in "folded_kernel"
+        mode (row by row at B > 1); ``mel_len`` (B,) stays on the card."""
         use_kernel = (self.vocoder_mode == "folded_kernel"
-                      and frames >= KERNEL_MIN_FRAMES)
-        wav = folded_plan_apply(self.folded, self.fold_meta, self.hifigan_cfg,
-                                pred["mel"], valid_len=mel_len,
-                                dtype=self.dtype, use_kernel=use_kernel,
-                                fuse_mrf=use_kernel, mrf=self.mrf)
+                      and mel.shape[1] >= KERNEL_MIN_FRAMES)
+        return folded_plan_apply(
+            self.folded, self.fold_meta, self.hifigan_cfg, mel,
+            valid_len=torch.clamp(mel_len, max=mel.shape[1]),
+            dtype=self.dtype, use_kernel=use_kernel, fuse_mrf=use_kernel,
+            mrf=self.mrf)
+
+    @torch.no_grad()
+    def _run(self, phoneme: np.ndarray, frames: int,
+             speaker: Optional[int] = None):
+        """The fused route's program: phoneme IDs (B, bucket) → (wire-
+        encoded PCM (B, ·) on the card, unclamped mel_len (B,) on the
+        card, durations)."""
+        pred = self._predict(phoneme, frames, speaker)
+        wav = self._vocode_folded(pred["mel"], pred["mel_len"])
         return encode_device(wav, self.transfer), pred["mel_len"], \
             pred["duration"]
+
+    @torch.no_grad()
+    def _acoustic_split(self, phoneme: np.ndarray,
+                        speaker: Optional[int] = None):
+        """The split pipeline's acoustic call, at the bucket's full
+        ``bucket × mel_expansion`` frames: (mel, unclamped mel_len,
+        durations) on the card."""
+        pred = self._predict(phoneme, phoneme.shape[1] * self.mel_expansion,
+                             speaker)
+        return pred["mel"], pred["mel_len"], pred["duration"]
+
+    @torch.no_grad()
+    def _vocode_split(self, mel: torch.Tensor,
+                      mel_len: torch.Tensor) -> torch.Tensor:
+        """The split pipeline's vocoder on a mel slice (B, slice, M): the
+        folded vocoder to int16 PCM, or in the chunked mode the conv
+        generator over VOCODER_CHUNK-frame chunks to float."""
+        if self.vocoder_mode == "chunked":
+            return chunked_vocoder_call(
+                lambda c, v, st: self.generator(c, valid_len=v,
+                                                valid_start=st),
+                self.hifigan_cfg.total_upsample, mel, mel_len,
+                chunk_frames=self.VOCODER_CHUNK,
+                halo=self.VOCODER_HALO).float()
+        return encode_device(self._vocode_folded(mel, mel_len), "int16")
+
+    @staticmethod
+    def _chunk_bucket(n_chunks: int) -> int:
+        """The least power of two >= n_chunks (a chunk count or a batch
+        size)."""
+        b = 1
+        while b < n_chunks:
+            b *= 2
+        return b
+
+    def _split_slice(self, mel_len: int, max_frames: int) -> int:
+        """Frames the split pipeline vocodes for ``mel_len``: whole
+        chunks, their count rounded up to a power of two."""
+        chunk = self.VOCODER_CHUNK
+        n_chunks = self._chunk_bucket(max(1, -(-mel_len // chunk)))
+        return min(n_chunks * chunk, max_frames)
+
+    @staticmethod
+    def _to_float(wav: np.ndarray) -> np.ndarray:
+        if wav.dtype == np.int16:
+            return wav.astype(np.float32) / 32768.0
+        return np.asarray(wav, np.float32)
 
     def synthesize_ids(self, seq: np.ndarray, speaker: Optional[int] = None):
         """Phoneme IDs → (wav float32 numpy, trimmed; mel_len; durations on
         the card).  If the speculative buffer undershoots the true mel
         length, the utterance re-runs at a size that holds it."""
         phoneme, _, bucket = self._pad_to_bucket(seq)
+        if not self.fused_pipeline or self.vocoder_mode == "chunked":
+            return self._synthesize_split(seq, phoneme, speaker)
         n_valid = int(min(len(seq), bucket))
         spec = self._spec_frames(n_valid, bucket)
         pcm, mel_len_dev, duration = self._run(phoneme, spec, speaker)
@@ -195,8 +288,26 @@ class Synthesizer:
                 mel_len = int(mel_len_dev[0])
             mel_len = min(mel_len, full)
         n = mel_len * self.hifigan_cfg.total_upsample
-        wav = decode_host(pcm[0, :n].cpu().numpy(), self.transfer)
+        pcm = pcm[0, :elements_for_samples(self.transfer, n)]
+        wav = decode_host(pcm.cpu().numpy(), self.transfer)[:n]
         return wav, mel_len, duration
+
+    def _synthesize_split(self, seq: np.ndarray, phoneme: np.ndarray,
+                          speaker: Optional[int] = None):
+        """The split pipeline: the acoustic call, then the vocoder on a
+        slice sized for SPECULATIVE_EXPANSION frames a phoneme; an
+        undershoot vocodes again at the now-known length."""
+        n_valid = int(min(len(seq), self.phoneme_buckets[-1]))
+        mel, mel_len_dev, duration = self._acoustic_split(phoneme, speaker)
+        slice_len = self._split_slice(
+            n_valid * self.SPECULATIVE_EXPANSION, mel.shape[1])
+        wav = self._vocode_split(mel[:, :slice_len], mel_len_dev)
+        mel_len = min(int(mel_len_dev[0]), mel.shape[1])
+        if mel_len > slice_len:
+            slice_len = self._split_slice(mel_len, mel.shape[1])
+            wav = self._vocode_split(mel[:, :slice_len], mel_len_dev)
+        n = mel_len * self.hifigan_cfg.total_upsample
+        return self._to_float(wav[0, :n].cpu().numpy()), mel_len, duration
 
     def tts_ids_timed(self, seq: np.ndarray, speaker: Optional[int] = None):
         """Synthesize a phoneme sequence of any length: segments beyond the
@@ -254,6 +365,116 @@ class Synthesizer:
             print(f"voice: {voice_len:.2f}s  synth: {elapsed * 1e3:.2f}ms  "
                   f"RTF: {info['rtf']:.1f}")
         return wav, info
+
+    def tts_stream(self, text: str, segment_phonemes: Optional[int] = None):
+        """Streaming synthesis: yields (wav float32, info) per pause-bounded
+        ({sp}) segment of at most ``segment_phonemes`` (default a quarter
+        of the largest bucket), so the first audio waits for one
+        segment's synthesis, not the whole text's."""
+        seq = self.phonemize(text)
+        max_len = min(segment_phonemes or self.phoneme_buckets[-1] // 4 or 1,
+                      self.phoneme_buckets[-1])
+        segments = self._segment(seq, max_len)
+        for idx, seg in enumerate(segments):
+            t0 = time.time()
+            wav, mel_len, _ = self.synthesize_ids(seg)
+            yield wav, {"segment": idx, "n_segments": len(segments),
+                        "mel_len": mel_len, "phonemes": len(seg),
+                        "secs": time.time() - t0}
+
+    def tts_batch(self, texts):
+        """Batched synthesis (serving throughput): every text is
+        phonemized and segmented at its pauses beyond the largest bucket
+        (never truncated), and all segments run through one fused program:
+        the batch padded to a power of two (the extra rows all PAD, mel
+        length 0), one bucket, speculative frames sized from the longest
+        row.  The host then copies the real rows once, cut at the longest
+        row's samples.  Returns (wav float32, info) per text."""
+        if not self.fused_pipeline or self.vocoder_mode == "chunked":
+            return self._tts_batch_split(texts)
+        rows, owner = [], []
+        for ti, text in enumerate(texts):
+            for seg in self._segment(self.phonemize(text)):
+                rows.append(seg)
+                owner.append(ti)
+        b = len(rows)
+        b_pad = self._chunk_bucket(b)
+        max_len = max(len(r) for r in rows)
+        bucket = next_bucket(max_len, self.phoneme_buckets)
+        spec = self._spec_frames(min(max_len, bucket), bucket)
+        phoneme = np.zeros((b_pad, bucket), np.int32)
+        for i, r in enumerate(rows):
+            phoneme[i, : len(r)] = r[: bucket]
+        up = self.hifigan_cfg.total_upsample
+
+        def run(spec):
+            pcm, mel_len_dev, _ = self._run(phoneme, spec)
+            mel_lens = mel_len_dev[:b].cpu().numpy()
+            n = min(int(mel_lens.max()), spec) * up
+            cut = elements_for_samples(self.transfer, n)
+            return pcm[:b, :cut].cpu().numpy(), mel_lens
+
+        t0 = time.time()
+        pcm_np, mel_lens = run(spec)
+        for i, r in enumerate(rows):
+            self._observe_ratio(int(mel_lens[i]), len(r))
+        full = bucket * self.mel_expansion
+        if mel_lens.max() > spec and spec < full:  # undershoot: re-run
+            spec = self._spec_frames(
+                min(max_len, bucket), bucket,
+                min_frames=min(int(mel_lens.max()), full))
+            pcm_np, mel_lens = run(spec)
+        mel_lens = np.minimum(mel_lens, samples_for_elements(
+            self.transfer, pcm_np.shape[1]) // up)
+        elapsed = time.time() - t0
+
+        per_text_wavs = [[] for _ in texts]
+        per_text_mel = [0] * len(texts)
+        for i in range(b):
+            n = int(mel_lens[i]) * up
+            w = decode_host(
+                pcm_np[i][: elements_for_samples(self.transfer, n)],
+                self.transfer)[:n]
+            per_text_wavs[owner[i]].append(w)
+            per_text_mel[owner[i]] += int(mel_lens[i])
+        out = []
+        for ti in range(len(texts)):
+            w = (np.concatenate(per_text_wavs[ti]) if per_text_wavs[ti]
+                 else np.zeros(0, np.float32))
+            out.append((w, {"voice_secs": len(w) / self.sampling_rate,
+                            "batch_secs": elapsed,
+                            "mel_len": per_text_mel[ti]}))
+        return out
+
+    def _tts_batch_split(self, texts):
+        """Batched synthesis on the split pipeline (the chunked mode's):
+        one acoustic call for the batch, then one vocoder call on the
+        chunks that cover the longest row.  Each text takes one row, cut
+        at the largest bucket."""
+        seqs = [self.phonemize(t) for t in texts]
+        b = len(seqs)
+        bucket = next_bucket(max(len(s) for s in seqs), self.phoneme_buckets)
+        phoneme = np.zeros((b, bucket), np.int32)
+        for i, s in enumerate(seqs):
+            n = min(len(s), bucket)
+            phoneme[i, :n] = s[:n]
+
+        t0 = time.time()
+        mel, mel_len_dev, _ = self._acoustic_split(phoneme)
+        mel_lens = np.minimum(mel_len_dev.cpu().numpy(), mel.shape[1])
+        slice_len = self._split_slice(int(mel_lens.max()), mel.shape[1])
+        wavs = self._vocode_split(mel[:, :slice_len], mel_len_dev)
+        wavs = wavs.cpu().numpy()
+        elapsed = time.time() - t0
+
+        out = []
+        up = self.hifigan_cfg.total_upsample
+        for i in range(b):
+            w = self._to_float(wavs[i, : int(mel_lens[i]) * up])
+            out.append((w, {"voice_secs": len(w) / self.sampling_rate,
+                            "batch_secs": elapsed,
+                            "mel_len": int(mel_lens[i])}))
+        return out
 
     def warmup(self, text: str, iters: int = 10) -> int:
         """Run this text's shapes ``iters`` times; returns its phoneme

@@ -212,7 +212,8 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
 
     ``dtype``: matmul operand precision (the plain path rounds operands
     to it and multiplies in float32).  ``use_kernel``: the 128-wide ops
-    run through ``folded_matmul`` (B must be 1); ``fuse_stage_sum`` then
+    run through ``folded_matmul``, one row of the batch at a time;
+    ``fuse_stage_sum`` then
     folds each stage's resblock sum and ``/ num_kernels`` into the last
     conv of each resblock; ``fuse_mrf`` runs each stage's whole MRF in
     ``mrf_fused`` (resblock "1").  ``act_dtype``: activation dtype between
@@ -226,8 +227,15 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
     num_kernels = len(cfg.resblock_kernel_sizes)
     x = mel.float()
     act_dtype = torch.float32 if act_dtype is None else act_dtype
-    if use_kernel and x.shape[0] != 1:
-        raise ValueError("the kernel path is single-utterance (B == 1)")
+    if use_kernel and x.shape[0] > 1:
+        # the kernels take one utterance: the whole plan runs row by row,
+        # as the JAX package maps it over the rows (jax.lax.map); each
+        # row's valid length stays a tensor on the card
+        return torch.cat([folded_plan_apply(
+            arrays, meta, cfg, mel[i:i + 1],
+            None if valid_len is None else valid_len[i:i + 1], dtype,
+            use_kernel, fuse_stage_sum, act_dtype, fuse_mrf, mrf)
+            for i in range(x.shape[0])])
     if valid_len is None:
         valid_len = torch.full((x.shape[0],), x.shape[1], device=x.device)
     vrows_cache = {}

@@ -21,7 +21,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("folded_matmul", "mrf_block", "layer_norm", "decoder_block",
-           "int8_window", "tf32_probe")
+           "int8_window", "tf32_probe", "adpcm_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -15,6 +15,7 @@ from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, kernel_op_shapes, prepare_for_kernels)
 from efficientspeech_tpu_torch.models.modules import reset_parameters
 from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
+from efficientspeech_tpu_torch.ops.kernels import adpcm
 from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
 from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
 from efficientspeech_tpu_torch.ops.kernels import int8_window as k5
@@ -723,3 +724,26 @@ def test_int8_window_kernel(card, quantize, t, tm, n_win):
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want), float((got - want).abs().max())
     assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("bits", [4, 3, 2])
+@pytest.mark.parametrize("rows,blocks", [(1, 4096), (3, 33), (5, 1)])
+def test_adpcm_encode_kernel(card, bits, rows, blocks):
+    """The ADPCM encoder against its plain version, bit for bit (integer
+    arithmetic and float32 values that are exact), on random, constant,
+    full-scale and clipped blocks, with a last CUDA block of lanes that
+    is partly filled (3 x 33 lanes)."""
+    g = torch.Generator(device="cpu").manual_seed(rows * 100 + bits)
+    x = torch.rand(rows, blocks * 256, generator=g) * 2.4 - 1.2
+    flat = x.view(-1, 256)
+    flat[0::4] = 0.3                       # constant blocks
+    flat[1::4] = torch.where(flat[1::4] > 0, 1.0, -1.0)   # full scale
+    flat[2::4] *= 3.0                      # clipped
+    x = x.to(card)
+    before = dict(adpcm.launches)
+    got = adpcm.adpcm_encode(x, bits)
+    want = adpcm.adpcm_encode_plain(x, bits)
+    torch.cuda.synchronize()
+    assert adpcm.launches[bits] == before[bits] + 1
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want), int((got != want).sum())

@@ -16,7 +16,8 @@ MODULES = {"folded_matmul": "ops.kernels.folded_matmul",
            "layer_norm": "ops.kernels.layer_norm",
            "decoder_block": "ops.kernels.decoder_block",
            "int8_window": "ops.kernels.int8_window",
-           "tf32_probe": "probes.tf32_wgmma"}
+           "tf32_probe": "probes.tf32_wgmma",
+           "adpcm_encode": "ops.kernels.adpcm"}
 
 
 def _c_params(source: str, fn: str):
