@@ -35,6 +35,18 @@ Phases (each prints its lines; any failure exits non-zero):
      stream  - tts_stream of the long text (segment count, each finite),
                and the long request in vocoder_mode "chunked" held to the
                folded kernel route at the end-to-end bar;
+     serve   - the port's server (efficientspeech_tpu_torch.serve) in this
+               process on 127.0.0.1, warmed by the function its main()
+               runs (503 until ready, the time to ready): a long /tts
+               through the batcher and the direct path (K1 5 and K2 4
+               launches inside the request), 32 clients of 4 mixed
+               requests (latency percentiles, served RTF, batch sizes),
+               /tts_stream (chunks, first audio), the adpcm4 wire through
+               the C++ decoder, and the fetch deadline behind a stream
+               stalled by torch.cuda._sleep (503, the breaker's fast 503,
+               the abandoned read counted, recovery); every PCM held to
+               its text's single request at the batch bar (the adpcm4
+               answer to the int16 one at the codec's bar);
   6. f32     - phases 3-5 again for a float32 synthesizer (the same model,
                folded in float32: --precision f32), through the kernels'
                float32 variants, with one long and one short request, and
@@ -122,14 +134,21 @@ another row's audio, or shifted by a frame, lands near or below 0 dB.
 """
 
 import argparse
+import collections
+import concurrent.futures
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -182,6 +201,15 @@ BATCH_TRANSFER = "adpcm3"
 BATCH_SNR_DB = 35.0
 # the JAX package's codec tests' bars on a speech-like signal
 ADPCM_SNR_DB = {"adpcm4": 32.0, "adpcm3": 32.0, "adpcm2": 22.0}
+# the serve phase: serve.py's defaults (buckets warmed, max batch,
+# deadlines, stream segments), 32 clients of 4 requests, and a stalled
+# stream of 2 s against a 0.5 s deadline and a 1 s breaker cooldown
+SERVE_BUCKETS = (128, 512)
+SERVE_MAX_BATCH = 32
+SERVE_SEGMENT = 128
+SERVE_FETCH_TIMEOUT_S, SERVE_QUEUE_DEADLINE_S = 30.0, 60.0
+SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 4
+SERVE_STALL_MS, SERVE_STALL_FETCH_S, SERVE_STALL_COOLDOWN_S = 2000.0, 0.5, 1.0
 K5_REL_ERR = 1e-6
 # the training shape: train.py's defaults
 TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
@@ -823,6 +851,293 @@ def phase_stream_chunked(synth, card: str):
         fail(f"chunked mode: SNR {snr:.1f} dB < {E2E_SNR_DB} dB")
 
 
+def http_get(port: int, path: str, timeout: float = 120.0):
+    """GET from the local server: (status, headers, body, ms)."""
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            status, headers, body = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, body = e.code, e.headers, e.read()
+    return status, headers, body, (time.perf_counter() - t0) * 1e3
+
+
+def http_stream(port: int, path: str, timeout: float = 120.0):
+    """GET of a chunked response, read chunk by chunk off the socket:
+    (status, headers, chunks, ms at which each chunk arrived)."""
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout) as sock:
+        sock.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     f"Connection: close\r\n\r\n".encode())
+        f = sock.makefile("rb")
+        status = int(f.readline().split()[1])
+        headers = {}
+        while line := f.readline().strip():
+            key, value = line.decode().split(":", 1)
+            headers[key.strip().lower()] = value.strip()
+        chunks, times = [], []
+        while True:
+            size = int(f.readline().strip(), 16)
+            data = f.read(size)
+            f.readline()
+            if size == 0:
+                break
+            chunks.append(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return status, headers, chunks, times
+
+
+def wav_pcm(tag: str, body: bytes) -> np.ndarray:
+    """The int16 samples of a served WAV; fails unless it is RIFF/WAVE
+    with a data chunk of its length."""
+    if body[:4] != b"RIFF" or body[8:12] != b"WAVE" or body[36:40] != b"data":
+        fail(f"{tag}: not a RIFF/WAVE payload")
+    n = int.from_bytes(body[40:44], "little")
+    if n != len(body) - 44 or n == 0 or n % 2:
+        fail(f"{tag}: data chunk of {n} bytes in a {len(body)}-byte body")
+    return np.frombuffer(body[44:], "<i2")
+
+
+def pcm_snr(want: np.ndarray, got: np.ndarray) -> float:
+    return snr_db(torch.from_numpy(want.astype(np.float64)),
+                  torch.from_numpy(got.astype(np.float64)))
+
+
+def tts_path(text: str) -> str:
+    return "/tts?text=" + urllib.parse.quote(text)
+
+
+def stall_stream(ms: float):
+    """Enqueue a spin of about ``ms`` on the current stream (the one all
+    synthesis runs on), calibrated by timing a shorter one."""
+    cal = int(2e8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cal)
+    end.record()
+    end.synchronize()
+    per_ms = cal / start.elapsed_time(end)
+    torch.cuda._sleep(int(per_ms * ms))
+
+
+def phase_serve(synth, card: str):
+    """The port's server (``efficientspeech_tpu_torch.serve``), built
+    in-process on 127.0.0.1 through its own make_server and make_handler
+    and warmed by the function main() runs: 503 until ready; a long /tts
+    through the batcher and through the direct path (K1 and K2 counted
+    inside the request, the PCM held to the single request's); 32 clients
+    of 4 mixed requests each (every answer 200, a batch > 1, each PCM held
+    to its text's single request); /tts_stream of the long text (chunks,
+    the first audio's time); a long /tts on the adpcm4 wire through the
+    C++ decoder; and the fetch deadline against a stalled stream: 503,
+    the breaker's fast 503, the abandoned read counted, then recovery."""
+    from efficientspeech_tpu_torch import serve
+    from efficientspeech_tpu_torch.audio.adpcm import decode_lib
+    from efficientspeech_tpu_torch.ops.kernels import adpcm
+    from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+    from efficientspeech_tpu_torch.ops.kernels import mrf_block
+
+    dt = synth.dtype
+    max_wav = synth.preprocess_cfg.audio.max_wav_value
+    lock = threading.Lock()
+    servers = []
+
+    def start(**kw):
+        base = serve.make_handler(synth, lock=lock,
+                                  stream_segment_phonemes=SERVE_SEGMENT, **kw)
+
+        class Quiet(base):
+            def log_message(self, fmt, *a):
+                pass
+
+        server = serve.make_server("127.0.0.1", 0, Quiet)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append(server)
+        return server.server_port
+
+    state = serve.ServeState()
+    state.ready = False
+    port = start(dynamic_batch=True, max_batch=SERVE_MAX_BATCH,
+                 fetch_timeout_s=SERVE_FETCH_TIMEOUT_S,
+                 queue_deadline_s=SERVE_QUEUE_DEADLINE_S, state=state)
+    status, headers, _, _ = http_get(port, "/healthz")
+    if status != 503 or not headers.get("Retry-After"):
+        fail(f"serve: /healthz answered {status} before ready (expected "
+             f"503 with Retry-After)")
+    exits = []
+    t0 = time.perf_counter()
+    warm = threading.Thread(target=serve.init_and_warm, daemon=True, args=(
+        synth, state, lock, serve.get_args([]).warmup_text,
+        SERVE_BUCKETS, serve.warm_batch_sizes(True, SERVE_MAX_BATCH)),
+        kwargs={"exit_fn": exits.append})
+    warm.start()
+    warm.join(300)
+    ready_s = time.perf_counter() - t0
+    if exits or not state.ready:
+        fail(f"serve: the warm-up failed (exit {exits})")
+    if http_get(port, "/healthz")[0] != 200:
+        fail("serve: /healthz not 200 after ready")
+    print(f"[serve] ready in {ready_s:.2f} s (warm-up text x2, buckets "
+          f"{list(SERVE_BUCKETS)} at batch "
+          f"{serve.warm_batch_sizes(True, SERVE_MAX_BATCH)}) | {card}")
+
+    # single requests of each text, the yardstick of the served PCM
+    texts = (LONG_TEXT,) + SHORT_TEXTS
+    with lock:
+        single = {t: np.frombuffer(serve.pcm16(synth.tts(t)[0], max_wav),
+                                   "<i2") for t in texts}
+
+    def check_pcm(tag, text, body, bar=BATCH_SNR_DB):
+        pcm = wav_pcm(tag, body)
+        if len(pcm) != len(single[text]):
+            fail(f"{tag}: {len(pcm)} samples, the single request "
+                 f"{len(single[text])}")
+        snr = pcm_snr(single[text], pcm)
+        if snr < bar:
+            fail(f"{tag}: {snr:.1f} dB < {bar} dB of the single request")
+        return pcm, snr
+
+    direct = start(dynamic_batch=False,
+                   fetch_timeout_s=SERVE_FETCH_TIMEOUT_S)
+    long_int16 = None
+    for name, p in (("batcher", port), ("direct", direct)):
+        _reset_counts(fm, mrf_block)
+        status, headers, body, ms = http_get(p, tts_path(LONG_TEXT))
+        k1, k2 = fm.launches[dt], mrf_block.launches[dt]
+        if status != 200:
+            fail(f"serve: long /tts ({name}) answered {status}: {body[:200]}")
+        pcm, snr = check_pcm(f"serve long /tts ({name})", LONG_TEXT, body)
+        long_int16 = pcm if long_int16 is None else long_int16
+        print(f"[serve] long /tts via the {name} path: {ms:.1f} ms, X-RTF "
+              f"{headers['X-RTF']}, X-Batch-Size "
+              f"{headers.get('X-Batch-Size', '-')} | launches K1 {k1} K2 "
+              f"{k2} | {snr:.1f} dB against the single request (tol >= "
+              f"{BATCH_SNR_DB}) | {card}")
+        if k1 < 5 or k2 < 4:
+            fail(f"serve long /tts ({name}): launches K1 {k1} K2 {k2}; "
+                 f"expected >= 5 and >= 4")
+
+    # concurrency: every client sends its requests one after another
+    def client(c):
+        out = []
+        for i in range(SERVE_PER_CLIENT):
+            text = texts[(c + i) % len(texts)]
+            status, headers, body, ms = http_get(port, tts_path(text))
+            out.append((text, status, headers.get("X-Batch-Size"), body,
+                        ms))
+        return out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+        runs = [r for rs in ex.map(client, range(SERVE_CLIENTS)) for r in rs]
+    wall = time.perf_counter() - t0
+    bad = [(s, b[:120]) for _, s, _, b, _ in runs if s != 200]
+    if bad:
+        fail(f"serve: {len(bad)} of {len(runs)} answers not 200: {bad[:3]}")
+    sizes = collections.Counter(int(b) for _, _, b, _, _ in runs)
+    if max(sizes) <= 1:
+        fail(f"serve: no batch formed (X-Batch-Size {dict(sizes)})")
+    worst = min(check_pcm(f"serve concurrent {text[:12]!r}", text, body)[1]
+                for text, _, _, body, _ in runs)
+    lat = np.array([ms for *_, ms in runs])
+    voice = sum(len(single[t]) for t, *_ in runs) / synth.sampling_rate
+    print(f"[serve] {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} mixed "
+          f"requests: all 200 in {wall * 1e3:.1f} ms, latency p50 "
+          f"{np.percentile(lat, 50):.1f} p95 {np.percentile(lat, 95):.1f} "
+          f"p99 {np.percentile(lat, 99):.1f} ms, served RTF "
+          f"{voice / wall:.1f} ({voice:.2f} s of voice), batch sizes "
+          f"{dict(sorted(sizes.items()))} (size: answers), worst "
+          f"{worst:.1f} dB against the single requests (tol >= "
+          f"{BATCH_SNR_DB}) | {card}")
+
+    # the stream: chunked framing, the header then a chunk a segment
+    status, headers, chunks, times = http_stream(
+        port, "/tts_stream?text=" + urllib.parse.quote(LONG_TEXT))
+    if status != 200 or headers.get("transfer-encoding") != "chunked":
+        fail(f"serve /tts_stream: status {status}, headers {headers}")
+    if len(chunks) < 3 or chunks[0][:4] != b"RIFF" or len(chunks[0]) != 44:
+        fail(f"serve /tts_stream: {len(chunks)} chunks (a 44-byte header "
+             f"and >= 2 PCM chunks expected)")
+    with lock:
+        want = np.concatenate([w for w, _ in synth.tts_stream(
+            LONG_TEXT, segment_phonemes=SERVE_SEGMENT)])
+    want = np.frombuffer(serve.pcm16(want, max_wav), "<i2")
+    got = np.frombuffer(b"".join(chunks[1:]), "<i2")
+    if len(got) != len(want):
+        fail(f"serve /tts_stream: {len(got)} samples, tts_stream "
+             f"{len(want)}")
+    snr = pcm_snr(want, got)
+    print(f"[serve] /tts_stream long text: {len(chunks) - 1} PCM chunks, "
+          f"first audio after {times[1]:.1f} ms, all after {times[-1]:.1f} "
+          f"ms | {snr:.1f} dB against tts_stream's segments (tol >= "
+          f"{BATCH_SNR_DB}) | {card}")
+    if snr < BATCH_SNR_DB:
+        fail(f"serve /tts_stream: {snr:.1f} dB < {BATCH_SNR_DB} dB")
+
+    # the adpcm4 wire: encoded on the card, decoded by the C++ library
+    # (the port has no other host decoder)
+    with lock:
+        transfer, synth.transfer = synth.transfer, "adpcm4"
+    _reset_counts(adpcm)
+    status, _, body, ms = http_get(direct, tts_path(LONG_TEXT))
+    with lock:
+        synth.transfer = transfer
+    if status != 200:
+        fail(f"serve adpcm4 /tts answered {status}")
+    pcm = wav_pcm("serve adpcm4 /tts", body)
+    snr = pcm_snr(long_int16, pcm) if len(pcm) == len(long_int16) else -1.0
+    print(f"[serve] long /tts on the adpcm4 wire: {ms:.1f} ms, encoder "
+          f"launches {adpcm.launches[4]}, host decoder "
+          f"{os.path.basename(decode_lib()._name)} | {snr:.1f} dB against "
+          f"the int16 answer (tol >= {ADPCM_SNR_DB['adpcm4']}) | {card}")
+    if adpcm.launches[4] < 1 or snr < ADPCM_SNR_DB["adpcm4"]:
+        fail(f"serve adpcm4 /tts: encoder launches {adpcm.launches[4]}, "
+             f"{snr:.1f} dB")
+
+    # the deadline on the card: a stalled stream, no hook
+    stalled = start(dynamic_batch=False, fetch_timeout_s=SERVE_STALL_FETCH_S,
+                    breaker_cooldown_s=SERVE_STALL_COOLDOWN_S)
+    t_stall = time.perf_counter()
+    stall_stream(SERVE_STALL_MS)
+    status, headers, body, ms1 = http_get(stalled, tts_path(SHORT_TEXTS[0]))
+    t_trip = time.perf_counter()
+    if status != 503 or not headers.get("Retry-After") or ms1 > 2000:
+        fail(f"serve deadline: /tts behind a stalled stream answered "
+             f"{status} in {ms1:.0f} ms (expected 503 with Retry-After "
+             f"within 2 s): {body[:200]}")
+    status2, _, _, ms2 = http_get(stalled, tts_path(SHORT_TEXTS[1]))
+    pending = synth.pending_fetches()
+    if status2 != 503 or ms2 > 500:
+        fail(f"serve deadline: the breaker's answer {status2} in "
+             f"{ms2:.0f} ms (expected 503 within 0.5 s)")
+    if pending < 1:
+        fail("serve deadline: pending_fetches() 0 while the stream stalls")
+    torch.cuda.synchronize()
+    stall_ms = (time.perf_counter() - t_stall) * 1e3
+    time.sleep(max(0.0, t_trip + SERVE_STALL_COOLDOWN_S
+                   - time.perf_counter()) + 0.05)
+    status3, _, body, ms3 = http_get(stalled, tts_path(SHORT_TEXTS[0]))
+    after = synth.pending_fetches()
+    print(f"[serve] deadline {SERVE_STALL_FETCH_S} s behind a "
+          f"{SERVE_STALL_MS:.0f} ms stall (ended after {stall_ms:.0f} ms): "
+          f"503 in {ms1:.1f} ms (Retry-After {headers['Retry-After']}), "
+          f"breaker 503 in {ms2:.1f} ms, pending reads {pending}; after "
+          f"the cooldown {status3} in {ms3:.1f} ms, pending reads {after} "
+          f"| {card}")
+    if status3 != 200 or after != 0:
+        fail(f"serve deadline: recovery answered {status3}, "
+             f"pending_fetches() {after}")
+    check_pcm("serve deadline recovery", SHORT_TEXTS[0], body)
+    synth.fetch_timeout_s = None
+    for server in servers:
+        server.shutdown()
+        server.server_close()
+
+
 def speechlike(n: int, seed: int = 0) -> np.ndarray:
     """A harmonic stack under an amplitude envelope and breath noise (the
     JAX package's codec tests' signal)."""
@@ -1367,6 +1682,7 @@ def main():
     batch_launches, batch_frames = phase_batch(synth, card)
     launches["adpcm_encode"] = batch_launches["adpcm_encode"]
     phase_stream_chunked(synth, card)
+    phase_serve(synth, card)
     if args.profile:
         phase_profile(synth, card, batch=True)
     del synth

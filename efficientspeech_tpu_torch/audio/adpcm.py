@@ -11,7 +11,10 @@ quantiser loop is pure integer arithmetic with no table lookup inside.
   the plain PyTorch version, ``encode{,3,2}_blocks_plain``, on a CPU
   tensor.  The plain version runs the blocks as lanes of a Python loop
   over the 255 time steps.
-- DECODE (host): numpy, vectorised across blocks.
+- DECODE (host): C++ (``csrc/adpcm_decode.cpp``, built with g++ at first
+  use and loaded by ctypes; a missing compiler or a failed build raises).
+  Its plain twins, the numpy decoders vectorised across blocks
+  (``_decode{,3,2}_numpy``), are what the tests hold it against.
 
 Wire layout per block: a 4-byte header (pred0 int16 little-endian, step
 index u8, reserved 0) and the 255 codes plus one pad code, packed
@@ -23,6 +26,7 @@ Every value the encoder computes is exact in float32 or int32 (the sum of
 version and the JAX encoder agree bit for bit.  The input must be finite.
 """
 
+import ctypes
 from typing import Callable
 
 import numpy as np
@@ -174,7 +178,7 @@ encode3_blocks_device = _device(3)
 encode2_blocks_device = _device(2)
 
 
-# --- decoders (host, numpy) ---
+# --- decoders (host): the plain numpy twins, then the C++ library ---
 
 def _header(blocks: np.ndarray):
     pred = (blocks[:, 0].astype(np.int32)
@@ -260,19 +264,38 @@ def _decode2_numpy(data: np.ndarray, n_blocks: int) -> np.ndarray:
     return (out.reshape(-1) / 32767.0).astype(np.float32)
 
 
-def _host_decoder(block_bytes: int, decode: Callable) -> Callable:
+_U8P, _F32P = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+_DECODE_SIGNATURES = {
+    f"adpcm{bits}_decode": ([_U8P, ctypes.c_int, _F32P], None)
+    for bits in VARIANTS}
+
+
+def decode_lib() -> ctypes.CDLL:
+    """The C++ decoders, built with g++ at first use."""
+    from efficientspeech_tpu_torch.ops.kernels import build
+
+    return build.load_host("adpcm_decode", _DECODE_SIGNATURES)
+
+
+def _host_decoder(bits: int) -> Callable:
+    block_bytes = VARIANTS[bits][0]
+
     def decode_host(data: np.ndarray) -> np.ndarray:
         data = np.ascontiguousarray(data, np.uint8)
         n_blocks = len(data) // block_bytes
-        return decode(data[: n_blocks * block_bytes], n_blocks)
-    decode_host.__doc__ = ("uint8 wire bytes (whole blocks; a partial "
-                           "block at the end is dropped) → float32 samples.")
+        out = np.empty(n_blocks * BLOCK, np.float32)
+        getattr(decode_lib(), f"adpcm{bits}_decode")(
+            data.ctypes.data_as(_U8P), n_blocks, out.ctypes.data_as(_F32P))
+        return out
+    decode_host.__doc__ = (f"uint8 wire bytes at {bits} bits a code (whole "
+                           f"blocks; a partial block at the end is dropped) "
+                           f"→ float32 samples, decoded in C++.")
     return decode_host
 
 
-decode_blocks_host = _host_decoder(BLOCK_BYTES, _decode_numpy)
-decode3_blocks_host = _host_decoder(BLOCK3_BYTES, _decode3_numpy)
-decode2_blocks_host = _host_decoder(BLOCK2_BYTES, _decode2_numpy)
+decode_blocks_host = _host_decoder(4)
+decode3_blocks_host = _host_decoder(3)
+decode2_blocks_host = _host_decoder(2)
 
 
 # --- wire sizes ---

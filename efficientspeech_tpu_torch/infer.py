@@ -15,9 +15,15 @@ done.  The split pipeline (``vocoder_mode="chunked"`` or
 ``fused_pipeline=False``) runs the acoustic model at the bucket's full
 mel size, reads the mel length, and vocodes only the chunks that cover
 it.
+
+Every wait of the host for the card goes through one
+``Synthesizer._device_get``, which a server arms with a deadline
+(``fetch_timeout_s``): a read that misses it raises ``SynthesisTimeout``.
 """
 
 import collections
+import os
+import threading
 import time
 import warnings
 from typing import Optional, Tuple
@@ -57,6 +63,21 @@ SPEC_MIN_FRAMES = 512
 # re-measured on the card yet.
 KERNEL_MIN_FRAMES = 2048
 VOCODER_MODES = ("folded", "folded_kernel", "chunked")
+# precompile's rows: this text's phonemes, repeated to fill each bucket
+PRECOMPILE_TEXT = "the quick brown fox jumps over the lazy dog"
+
+
+class SynthesisTimeout(TimeoutError):
+    """A read from the card exceeded ``Synthesizer.fetch_timeout_s``.
+
+    The serving layer maps it to HTTP 503 with Retry-After and opens its
+    circuit breaker (``serve.py``): a card that is wedged or far behind
+    fails its clients fast instead of holding them indefinitely."""
+
+
+def to_host(tensors):
+    """The read itself: each tensor copied to a numpy array."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 class Synthesizer:
@@ -122,6 +143,14 @@ class Synthesizer:
         self.hop_length = self.preprocess_cfg.audio.hop_length
         self._obs_ratio = None
         self._obs_recent = collections.deque(maxlen=self.OBS_WINDOW)
+        # the deadline of every read from the card (seconds; None waits
+        # forever, a library caller's default); ``_fetch_fn`` stands in for
+        # the read (``to_host``) in tests; ``_live_fetches`` counts the
+        # reads in flight, those a deadline abandoned included
+        self.fetch_timeout_s = None
+        self._fetch_fn = None
+        self._live_fetches = 0
+        self._fetch_lock = threading.Lock()
 
         model = model.to(self.device).eval()
         # Linear and conv weights in ``dtype``; LayerNorm and embedding
@@ -184,14 +213,89 @@ class Synthesizer:
                 return level
         return bucket * self.mel_expansion
 
+    # --- reads from the card ------------------------------------------------
+    def _device_get(self, *tensors):
+        """Copy ``tensors`` to the host as numpy arrays: the one place a
+        request waits for the card.  On the card, an event recorded on the
+        current stream (the one stream all synthesis runs on) marks the end
+        of the work queued so far; the read waits for it, then copies.
+        With ``fetch_timeout_s`` set, the read runs on a daemon thread and
+        the caller gets ``SynthesisTimeout`` once the deadline passes; the
+        thread stays parked on the event until the card gets there (a
+        launched kernel cannot be cancelled), and ``pending_fetches``
+        counts it until then."""
+        fetch = self._fetch_fn or to_host
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+
+        def read():
+            try:
+                if done is not None:
+                    done.synchronize()
+                return fetch(tensors)
+            finally:
+                with self._fetch_lock:
+                    self._live_fetches -= 1
+
+        with self._fetch_lock:
+            self._live_fetches += 1
+        if self.fetch_timeout_s is None:
+            return read()
+        box = {}
+
+        def run():
+            try:
+                box["out"] = read()
+            except BaseException as e:  # raised in the caller below
+                box["err"] = e
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(self.fetch_timeout_s)
+        if t.is_alive():
+            raise SynthesisTimeout(
+                f"read from the card exceeded the {self.fetch_timeout_s:.1f}"
+                f" s deadline (card wedged or far behind)")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def pending_fetches(self) -> int:
+        """Reads from the card in flight, with a deadline or without one,
+        those a deadline abandoned included (their threads still wait on
+        the card).  A worker recycle waits for 0 before it re-execs."""
+        with self._fetch_lock:
+            return self._live_fetches
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array → card tensor without a host wait: through pinned
+        memory, copied in stream order (a pageable copy would wait for the
+        stream's earlier work: outside any deadline, and between programs
+        that could have queued back to back).  PyTorch's pinned
+        allocator keeps the staging block until the copy has run."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     # --- the device programs --------------------------------------------
     def _predict(self, phoneme: np.ndarray, frames: int,
                  speaker: Optional[int] = None):
         """The acoustic model on phoneme IDs (B, bucket) at ``frames`` mel
-        frames, on the card."""
-        ph = torch.from_numpy(phoneme).to(self.device)
+        frames, on the card.  With ``fetch_timeout_s`` set, the host first
+        waits within the deadline for the work already queued
+        (``_device_get()`` of nothing): a program adds no launches to a
+        stream that is wedged or behind, where a full launch queue would
+        hold the host outside any deadline, and no program starts while
+        one whose read a deadline abandoned is still running.  Without a
+        deadline nothing waits here, so programs queue back to back."""
+        if self.device.type == "cuda" and self.fetch_timeout_s is not None:
+            self._device_get()
+        ph = self._upload(phoneme)
         spk = (None if speaker is None else
-               torch.tensor([speaker], dtype=torch.long, device=self.device))
+               self._upload(np.array([speaker], np.int64)))
         return self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
                              speaker=spk)
 
@@ -276,7 +380,7 @@ class Synthesizer:
         n_valid = int(min(len(seq), bucket))
         spec = self._spec_frames(n_valid, bucket)
         pcm, mel_len_dev, duration = self._run(phoneme, spec, speaker)
-        mel_len = int(mel_len_dev[0])
+        mel_len = int(self._device_get(mel_len_dev[:1])[0][0])
         self._observe_ratio(mel_len, n_valid)
         if mel_len > spec:
             full = bucket * self.mel_expansion
@@ -285,11 +389,11 @@ class Synthesizer:
                                          min_frames=min(mel_len, full))
                 pcm, mel_len_dev, duration = self._run(phoneme, spec,
                                                        speaker)
-                mel_len = int(mel_len_dev[0])
+                mel_len = int(self._device_get(mel_len_dev[:1])[0][0])
             mel_len = min(mel_len, full)
         n = mel_len * self.hifigan_cfg.total_upsample
         pcm = pcm[0, :elements_for_samples(self.transfer, n)]
-        wav = decode_host(pcm.cpu().numpy(), self.transfer)[:n]
+        wav = decode_host(self._device_get(pcm)[0], self.transfer)[:n]
         return wav, mel_len, duration
 
     def _synthesize_split(self, seq: np.ndarray, phoneme: np.ndarray,
@@ -302,12 +406,14 @@ class Synthesizer:
         slice_len = self._split_slice(
             n_valid * self.SPECULATIVE_EXPANSION, mel.shape[1])
         wav = self._vocode_split(mel[:, :slice_len], mel_len_dev)
-        mel_len = min(int(mel_len_dev[0]), mel.shape[1])
+        mel_len = min(int(self._device_get(mel_len_dev[:1])[0][0]),
+                      mel.shape[1])
         if mel_len > slice_len:
             slice_len = self._split_slice(mel_len, mel.shape[1])
             wav = self._vocode_split(mel[:, :slice_len], mel_len_dev)
         n = mel_len * self.hifigan_cfg.total_upsample
-        return self._to_float(wav[0, :n].cpu().numpy()), mel_len, duration
+        return (self._to_float(self._device_get(wav[0, :n])[0]), mel_len,
+                duration)
 
     def tts_ids_timed(self, seq: np.ndarray, speaker: Optional[int] = None):
         """Synthesize a phoneme sequence of any length: segments beyond the
@@ -409,10 +515,10 @@ class Synthesizer:
 
         def run(spec):
             pcm, mel_len_dev, _ = self._run(phoneme, spec)
-            mel_lens = mel_len_dev[:b].cpu().numpy()
+            mel_lens = self._device_get(mel_len_dev[:b])[0]
             n = min(int(mel_lens.max()), spec) * up
             cut = elements_for_samples(self.transfer, n)
-            return pcm[:b, :cut].cpu().numpy(), mel_lens
+            return self._device_get(pcm[:b, :cut])[0], mel_lens
 
         t0 = time.time()
         pcm_np, mel_lens = run(spec)
@@ -461,10 +567,10 @@ class Synthesizer:
 
         t0 = time.time()
         mel, mel_len_dev, _ = self._acoustic_split(phoneme)
-        mel_lens = np.minimum(mel_len_dev.cpu().numpy(), mel.shape[1])
+        mel_lens = np.minimum(self._device_get(mel_len_dev)[0], mel.shape[1])
         slice_len = self._split_slice(int(mel_lens.max()), mel.shape[1])
         wavs = self._vocode_split(mel[:, :slice_len], mel_len_dev)
-        wavs = wavs.cpu().numpy()
+        wavs = self._device_get(wavs)[0]
         elapsed = time.time() - t0
 
         out = []
@@ -484,9 +590,54 @@ class Synthesizer:
             self.synthesize_ids(seq)
         return len(seq)
 
+    @torch.no_grad()
+    def precompile(self, buckets, batch_sizes=(1,)):
+        """Pay the first-use costs of serving shapes before traffic: for
+        each bucket (at its speculative frames for a full bucket) and batch
+        size, one eager run with real phonemes in every row, its output
+        discarded.  That builds and loads the kernel libraries, encodes
+        K2's tensor maps, sets up the libraries' handles and grows the
+        caching allocator.  The speculation tracker is left as it was:
+        warm runs are not traffic.  Returns the (batch, bucket, frames)
+        shapes warmed."""
+        text = self.phonemize(PRECOMPILE_TEXT)
+        done = []
+        for b in sorted(set(buckets)):
+            row = np.resize(text, b).astype(np.int32)
+            frames = self._spec_frames(b, b)
+            for bs in sorted(set(batch_sizes)):
+                phoneme = np.tile(row, (bs, 1))
+                if self.fused_pipeline and self.vocoder_mode != "chunked":
+                    _, mel_len, _ = self._run(phoneme, frames)
+                else:
+                    mel, mel_len, _ = self._acoustic_split(phoneme)
+                    self._vocode_split(mel[:, :self._split_slice(
+                        b * self.SPECULATIVE_EXPANSION, mel.shape[1])],
+                        mel_len)
+                self._device_get(mel_len)
+                done.append((bs, b, frames))
+        return done
+
+
+def load_checkpoint_params(model: EfficientSpeech, checkpoint: str):
+    """Load a checkpoint of the port's trainer into ``model.phoneme2mel``:
+    a ``step_*.pt`` file, or a directory whose latest one is read."""
+    from efficientspeech_tpu_torch.training.checkpoint import (
+        latest_checkpoint)
+
+    path = checkpoint
+    if os.path.isdir(checkpoint):
+        path = latest_checkpoint(checkpoint)
+        if path is None:
+            raise FileNotFoundError(f"no step_*.pt checkpoint in "
+                                    f"{checkpoint}")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    model.phoneme2mel.load_state_dict(payload["params"], strict=True)
+
 
 def build_synthesizer(preset: str = "tiny",
                       params=None,
+                      checkpoint: Optional[str] = None,
                       hifigan_cfg: Optional[HifiGanConfig] = None,
                       hifigan_config: Optional[str] = None,
                       preprocess_cfg: Optional[PreprocessConfig] = None,
@@ -500,7 +651,9 @@ def build_synthesizer(preset: str = "tiny",
                       device=None) -> Synthesizer:
     """Build a Synthesizer from a JAX-layout parameter tree (``params``,
     with ``phoneme2mel`` and ``hifigan`` subtrees) or, without one, from a
-    native random init seeded by ``seed``.
+    native random init seeded by ``seed``.  ``checkpoint`` (a ``step_*.pt``
+    file of the port's trainer, or its directory) then replaces the
+    acoustic model's parameters; the vocoder stays the random init.
 
     ``hifigan_cfg`` / ``hifigan_config`` (a config.json path) choose the
     vocoder's shape, default the LJ_V2 widths.  ``bench_duration_bias``
@@ -524,6 +677,8 @@ def build_synthesizer(preset: str = "tiny",
         init_params(model, seed)
         if bench_duration_bias is not None:
             set_duration_bias(model, bench_duration_bias)
+    if checkpoint is not None:
+        load_checkpoint_params(model, checkpoint)
     return Synthesizer(cfg, hifigan_cfg, model,
                        preprocess_cfg=preprocess_cfg, dtype=dtype,
                        transfer=transfer, vocoder_mode=vocoder_mode,

@@ -146,3 +146,101 @@ def test_adpcm_encode_refuses_what_the_kernel_does_not_take():
         adpcm_kernel.adpcm_encode(x, 5)
     with pytest.raises(ValueError, match="multiple of 256"):
         adpcm_kernel.adpcm_encode(torch.zeros(2, 300), 4)
+
+
+# --- the C++ host decoder ---
+
+HOST = {4: (adpcm.decode_blocks_host, jax_adpcm.decode_blocks_host),
+        3: (adpcm.decode3_blocks_host, jax_adpcm.decode3_blocks_host),
+        2: (adpcm.decode2_blocks_host, jax_adpcm.decode2_blocks_host)}
+
+
+@pytest.mark.parametrize("bits", [4, 3, 2])
+def test_c_decoder_bit_equal_to_numpy_and_jax(bits):
+    """Seeded random wire bytes with a partial block at the end: the C++
+    decoder gives the numpy decoder's samples bit for bit, and the JAX
+    package's host decoder's (its C library, or its numpy fallback)."""
+    name, block_bytes = DECODERS[bits]
+    rng = np.random.default_rng(40 + bits)
+    n_blocks = 37
+    data = rng.integers(0, 256, n_blocks * block_bytes + block_bytes // 3
+                        ).astype(np.uint8)
+    decode, jax_decode = HOST[bits]
+    got = decode(data)
+    want = getattr(adpcm, name)(data[: n_blocks * block_bytes], n_blocks)
+    assert got.dtype == np.float32 and got.shape == (n_blocks * adpcm.BLOCK,)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jax_decode(data))
+
+
+def _isolated_build(monkeypatch, tmp_path):
+    """Point the host build at a copy of csrc/adpcm_decode.cpp and an
+    empty build directory."""
+    from efficientspeech_tpu_torch.ops.kernels import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "adpcm_decode.cpp").write_bytes(
+        (build.CSRC / "adpcm_decode.cpp").read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "HOST_BUILD_DIR", tmp_path / "build" / "host")
+    monkeypatch.setattr(build, "_loaded", {})
+    return build, csrc
+
+
+def test_c_decoder_builds_at_first_use_and_on_source_change(
+        monkeypatch, tmp_path):
+    build, csrc = _isolated_build(monkeypatch, tmp_path)
+    wire = PLAIN[4](torch.from_numpy(_case("random"))).numpy()
+    assert not build.HOST_BUILD_DIR.exists()
+    first = adpcm.decode_blocks_host(wire[0])
+    libs = sorted(p.name for p in build.HOST_BUILD_DIR.iterdir())
+    assert len(libs) == 1 and libs[0].startswith("libadpcm_decode_")
+    assert adpcm.decode_lib() is adpcm.decode_lib()  # loaded once
+    # an edited source gets a library of its own name, built at the next
+    # process's first use (here: the loaded libraries forgotten)
+    src = csrc / "adpcm_decode.cpp"
+    src.write_text(src.read_text() + "\n// edited\n")
+    monkeypatch.setattr(build, "_loaded", {})
+    np.testing.assert_array_equal(adpcm.decode_blocks_host(wire[0]), first)
+    libs2 = sorted(p.name for p in build.HOST_BUILD_DIR.iterdir())
+    assert len(libs2) == 2 and libs[0] in libs2
+
+
+def test_c_decoder_rebuilt_for_another_cpu(monkeypatch, tmp_path):
+    """``-march=native`` code is for the CPU that built it: a library
+    built where g++ saw another target keeps its name and is not loaded
+    here; this CPU's own is built beside it."""
+    build, _ = _isolated_build(monkeypatch, tmp_path)
+    wire = PLAIN[2](torch.from_numpy(_case("random"))).numpy()
+    here = build._host_target
+    monkeypatch.setattr(build, "_host_target", lambda gxx: b"another cpu")
+    first = adpcm.decode2_blocks_host(wire[0])
+    other = sorted(p.name for p in build.HOST_BUILD_DIR.iterdir())
+    monkeypatch.setattr(build, "_host_target", here)
+    monkeypatch.setattr(build, "_loaded", {})
+    np.testing.assert_array_equal(adpcm.decode2_blocks_host(wire[0]), first)
+    libs = sorted(p.name for p in build.HOST_BUILD_DIR.iterdir())
+    assert len(other) == 1 and len(libs) == 2 and other[0] in libs
+
+
+def test_c_decoder_raises_without_a_compiler(monkeypatch, tmp_path):
+    """No g++ and no library built: the decoder raises instead of quietly
+    decoding in numpy."""
+    import shutil
+
+    _isolated_build(monkeypatch, tmp_path)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    wire = PLAIN[3](torch.from_numpy(_case("random"))).numpy()
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        adpcm.decode3_blocks_host(wire[0])
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        transfer.decode_host(wire[0], "adpcm3")
+
+
+def test_c_decoder_raises_with_the_compiler_output(monkeypatch, tmp_path):
+    build, csrc = _isolated_build(monkeypatch, tmp_path)
+    (csrc / "adpcm_decode.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*error"):
+        adpcm.decode_lib()
+    assert not any(build.HOST_BUILD_DIR.glob("*.so"))

@@ -81,6 +81,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_serve_raises_without_cuda(monkeypatch):
+    """``python -m efficientspeech_tpu_torch.serve`` serves from the card
+    and refuses to start without one unless asked for the CPU."""
+    from efficientspeech_tpu_torch import serve
+
+    class Stop(Exception):
+        pass
+
+    def stop(host, port, handler):
+        raise Stop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(serve, "make_server", stop)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--port", "0"])
+    with pytest.raises(Stop):  # built on the CPU; stopped before serving
+        serve.main(["--port", "0", "--device", "cpu"])
+
+
 def test_int8_probe_raises_without_cuda(monkeypatch, capsys):
     """The int8 probe times the card, and without one refuses to start
     unless asked for the CPU, where it runs K5's plain version."""

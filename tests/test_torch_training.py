@@ -400,3 +400,61 @@ def test_sigterm_checkpoints_and_returns(preprocessed_corpus, tmp_path):
         f"step_{final_step:08d}.pt")
     # the handlers are restored
     assert signal.getsignal(signal.SIGTERM) is not None
+
+
+def test_synthesizer_serves_a_trainer_checkpoint(preprocessed_corpus,
+                                                 tmp_path):
+    """A checkpoint that ``save_checkpoint`` writes from a Trainer's state
+    loads into ``build_synthesizer(checkpoint=...)``, named by its file or
+    by its directory: the synthesizer's acoustic model gives the trained
+    Phoneme2Mel's mel and durations."""
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.training.checkpoint import save_checkpoint
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    cfg = _port_cfg(preprocessed_corpus)
+    stats = cfg.load_stats()
+    sizes = dict(max_phoneme_len=32, max_mel_len=256)
+    model_cfg = ModelConfig.preset(
+        "tiny", pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]), **sizes)
+    train_cfg = TrainConfig(batch_size=2, max_epochs=5, warmup_epochs=1,
+                            checkpoint_dir=str(tmp_path / "ckpt"),
+                            log_dir=str(tmp_path / "logs"))
+    trainer = Trainer(model_cfg, train_cfg, cfg, dtype=torch.float32,
+                      device="cpu")
+    trainer.fit(max_steps=1)
+    trainer.state.step = 7
+    path = save_checkpoint(str(tmp_path / "served"), trainer.state)
+    assert path.endswith("step_00000007.pt")
+
+    rng = np.random.default_rng(11)
+    ph = torch.from_numpy(rng.integers(70, 146, (2, 20)).astype(np.int64))
+    ph[1, 14:] = 0
+    mask = ph == 0
+    model = trainer.model.eval()
+    with torch.no_grad():
+        want = model(ph, mask, max_mel_len=128)
+    small = HifiGanConfig(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+                          upsample_initial_channel=16)
+
+    def build(checkpoint):
+        return build_synthesizer(
+            preset="tiny", checkpoint=checkpoint, stats=stats,
+            model_overrides=sizes, hifigan_cfg=small, dtype=torch.float32,
+            bench_duration_bias=6.0, device="cpu")
+
+    for checkpoint in (path, str(tmp_path / "served")):
+        synth = build(checkpoint)
+        with torch.no_grad():
+            got = synth.acoustic(ph, mask, max_mel_len=128)
+        assert torch.equal(got["duration"], want["duration"])
+        assert torch.equal(got["mel_len"], want["mel_len"])
+        torch.testing.assert_close(got["mel"], want["mel"], rtol=1e-5,
+                                   atol=1e-6)
+    with torch.no_grad():
+        fresh = build(None).acoustic(ph, mask, max_mel_len=128)
+    assert not torch.allclose(fresh["mel"], want["mel"])
+    with pytest.raises(FileNotFoundError):
+        build(str(tmp_path / "logs"))
