@@ -218,6 +218,27 @@ TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES = 128, 128, 1024
 EPOCH_STEPS, TRAIN_EPOCHS, WARMUP_STEPS = 20, 2, 3
 ROUTE_LOSS_RTOL, ROUTE_GRAD_COS = 1e-2, 0.99
 F32_ROUTE_LOSS_RTOL, F32_ROUTE_GRAD_COS = 1e-4, 0.999
+# the reference-checkpoint phase: the waveform served from the files
+# against the one served from the parameters the files hold, built
+# directly (the same weights: the same waveform).  Against the seed
+# build the files were written from, the weight-norm fold moves about a
+# quarter of the vocoder's float32 weights by an ulp, 11 of 925,985 of
+# them across a bf16 rounding, and the bf16 route spreads any change to
+# its own noise (59.2 dB measured, NVIDIA H100 80GB HBM3, 700 W): that
+# comparison is held at E2E_SNR_DB, the bf16 route's end-to-end bar
+REFERENCE_SNR_DB = 60.0
+# the preprocessing phase: a raw corpus of LJSpeech's length range, and
+# the card's run held to the CPU's (log-mel absolute; energy relative;
+# stats.json's energy mean relative, its std, min and max within the
+# energy's error scaled by mean / std, as tests/test_torch_preprocess.py
+# holds them)
+RAW_UTTERANCES, RAW_SECONDS, RAW_VAL = 128, (1.0, 10.0), 16
+PREPROCESS_WORKERS = 4
+PREPROCESS_LOG_MEL_ATOL, PREPROCESS_ENERGY_RTOL = 1e-3, 1e-5
+PREPROCESS_STATS_RTOL = 1e-6
+# the train + validation audio phase on that corpus: the tiny preset in
+# bf16, batch 16 (7 steps an epoch), two epochs
+VALIDATE_BATCH, VALIDATE_STEPS = 16, 14
 # the kernel-table rows whose kernels were redesigned for Hopper after
 # their first port, by launch key: the design each row's time belongs to
 DESIGNS = {
@@ -1657,6 +1678,346 @@ def phase_train(card: str, preset: str, data: str, out: str,
     return launches
 
 
+def phase_reference(synth, card: str, root: str):
+    """Reference checkpoints: the port's writers save the parameters of
+    ``synth`` (the tiny model from seed 0 with duration bias 6.0, and
+    its LJ_V2-width generator) as a Lightning ``.ckpt`` and a
+    ``{"generator": ...}`` file with ``weight_g``/``weight_v`` and a
+    config.json beside it; ``build_synthesizer`` builds a synthesizer
+    from the files on the card, which serves the long request through K1
+    and K2 (launches counted from 0).  Its waveform is held at >=
+    REFERENCE_SNR_DB to a synthesizer built directly from the trees the
+    loaders read from the files, and its mel_len equals ``synth``'s,
+    whose waveform it holds at >= E2E_SNR_DB.  Returns the generator
+    file's path."""
+    from efficientspeech_tpu_torch.config import ModelConfig
+    from efficientspeech_tpu_torch.convert.from_torch import (
+        load_efficientspeech_checkpoint, load_hifigan_checkpoint)
+    from efficientspeech_tpu_torch.convert.to_torch import (
+        save_hifigan_checkpoint, save_reference_checkpoint)
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.models.efficientspeech import (
+        EfficientSpeech)
+    from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+    from efficientspeech_tpu_torch.ops.kernels import mrf_block
+    from efficientspeech_tpu_torch.weights import (
+        init_params, set_duration_bias, to_jax_params)
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig.preset("tiny")
+    model = set_duration_bias(init_params(
+        EfficientSpeech(cfg, synth.hifigan_cfg), 0), 6.0)
+    tree = to_jax_params(model)
+    ckpt = os.path.join(root, "tiny_seed0.ckpt")
+    save_reference_checkpoint(ckpt, {"phoneme2mel": tree["phoneme2mel"]},
+                              depth=cfg.depth, n_blocks=cfg.n_blocks,
+                              block_depth=cfg.block_depth,
+                              pitch_stats=cfg.pitch_stats,
+                              energy_stats=cfg.energy_stats,
+                              hyper_parameters={"preset": "tiny"})
+    os.makedirs(os.path.join(root, "LJ_V2"))
+    gen = os.path.join(root, "LJ_V2", "generator_v2")
+    save_hifigan_checkpoint(gen, tree["hifigan"], synth.hifigan_cfg)
+    ref = build_synthesizer(preset="tiny", checkpoint=ckpt,
+                            hifigan_checkpoint=gen, dtype=synth.dtype,
+                            vocoder_mode="folded_kernel")
+    setup_s = time.perf_counter() - t0
+    if ref.hifigan_cfg != synth.hifigan_cfg:
+        fail(f"reference: config.json gave {ref.hifigan_cfg}")
+    seq = ref.phonemize(LONG_TEXT)
+    ref.synthesize_ids(seq)  # warm-up
+    _reset_counts(fm, mrf_block)
+    torch.cuda.synchronize()
+    wav, info = ref.tts(LONG_TEXT)
+    k1, k2 = fm.launches[synth.dtype], mrf_block.launches[synth.dtype]
+    direct = build_synthesizer(
+        preset="tiny", params={
+            **load_efficientspeech_checkpoint(
+                ckpt, depth=cfg.depth, n_blocks=cfg.n_blocks,
+                block_depth=cfg.block_depth),
+            "hifigan": load_hifigan_checkpoint(gen)},
+        hifigan_cfg=synth.hifigan_cfg, dtype=synth.dtype,
+        vocoder_mode="folded_kernel")
+    same, same_info = direct.tts(LONG_TEXT)
+    seed, seed_info = synth.tts(LONG_TEXT)
+    snr_same = snr_db(torch.from_numpy(same), torch.from_numpy(wav))
+    snr_seed = snr_db(torch.from_numpy(seed), torch.from_numpy(wav))
+    print(f"[reference] {dname(synth.dtype)}: .ckpt "
+          f"{os.path.getsize(ckpt) / 1e6:.2f} MB and generator "
+          f"{os.path.getsize(gen) / 1e6:.2f} MB written and built in "
+          f"{setup_s:.1f} s; long request mel_len {info['mel_len']} "
+          f"(direct build of the loaded trees {same_info['mel_len']}, seed "
+          f"build {seed_info['mel_len']}), launches K1 {k1} K2 {k2}, "
+          f"{info['total_secs'] * 1e3:.1f} ms RTF {info['rtf']:.1f}; "
+          f"waveform SNR vs the direct build {snr_same:.1f} dB (tol >= "
+          f"{REFERENCE_SNR_DB}), vs the seed build {snr_seed:.1f} dB (tol "
+          f">= {E2E_SNR_DB}) | {card}")
+    if (k1, k2) != (5, 4):
+        fail(f"reference: the long request launched K1 {k1} and K2 {k2} "
+             "times; expected 5 and 4")
+    if not (info["mel_len"] == same_info["mel_len"] == seed_info["mel_len"]
+            > 0):
+        fail(f"reference: mel_len {info['mel_len']}, direct build "
+             f"{same_info['mel_len']}, seed build {seed_info['mel_len']}")
+    if (not np.isfinite(wav).all() or snr_same < REFERENCE_SNR_DB
+            or snr_seed < E2E_SNR_DB):
+        fail(f"reference: waveform SNR {snr_same:.1f} / {snr_seed:.1f} dB")
+    del ref, direct
+    return gen
+
+
+RAW_PHONES = ("AA1", "AE1", "AH0", "AO1", "B", "D", "EH1", "ER0", "IY1",
+              "K", "L", "M", "N", "P", "R", "S", "T", "UW1", "V", "Z")
+RAW_WORDS = ("the", "voice", "of", "a", "speaker", "reads", "this", "line",
+             "aloud", "slowly", "and", "clearly")
+
+
+def _textgrid(path: str, intervals):
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"',
+             "xmin = 0", f"xmax = {intervals[-1][1]}", "tiers? <exists>",
+             "size = 1", "item []:", "    item [1]:",
+             '        class = "IntervalTier"', '        name = "phones"',
+             "        xmin = 0", f"        xmax = {intervals[-1][1]}",
+             f"        intervals: size = {len(intervals)}"]
+    for i, (s, e, t) in enumerate(intervals):
+        lines += [f"        intervals [{i + 1}]:", f"            xmin = {s}",
+                  f"            xmax = {e}", f'            text = "{t}"']
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def write_raw_corpus(root: str, textgrid_dirs, n: int,
+                     seed: int = 0) -> float:
+    """A synthetic raw corpus in the layout the preprocessor reads:
+    ``root/LJSpeech/*.wav`` (22,050 Hz int16) and ``*.lab``, and a
+    TextGrid of each under every directory of ``textgrid_dirs``.  Each
+    utterance lasts 1-10 s (uniform): 0.1 s of silence, 80 ms phones on
+    average, 0.1 s of pause; its voice a glide of 120-220 Hz with a
+    little noise (the generator of scripts/scale_corpus.py).  Returns
+    the seconds of audio written."""
+    from scipy.io import wavfile
+
+    sr = 22050
+    rng = np.random.default_rng(seed)
+    raw = os.path.join(root, "LJSpeech")
+    os.makedirs(raw, exist_ok=True)
+    for d in textgrid_dirs:
+        os.makedirs(os.path.join(d, "LJSpeech"), exist_ok=True)
+    total_secs = 0.0
+    for u in range(n):
+        target = rng.uniform(*RAW_SECONDS)
+        n_ph = max(4, int((target - 0.2) / 0.08))
+        intervals, t = [(0.0, 0.1, "sil")], 0.1
+        for d in rng.uniform(0.05, 0.11, size=n_ph):
+            p = RAW_PHONES[rng.integers(len(RAW_PHONES))]
+            intervals.append((round(t, 4), round(t + d, 4), p))
+            t += d
+        intervals.append((round(t, 4), round(t + 0.1, 4), "sp"))
+        secs = t + 0.1
+        total_secs += secs
+        tt = np.arange(int(secs * sr)) / sr
+        f0 = 170 + 50 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * tt
+                               + rng.uniform(0, 6))
+        wav = 0.4 * np.sin(2 * np.pi * np.cumsum(f0) / sr)
+        wav += 0.02 * rng.standard_normal(len(wav))
+        base = f"LJ{u // 1000:03d}-{u % 1000:04d}"
+        wavfile.write(os.path.join(raw, f"{base}.wav"), sr,
+                      (wav * 32000).astype(np.int16))
+        with open(os.path.join(raw, f"{base}.lab"), "w") as f:
+            f.write(" ".join(rng.choice(RAW_WORDS, size=max(2, n_ph // 6))))
+        for d in textgrid_dirs:
+            _textgrid(os.path.join(d, "LJSpeech", f"{base}.TextGrid"),
+                      intervals)
+    return total_secs
+
+
+def _corpus_features(out: str):
+    return {kind: {f: np.load(os.path.join(out, kind, f))
+                   for f in sorted(os.listdir(os.path.join(out, kind)))}
+            for kind in ("mel", "pitch", "energy", "duration")}
+
+
+def phase_preprocess(card: str, root: str) -> str:
+    """The preprocessing pipeline on the card: a raw corpus of
+    RAW_UTTERANCES utterances through ``Preprocessor(device=card)
+    .build_from_path(num_workers=PREPROCESS_WORKERS)`` (the workers do
+    the wav, TextGrid and DIO pitch on the host; this process each mel
+    and energy on the card), then the same with ``device="cpu"``: the
+    text files byte-equal, durations and pitch bit-equal, the mel and
+    energy and stats.json within their bars.  Returns the card run's
+    preprocessed directory."""
+    import random
+
+    from efficientspeech_tpu_torch.config import PreprocessConfig
+    from efficientspeech_tpu_torch.data.preprocessor import Preprocessor
+
+    outs = {d: os.path.join(root, f"preprocessed_{d}")
+            for d in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    audio_secs = write_raw_corpus(
+        os.path.join(root, "raw"),
+        [os.path.join(o, "TextGrid") for o in outs.values()], RAW_UTTERANCES)
+    print(f"[preprocess] raw corpus: {RAW_UTTERANCES} utterances, "
+          f"{audio_secs:.1f} s of audio at 22,050 Hz ({RAW_SECONDS[0]:.0f}-"
+          f"{RAW_SECONDS[1]:.0f} s each), written in "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    walls, lines = {}, {}
+    for dev, out in outs.items():
+        cfg = PreprocessConfig(dataset="LJSpeech", corpus_path=root,
+                               raw_path=os.path.join(root, "raw"),
+                               preprocessed_path=out, val_size=RAW_VAL)
+        pre = Preprocessor(cfg, device=dev if dev == "cpu" else None)
+        random.seed(0)  # the train/val shuffle
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines[dev] = pre.build_from_path(verbose=False,
+                                         num_workers=PREPROCESS_WORKERS)
+        walls[dev] = time.perf_counter() - t0
+        print(f"[preprocess] {pre.stft.device}, {PREPROCESS_WORKERS} "
+              f"workers: {len(lines[dev])} utterances in {walls[dev]:.2f} s, "
+              f"{len(lines[dev]) / walls[dev]:.1f} utterances/s, "
+              f"{audio_secs / walls[dev]:.1f} audio s per wall s | {card}")
+    if len(lines["cuda"]) != RAW_UTTERANCES or lines["cuda"] != lines["cpu"]:
+        fail(f"preprocess: {len(lines['cuda'])} utterances on the card, "
+             f"{len(lines['cpu'])} on the CPU (of {RAW_UTTERANCES}), or "
+             "their lines differ")
+    for name in ("train.txt", "val.txt", "speakers.json"):
+        with open(os.path.join(outs["cuda"], name), "rb") as a, \
+                open(os.path.join(outs["cpu"], name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"preprocess: {name} differs between card and CPU")
+    stats = {}
+    for dev, out in outs.items():
+        with open(os.path.join(out, "stats.json")) as f:
+            stats[dev] = json.load(f)
+    feats = {dev: _corpus_features(out) for dev, out in outs.items()}
+    for kind in ("duration", "pitch"):
+        for name, want in feats["cpu"][kind].items():
+            if not np.array_equal(feats["cuda"][kind][name], want):
+                fail(f"preprocess: {kind} {name} not bit-equal")
+    mel_err = max(float(np.abs(feats["cuda"]["mel"][k] - v).max())
+                  for k, v in feats["cpu"]["mel"].items())
+    # the energy files hold z-scores: each run's own stats undo them
+    raw_energy = {dev: {k: v * stats[dev]["energy"][3]
+                        + stats[dev]["energy"][2]
+                        for k, v in feats[dev]["energy"].items()}
+                  for dev in outs}
+    energy_err = max(float(np.abs(raw_energy["cuda"][k] / v - 1).max())
+                     for k, v in raw_energy["cpu"].items())
+    (lo_c, hi_c, mean_c, std_c), (lo, hi, mean, std) = (
+        stats["cuda"]["energy"], stats["cpu"]["energy"])
+    spread = PREPROCESS_ENERGY_RTOL * abs(mean) / std
+    mean_err = abs(mean_c / mean - 1)
+    std_err = abs(std_c / std - 1)
+    minmax_err = max(abs(lo_c - lo), abs(hi_c - hi))
+    print(f"[preprocess] card vs CPU: text files byte-equal, durations and "
+          f"pitch bit-equal; log-mel max |diff| {mel_err:.3g} (tol <= "
+          f"{PREPROCESS_LOG_MEL_ATOL}); energy max rel diff "
+          f"{energy_err:.3g} (tol <= {PREPROCESS_ENERGY_RTOL}); stats.json "
+          f"pitch {'equal' if stats['cuda']['pitch'] == stats['cpu']['pitch'] else 'DIFFERENT'}, "
+          f"energy mean rel diff {mean_err:.3g} (tol <= "
+          f"{PREPROCESS_STATS_RTOL}), std rel diff {std_err:.3g} and "
+          f"min/max |diff| {minmax_err:.3g} (tol <= {spread:.3g}, the "
+          f"energy's tolerance x mean / std); extractor "
+          f"{stats['cuda']['pitch_extractor']} | {card}")
+    if (mel_err > PREPROCESS_LOG_MEL_ATOL
+            or energy_err > PREPROCESS_ENERGY_RTOL
+            or stats["cuda"]["pitch"] != stats["cpu"]["pitch"]
+            or mean_err > PREPROCESS_STATS_RTOL or std_err > spread
+            or minmax_err > spread):
+        fail("preprocess: the card's features or stats.json do not hold "
+             "the CPU's")
+    return outs["cuda"]
+
+
+def phase_validate(card: str, data: str, gen: str, root: str):
+    """Training on the preprocessed corpus, then the validation audio:
+    the tiny preset in bf16 takes VALIDATE_STEPS steps (K3 and K4
+    launches counted from 0), then ``Trainer.validate_audio`` is called
+    directly, outside fit's catch, with the seeded LJ_V2-width generator
+    file of the reference phase: once as trained, and once with the
+    duration head's bias at 6.0 (a few steps leave the free-running
+    durations near 0 frames, so the mels would be empty) for the full
+    metrics.  Prints the val_* metrics, the wav files written and the
+    wall times."""
+    from efficientspeech_tpu_torch.config import (
+        ModelConfig, PreprocessConfig, TrainConfig)
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+    from efficientspeech_tpu_torch.train import load_vocoder
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    dt = torch.bfloat16
+    preprocess_cfg = PreprocessConfig(preprocessed_path=data)
+    stats = preprocess_cfg.load_stats()
+    model_cfg = ModelConfig.preset(
+        "tiny", pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]),
+        max_phoneme_len=TRAIN_PHONEMES, max_mel_len=TRAIN_FRAMES)
+    wav_path = os.path.join(root, "wavs")
+    train_cfg = TrainConfig(
+        batch_size=VALIDATE_BATCH, warmup_epochs=0, seed=0,
+        checkpoint_dir=os.path.join(root, "ckpt"),
+        log_dir=os.path.join(root, "logs"), wav_path=wav_path)
+    hifigan_cfg, hifigan_params = load_vocoder(gen)
+    trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
+                      hifigan_cfg=hifigan_cfg, hifigan_params=hifigan_params,
+                      dtype=dt)
+    counters = (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+                k4.launches_bwd)
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = trainer.fit(max_steps=VALIDATE_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = tuple(d[128, dt] for d in counters)
+    logged = [json.loads(line) for line in open(
+        os.path.join(train_cfg.log_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in logged if "loss" in r]
+    print(f"[validate] tiny bf16 on the preprocessed corpus: "
+          f"{len(trainer.train_ds)} train + {len(trainer.val_ds)} val "
+          f"utterances, {last} steps of batch {VALIDATE_BATCH} in "
+          f"{train_s:.1f} s, epoch losses {[round(v, 4) for v in losses]}, "
+          f"launches K3 C=128 {counts[:2]} K4 C=128 {counts[2:]} | {card}")
+    if last != VALIDATE_STEPS or not np.isfinite(losses).all():
+        fail(f"validate: fit stopped at step {last} or losses not finite: "
+             f"{losses}")
+    if min(counts) < VALIDATE_STEPS:
+        fail(f"validate: K3/K4 launched {counts} times in {last} steps")
+    for label, bias in (("as trained", None), ("duration bias 6.0", 6.0)):
+        if bias is not None:
+            with torch.no_grad():
+                trainer.model.encoder.duration_decoder.linear.bias.fill_(bias)
+        shutil.rmtree(wav_path, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.validate_audio(epoch=0)
+        secs = time.perf_counter() - t0
+        written = sorted(os.listdir(wav_path))
+        n_pred = sum(f.startswith("prediction-") for f in written)
+        n_rec = sum(f.startswith("reconstruction-") for f in written)
+        shown = {k: round(v, 4) for k, v in sorted(metrics.items())}
+        print(f"[validate] validate_audio ({label}): {secs:.2f} s wall; "
+              f"val_* {shown}; wrote {n_pred} prediction and {n_rec} "
+              f"reconstruction wavs, prediction.txt "
+              f"{'prediction.txt' in written} | {card}")
+        if n_pred != VALIDATE_BATCH or n_rec != VALIDATE_BATCH or \
+                "prediction.txt" not in written:
+            fail(f"validate: wrote {written}")
+        # F0 RMSE is NaN where no frame is voiced in both, as in JAX
+        bad = [k for k, v in metrics.items()
+               if not np.isfinite(v) and k != "f0_rmse_hz"]
+        if bad or "duration_mae_frames" not in metrics:
+            fail(f"validate: metrics not finite: {metrics}")
+    if "mcd_db" not in metrics or "voicing_f1" not in metrics:
+        fail(f"validate: the biased model gave no MCD or F0 metrics: "
+             f"{metrics}")
+    trainer.logger.jsonl.close()
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on one CUDA card.")
@@ -1683,9 +2044,17 @@ def main():
     launches["adpcm_encode"] = batch_launches["adpcm_encode"]
     phase_stream_chunked(synth, card)
     phase_serve(synth, card)
-    if args.profile:
-        phase_profile(synth, card, batch=True)
-    del synth
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        gen = phase_reference(synth, card, work)
+        if args.profile:
+            phase_profile(synth, card, batch=True)
+        del synth
+        torch.cuda.empty_cache()
+        data = phase_preprocess(card, work)
+        phase_validate(card, data, gen, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # serving at --precision f32: the same model folded in float32, through

@@ -239,7 +239,8 @@ class TrainConfig:
     precision: str = "bf16"  # compute dtype; params/optimizer always f32
     seed: int = 0
     val_every_n_epochs: int = 10
-    # the JAX config's mesh, device-resident-corpus, flat-optimizer and
-    # validation-audio fields are left out: the port has none of those
+    # the JAX config's mesh, device-resident-corpus and flat-optimizer
+    # fields are left out: the port has none of those
     checkpoint_dir: str = "checkpoints"
     log_dir: str = "logs"
+    wav_path: str = "wavs"

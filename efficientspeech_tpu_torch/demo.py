@@ -1,29 +1,47 @@
-"""Text → speech demo on the port.
+"""Text → speech demo on the port (counterpart of the root ``demo.py``).
 
     python -m efficientspeech_tpu_torch.demo --text "the quick brown fox" \
         --wav-filename fox.wav
+    python -m efficientspeech_tpu_torch.demo --checkpoint tiny_eng_266k.ckpt \
+        --hifigan-checkpoint LJ_V2/generator_v2 --text "hello world"
 
-Weights are a native random init from ``--seed`` (loading the reference
-checkpoints is not ported yet), so the voice is noise-like; the run shows
-the path end to end and its timings.  It runs on the card unless
+``--checkpoint`` is a reference EfficientSpeech checkpoint (a Lightning
+``.ckpt``, converted on load), a ``step_*.pt`` of the port's trainer or
+its directory, or an http(s) URL fetched to the working directory first.
+Without one the weights are a native random init from ``--seed`` with a
+duration bias of 6.0, so the voice is noise-like.  The vocoder comes from
+``--hifigan-checkpoint`` (its ``config.json`` beside it chooses the
+shape), else it is a random init.  It runs on the card unless
 ``--device cpu`` is given.  ``--precision f32`` serves in float32
 throughout: the vocoder's kernels run their float32 variants, and cuDNN's
-convolutions and cuBLAS's products are kept out of TF32.
+convolutions and cuBLAS's products are kept out of TF32.  ``.onnx``
+checkpoints are not supported.
 """
 
 import argparse
 import os
 
-import numpy as np
-
 from efficientspeech_tpu_torch.audio.transfer import FORMATS
+from efficientspeech_tpu_torch.config import add_arch_args, arch_overrides
 from efficientspeech_tpu_torch.infer import VOCODER_MODES
+
+# the duration head's bias for random weights, as the JAX demo sets it
+RANDOM_INIT_DURATION_BIAS = 6.0
 
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--preset", default="tiny",
                         choices=["tiny", "small", "base"])
+    parser.add_argument("--checkpoint", default=None,
+                        help="reference .ckpt (converted), a step_*.pt of "
+                             "the port's trainer or its directory, or a "
+                             "URL of one")
+    parser.add_argument("--hifigan-checkpoint", default=None,
+                        help="reference HiFi-GAN generator file; random "
+                             "vocoder weights without one")
+    parser.add_argument("--preprocess-config", default=None,
+                        help="preprocess yaml (for lexicon / audio params)")
     parser.add_argument("--text", required=True)
     parser.add_argument("--wav-path", default="outputs")
     parser.add_argument("--wav-filename", default="efficient_speech.wav")
@@ -33,6 +51,8 @@ def get_args(argv=None):
     parser.add_argument("--precision", default="bf16", choices=["bf16", "f32"],
                         help="serving dtype: bf16, or float32 throughout "
                              "(TF32 off)")
+    parser.add_argument("--speaker", type=int, default=None,
+                        help="speaker id for multi-speaker checkpoints")
     parser.add_argument("--transfer", default="int16",
                         choices=list(FORMATS),
                         help="card → host PCM wire format (adpcm4/3/2: "
@@ -43,42 +63,79 @@ def get_args(argv=None):
                              "speculative frames on; folded: plain "
                              "matmuls; chunked: the conv generator over "
                              "128-frame chunks (split pipeline)")
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--bench-duration-bias", type=float, default=4.0,
-                        help="duration head bias for random weights")
+    parser.add_argument("--verbose", action="store_true")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random init")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    add_arch_args(parser)
     return parser.parse_args(argv)
+
+
+def _maybe_download(checkpoint):
+    """URL checkpoints are fetched to the working directory first
+    (reference: demo.py:100-102).  Zero-egress environments get a clear
+    error instead of a hang."""
+    if not (checkpoint and checkpoint.startswith(("http://", "https://"))):
+        return checkpoint
+    import urllib.request
+
+    local = checkpoint.rsplit("/", 1)[-1]
+    if not os.path.isfile(local):
+        print(f"downloading {checkpoint} -> {local}")
+        try:
+            urllib.request.urlretrieve(checkpoint, local)
+        except OSError as e:
+            raise SystemExit(
+                f"could not download {checkpoint}: {e} "
+                "(no network egress? pass a local path instead)") from e
+    return local
 
 
 def main(argv=None):
     args = get_args(argv)
+    args.checkpoint = _maybe_download(args.checkpoint)
+    if args.checkpoint and args.checkpoint.endswith(".onnx"):
+        raise SystemExit(".onnx checkpoints are not supported by the port")
     import torch
-    from scipy.io import wavfile
 
+    from efficientspeech_tpu_torch.config import PreprocessConfig
     from efficientspeech_tpu_torch.device import set_full_f32
     from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.utils.tools import write_wav
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if dtype == torch.float32:
         set_full_f32()
-    synth = build_synthesizer(preset=args.preset, dtype=dtype, seed=args.seed,
-                              bench_duration_bias=args.bench_duration_bias,
-                              transfer=args.transfer,
-                              vocoder_mode=args.vocoder, device=args.device)
+    preprocess_cfg = (PreprocessConfig.from_yaml(args.preprocess_config)
+                      if args.preprocess_config else None)
+    hifigan_ckpt = args.hifigan_checkpoint
+    if not (hifigan_ckpt and os.path.isfile(hifigan_ckpt)):
+        print(f"note: hifigan checkpoint {hifigan_ckpt} not found; "
+              "using random vocoder weights")
+        hifigan_ckpt = None
+    synth = build_synthesizer(
+        preset=args.preset, checkpoint=args.checkpoint,
+        hifigan_checkpoint=hifigan_ckpt, preprocess_cfg=preprocess_cfg,
+        dtype=dtype, seed=args.seed,
+        bench_duration_bias=(None if args.checkpoint
+                             else RANDOM_INIT_DURATION_BIAS),
+        transfer=args.transfer, vocoder_mode=args.vocoder,
+        model_overrides=arch_overrides(args), device=args.device)
     for _ in range(args.warmup):
-        synth.tts(args.text)
+        synth.tts(args.text, speaker=args.speaker)
     wav, info = None, None
     for _ in range(max(1, args.iter)):
-        wav, info = synth.tts(args.text)
+        wav, info = synth.tts(args.text, verbose=args.verbose,
+                              speaker=args.speaker)
     print(f"device={synth.device} phonemes={info['phoneme_len']} "
           f"mel_len={info['mel_len']} voice={info['voice_secs']:.2f}s "
           f"synth={info['total_secs'] * 1e3:.1f}ms RTF={info['rtf']:.1f}")
-    os.makedirs(args.wav_path, exist_ok=True)
     path = os.path.join(args.wav_path, args.wav_filename)
-    pcm = np.clip(wav * 32768.0, -32768, 32767).astype(np.int16)
-    wavfile.write(path, synth.sampling_rate, pcm)
+    write_wav(wav, path, synth.sampling_rate,
+              synth.preprocess_cfg.audio.max_wav_value)
     print(f"wrote {path}")
+    return wav, info
 
 
 if __name__ == "__main__":

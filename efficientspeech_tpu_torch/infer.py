@@ -23,6 +23,7 @@ Every wait of the host for the card goes through one
 
 import collections
 import os
+import pickle
 import threading
 import time
 import warnings
@@ -635,9 +636,47 @@ def load_checkpoint_params(model: EfficientSpeech, checkpoint: str):
     model.phoneme2mel.load_state_dict(payload["params"], strict=True)
 
 
+def _is_port_checkpoint(path: str) -> bool:
+    """A directory of ``step_*.pt`` files, or a file holding the port
+    trainer's payload (``params``), as opposed to a reference ``.ckpt``
+    (a ``state_dict`` of ``phoneme2mel.*`` keys), whatever its name."""
+    if os.path.isdir(path):
+        return True
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # a Lightning file's hyper_parameters
+        return False
+    return isinstance(payload, dict) and "params" in payload
+
+
+def load_reference_params(model: EfficientSpeech, checkpoint: str):
+    """Load a reference EfficientSpeech checkpoint (a Lightning ``.ckpt``,
+    or a ``.pt``/``.pth`` of the same state dict) into ``model``: its
+    ``phoneme2mel.*`` weights, and its ``hifigan.*`` ones where it has
+    them (counterpart of the JAX package's ``infer.py:1085-1091``).
+    Returns whether the vocoder was among them."""
+    from efficientspeech_tpu_torch.convert.from_torch import (
+        _torch_load_numpy, convert_efficientspeech_state_dict)
+
+    sd = _torch_load_numpy(checkpoint)
+    if not any(k.startswith("phoneme2mel.") for k in sd):
+        raise ValueError(f"{checkpoint}: neither a reference checkpoint "
+                         "(no phoneme2mel.* weights) nor one of the "
+                         "port's trainer")
+    cfg = model.cfg
+    tree = convert_efficientspeech_state_dict(
+        sd, depth=cfg.depth, n_blocks=cfg.n_blocks,
+        block_depth=cfg.block_depth,
+        num_kernels=len(model.hifigan_cfg.resblock_kernel_sizes))
+    for name, subtree in tree.items():
+        load_jax_params(getattr(model, name), subtree)
+    return "hifigan" in tree
+
+
 def build_synthesizer(preset: str = "tiny",
                       params=None,
                       checkpoint: Optional[str] = None,
+                      hifigan_checkpoint: Optional[str] = None,
                       hifigan_cfg: Optional[HifiGanConfig] = None,
                       hifigan_config: Optional[str] = None,
                       preprocess_cfg: Optional[PreprocessConfig] = None,
@@ -651,26 +690,41 @@ def build_synthesizer(preset: str = "tiny",
                       device=None) -> Synthesizer:
     """Build a Synthesizer from a JAX-layout parameter tree (``params``,
     with ``phoneme2mel`` and ``hifigan`` subtrees) or, without one, from a
-    native random init seeded by ``seed``.  ``checkpoint`` (a ``step_*.pt``
-    file of the port's trainer, or its directory) then replaces the
-    acoustic model's parameters; the vocoder stays the random init.
+    native random init seeded by ``seed``.
 
-    ``hifigan_cfg`` / ``hifigan_config`` (a config.json path) choose the
-    vocoder's shape, default the LJ_V2 widths.  ``bench_duration_bias``
-    sets the duration head's bias of a random init only (random weights
-    otherwise predict ~0 frames); loaded ``params`` keep their own, as in
-    the JAX package.  ``device`` defaults to the card and raises without
-    one."""
+    ``checkpoint`` then replaces the acoustic model's parameters: a
+    reference EfficientSpeech checkpoint (``.ckpt``/``.pt``/``.pth``
+    holding ``phoneme2mel.*`` weights, and the vocoder's too where it has
+    ``hifigan.*`` ones), or a checkpoint of the port's trainer (a
+    ``step_*.pt`` file or its directory); the file's contents tell them
+    apart.  ``hifigan_checkpoint``, when that file exists, is a reference
+    HiFi-GAN generator file (``{"generator": state_dict}``) that replaces
+    the vocoder's parameters, unless ``params`` or ``checkpoint`` brought
+    them.  Otherwise the vocoder stays the random init.
+
+    ``hifigan_cfg`` / ``hifigan_config`` (a config.json path; default the
+    ``config.json`` beside ``hifigan_checkpoint`` where there is one)
+    choose the vocoder's shape, else the LJ_V2 widths.  ``stats`` (the
+    corpus's stats.json) sets the pitch and energy bins.
+    ``bench_duration_bias`` sets the duration head's bias of a random init
+    only (random weights otherwise predict ~0 frames); loaded ``params``
+    keep their own, as in the JAX package.  ``device`` defaults to the
+    card and raises without one."""
     device = resolve_device(device)
     overrides = dict(model_overrides or {})
     if stats is not None:
         overrides.setdefault("pitch_stats", tuple(stats["pitch"][:2]))
         overrides.setdefault("energy_stats", tuple(stats["energy"][:2]))
     cfg = ModelConfig.preset(preset, **overrides)
+    if hifigan_config is None and hifigan_checkpoint:
+        beside = os.path.join(os.path.dirname(hifigan_checkpoint),
+                              "config.json")
+        hifigan_config = beside if os.path.isfile(beside) else None
     if hifigan_cfg is None:
         hifigan_cfg = (HifiGanConfig.from_json(hifigan_config)
                        if hifigan_config else HifiGanConfig())
     model = EfficientSpeech(cfg, hifigan_cfg)
+    vocoder_loaded = params is not None
     if params is not None:
         load_jax_params(model, params)
     else:
@@ -678,7 +732,18 @@ def build_synthesizer(preset: str = "tiny",
         if bench_duration_bias is not None:
             set_duration_bias(model, bench_duration_bias)
     if checkpoint is not None:
-        load_checkpoint_params(model, checkpoint)
+        if _is_port_checkpoint(checkpoint):
+            load_checkpoint_params(model, checkpoint)
+        else:
+            vocoder_loaded |= load_reference_params(model, checkpoint)
+    if (not vocoder_loaded and hifigan_checkpoint
+            and os.path.isfile(hifigan_checkpoint)):
+        from efficientspeech_tpu_torch.convert.from_torch import (
+            load_hifigan_checkpoint)
+
+        load_jax_params(model.hifigan, load_hifigan_checkpoint(
+            hifigan_checkpoint,
+            num_kernels=len(hifigan_cfg.resblock_kernel_sizes)))
     return Synthesizer(cfg, hifigan_cfg, model,
                        preprocess_cfg=preprocess_cfg, dtype=dtype,
                        transfer=transfer, vocoder_mode=vocoder_mode,

@@ -17,9 +17,11 @@ breaker; queued requests past ``--queue-deadline`` are shed with 503;
 past ``--rss-limit-mb`` the worker drains and re-execs itself on the same
 listening socket.
 
-The weights are a random init from ``--seed`` unless ``--checkpoint``
-names a checkpoint of the port's trainer (the acoustic model's; the
-vocoder stays random: loading the reference checkpoints is not ported).
+The acoustic model's weights are a random init from ``--seed`` unless
+``--checkpoint`` names a reference EfficientSpeech checkpoint (a
+Lightning ``.ckpt``, converted on load) or one of the port's trainer; the
+vocoder's come from ``--hifigan-checkpoint`` when that file exists (its
+``config.json`` beside it chooses the shape), else a random init.
 """
 
 import argparse
@@ -673,9 +675,13 @@ def get_args(argv=None):
     parser.add_argument("--preset", default="tiny",
                         choices=["tiny", "small", "base"])
     parser.add_argument("--checkpoint", default=None,
-                        help="a step_*.pt checkpoint of the port's trainer, "
-                             "or its directory (the latest is read); "
-                             "default: a random init from --seed")
+                        help="a reference .ckpt (converted), or a "
+                             "step_*.pt checkpoint of the port's trainer or "
+                             "its directory (the latest is read); default: "
+                             "a random init from --seed")
+    parser.add_argument("--hifigan-checkpoint", default=None,
+                        help="reference HiFi-GAN generator file; a random "
+                             "vocoder when it is missing")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--transfer", default="int16",
@@ -737,7 +743,8 @@ def main(argv=None):
     from efficientspeech_tpu_torch.infer import build_synthesizer
 
     synth = build_synthesizer(
-        preset=args.preset, checkpoint=args.checkpoint, seed=args.seed,
+        preset=args.preset, checkpoint=args.checkpoint,
+        hifigan_checkpoint=args.hifigan_checkpoint, seed=args.seed,
         dtype=torch.bfloat16, transfer=args.transfer,
         bench_duration_bias=None if args.checkpoint else 6.0,
         model_overrides=arch_overrides(args), device=args.device)

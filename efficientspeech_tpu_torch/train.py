@@ -1,11 +1,16 @@
 """Acoustic-model training CLI of the PyTorch port (the flags of the JAX
-package's ``train.py``, without its mesh, device-resident-corpus and
-validation-audio ones, ``--wav-path`` and ``--hifigan-checkpoint``, whose
-audio dumps are not ported, and without ``--resume``: training always
-resumes from the latest checkpoint):
+package's ``train.py``, without its mesh and device-resident-corpus ones):
 
     python -m efficientspeech_tpu_torch.train --preset tiny \\
-        --preprocess-config configs/ljspeech.yaml --batch-size 128
+        --preprocess-config configs/ljspeech.yaml --batch-size 128 \\
+        --hifigan-checkpoint LJ_V2/generator_v2 --wav-path wavs
+
+Training always resumes from the latest checkpoint in
+``--checkpoint-dir``, as the JAX trainer's does; ``--resume`` is accepted
+and changes nothing.  At each validation the validation audio goes to
+``--wav-path`` when ``--hifigan-checkpoint`` names a reference generator
+file (its ``config.json`` beside it chooses the vocoder's shape); the
+quality metrics go to metrics.jsonl as ``val_*``.
 
 It runs on the CUDA card, and raises without one unless given
 ``--device cpu``.  ``--precision f32`` computes in float32 throughout:
@@ -14,13 +19,14 @@ convolutions and cuBLAS's products are kept out of TF32.
 """
 
 import argparse
+import os
 import time
 
 import torch
 
 from efficientspeech_tpu_torch.config import (
-    ModelConfig, PreprocessConfig, TrainConfig, add_arch_args,
-    arch_overrides)
+    HifiGanConfig, ModelConfig, PreprocessConfig, TrainConfig,
+    add_arch_args, arch_overrides)
 
 
 def get_args(argv=None):
@@ -45,11 +51,37 @@ def get_args(argv=None):
                         help="training resumes from the latest checkpoint "
                              "here whenever there is one")
     parser.add_argument("--log-dir", default="logs")
+    parser.add_argument("--wav-path", default="wavs",
+                        help="where the validation audio is written")
+    parser.add_argument("--hifigan-checkpoint", default=None,
+                        help="reference HiFi-GAN generator file for the "
+                             "validation audio; without one only the mel "
+                             "and duration metrics are computed")
+    parser.add_argument("--resume", action="store_true",
+                        help="accepted for the JAX CLI's sake: training "
+                             "always resumes from --checkpoint-dir")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card")
     add_arch_args(parser)
     return parser.parse_args(argv)
+
+
+def load_vocoder(hifigan_checkpoint):
+    """(HifiGanConfig, JAX-layout params or None) of a reference generator
+    file, its ``config.json`` beside it choosing the shape; the LJ_V2
+    widths and None when there is no such file."""
+    if not (hifigan_checkpoint and os.path.isfile(hifigan_checkpoint)):
+        return HifiGanConfig(), None
+    from efficientspeech_tpu_torch.convert.from_torch import (
+        load_hifigan_checkpoint)
+
+    cfg_json = os.path.join(os.path.dirname(hifigan_checkpoint),
+                            "config.json")
+    cfg = (HifiGanConfig.from_json(cfg_json) if os.path.isfile(cfg_json)
+           else HifiGanConfig())
+    return cfg, load_hifigan_checkpoint(
+        hifigan_checkpoint, num_kernels=len(cfg.resblock_kernel_sizes))
 
 
 def main(argv=None):
@@ -72,8 +104,10 @@ def main(argv=None):
         batch_size=args.batch_size, max_epochs=args.max_epochs,
         warmup_epochs=args.warmup_epochs, precision=args.precision,
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
-        log_dir=args.log_dir)
+        log_dir=args.log_dir, wav_path=args.wav_path)
+    hifigan_cfg, hifigan_params = load_vocoder(args.hifigan_checkpoint)
     trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
+                      hifigan_cfg=hifigan_cfg, hifigan_params=hifigan_params,
                       dtype=torch.bfloat16 if args.precision == "bf16"
                       else torch.float32, device=device)
     print(f"training on {device}: {trainer.steps_per_epoch} steps per epoch")

@@ -1,10 +1,10 @@
 """The training loop: epochs over the bucketed loader, train steps on the
-card, epoch-averaged metrics in ``metrics.jsonl``, checkpoints, resume and
-a graceful stop on SIGTERM/SIGINT (counterpart of the JAX package's
-``training/loop.py``).
+card, epoch-averaged metrics in ``metrics.jsonl``, checkpoints, resume, a
+graceful stop on SIGTERM/SIGINT, and at each validation the teacher-forced
+losses and the validation audio with its objective quality metrics
+(counterpart of the JAX package's ``training/loop.py``).
 
-Not ported yet: the validation audio dumps and quality pass
-(``validate_audio``), the device-resident corpus with scanned steps, and
+Not ported yet: the device-resident corpus with scanned steps, and
 meshes.
 """
 
@@ -18,12 +18,18 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from efficientspeech_tpu_torch.config import (
-    ModelConfig, PreprocessConfig, TrainConfig)
+    HifiGanConfig, ModelConfig, PreprocessConfig, TrainConfig)
 from efficientspeech_tpu_torch.data.dataset import (
     BucketedLoader, LJSpeechDataset)
 from efficientspeech_tpu_torch.device import resolve_device
+from efficientspeech_tpu_torch.eval.quality import (
+    batch_quality, duration_mae, utterance_quality)
+from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
+from efficientspeech_tpu_torch.models.modules import (
+    cast_params_, compute_params)
 from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
 from efficientspeech_tpu_torch.ops.kernels import decoder_block
 from efficientspeech_tpu_torch.training.checkpoint import (
@@ -33,7 +39,8 @@ from efficientspeech_tpu_torch.training.schedule import (
 from efficientspeech_tpu_torch.training.state import create_train_state
 from efficientspeech_tpu_torch.training.step import (
     make_eval_step, make_train_step)
-from efficientspeech_tpu_torch.weights import init_params
+from efficientspeech_tpu_torch.utils.tools import write_batch_wavs
+from efficientspeech_tpu_torch.weights import init_params, load_jax_params
 
 
 class MetricLogger:
@@ -57,14 +64,24 @@ class Trainer:
     the mel decoder's LayerNorms run through kernel K3 and its block bodies
     through K4 (widths 128 and 256, so every preset, in bf16 or float32),
     and a decoder width or dtype K4 does not cover raises here; on the CPU
-    the decoder takes its plain route (same parameters)."""
+    the decoder takes its plain route (same parameters).
+
+    ``hifigan_params`` (a JAX-layout tree, e.g. from
+    ``convert.from_torch.load_hifigan_checkpoint``) of a vocoder shaped by
+    ``hifigan_cfg`` makes ``validate_audio`` write and score waveforms;
+    without it only the mel and duration metrics are computed."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  preprocess_cfg: PreprocessConfig,
+                 hifigan_cfg: Optional[HifiGanConfig] = None,
+                 hifigan_params=None,
                  dtype: torch.dtype = torch.bfloat16, device=None):
         self.device = resolve_device(device)
         self.train_cfg = train_cfg
         self.preprocess_cfg = preprocess_cfg
+        self.hifigan_cfg = hifigan_cfg or HifiGanConfig()
+        self.hifigan_params = hifigan_params
+        self._vocoder = None
         self.dtype = dtype
         self.train_ds = LJSpeechDataset("train.txt", preprocess_cfg)
         self.val_ds = LJSpeechDataset("val.txt", preprocess_cfg)
@@ -130,6 +147,101 @@ class Trainer:
         return {k.replace("_loss", ""): v / max(count, 1)
                 for k, v in sums.items()}
 
+    # --- validation audio dumps (reference: model.py:246-271) --------------
+    def _get_vocoder(self) -> Optional[HifiGanGenerator]:
+        """The conv HiFi-GAN generator on the card, its weights cast to the
+        compute dtype, built at first use; None without vocoder
+        parameters."""
+        if self._vocoder is None and self.hifigan_params is not None:
+            gen = HifiGanGenerator(self.hifigan_cfg)
+            load_jax_params(gen, self.hifigan_params)
+            self._vocoder = cast_params_(gen.to(self.device), self.dtype)
+        return self._vocoder
+
+    def _val_predict(self, phoneme: torch.Tensor, mask: torch.Tensor):
+        """The free-running acoustic forward in the compute dtype: (mel,
+        mel_len clamped to max_mel_len, the rounded and clamped
+        per-phoneme durations the length regulator consumed; the quality
+        pass scores these against the aligner's)."""
+        pred = functional_call(self.model,
+                               compute_params(self.model, self.dtype),
+                               (phoneme, mask), dict(train=False))
+        dur = torch.round(pred["duration"][..., 0].float()).clamp_min(0.0)
+        dur = torch.where(mask, torch.zeros_like(dur), dur)
+        return (pred["mel"], torch.clamp(pred["mel_len"],
+                                         max=self.model_cfg.max_mel_len),
+                dur)
+
+    @torch.no_grad()
+    def validate_audio(self, epoch: int, quality_n: int = 16
+                       ) -> Optional[Dict[str, float]]:
+        """Validation wav dumps (reference: model.py:246-271) and the
+        objective quality pass over the first ``quality_n`` utterances of
+        the first validation batch (eval/quality.py): MCD-DTW and duration
+        MAE always; with vocoder parameters also ``prediction-i.wav``,
+        ``reconstruction-i.wav`` (the ground-truth mel through the same
+        vocoder) and ``prediction.txt`` under ``train_cfg.wav_path``, and
+        F0 RMSE, voicing F1 and the reconstruction floor of the MCD.  The
+        device work is the free-running forward and two calls of the conv
+        generator (with ``valid_len``); its results reach the host in one
+        read.  Returns the aggregated metrics."""
+        vocoder = self._get_vocoder()
+        batch = next(iter(self.val_loader))
+        phoneme = torch.from_numpy(batch["phoneme"]).to(self.device)
+        mask = torch.from_numpy(batch["phoneme_mask"]).to(self.device)
+        self.model.eval()
+        try:
+            mel, mel_len, dur_pred = self._val_predict(phoneme, mask)
+        finally:
+            self.model.train()
+        hop = self.preprocess_cfg.audio.hop_length
+        sr = self.preprocess_cfg.audio.sampling_rate
+        gt_len = (~batch["mel_mask"]).sum(axis=1).astype(np.int32)
+        parts = [mel, mel_len, dur_pred]
+        if vocoder is not None:
+            parts.append(vocoder(mel, valid_len=mel_len))
+            parts.append(vocoder(
+                torch.from_numpy(batch["mel"]).to(self.device),
+                valid_len=torch.from_numpy(gt_len).to(self.device)))
+        # one host read for everything the dump and quality pass need
+        flat = torch.cat([p.float().reshape(-1) for p in parts]).cpu()
+        host = [t.reshape(p.shape).numpy() for t, p in zip(
+            flat.split([p.numel() for p in parts]), parts)]
+        mel, mel_len, dur_pred = host[0], host[1].astype(np.int64), host[2]
+        wavs, rec = (host[3], host[4]) if vocoder is not None else (None,
+                                                                     None)
+        if wavs is not None:
+            audio = self.preprocess_cfg.audio
+            write_batch_wavs(wavs, mel_len * hop, self.train_cfg.wav_path,
+                             "prediction", sr, audio.max_wav_value)
+            write_batch_wavs(rec, gt_len * hop, self.train_cfg.wav_path,
+                             "reconstruction", sr, audio.max_wav_value)
+            with open(os.path.join(self.train_cfg.wav_path,
+                                   "prediction.txt"), "w") as f:
+                for t in batch["text"]:
+                    f.write(t + "\n")
+
+        per_utt = []
+        for i in range(min(quality_n, len(batch["text"]))):
+            p_len, g_len = int(mel_len[i]), int(gt_len[i])
+            real = ~np.asarray(batch["phoneme_mask"][i])
+            if p_len < 1 or g_len < 1:
+                # an untrained duration predictor can emit an all-zero
+                # expansion: duration MAE is still defined (and says why
+                # the mel is empty)
+                per_utt.append({"duration_mae_frames": duration_mae(
+                    dur_pred[i], batch["duration"][i], real)})
+                continue
+            per_utt.append(utterance_quality(
+                mel[i][:p_len], np.asarray(batch["mel"][i][:g_len],
+                                           np.float32),
+                dur_pred=dur_pred[i], dur_gt=batch["duration"][i],
+                phoneme_real=real,
+                wav_pred=None if wavs is None else wavs[i][:p_len * hop],
+                wav_ref=None if rec is None else rec[i][:g_len * hop],
+                sr=sr, hop=hop))
+        return batch_quality(per_utt) if per_utt else None
+
     def fit(self, max_epochs: Optional[int] = None,
             checkpoint_every_epochs: int = 10,
             max_steps: Optional[int] = None,
@@ -193,6 +305,13 @@ class Trainer:
                     val = self.evaluate()
                     self.logger.log(step, {f"val_{k}": v
                                            for k, v in val.items()})
+                    try:
+                        quality = self.validate_audio(epoch)
+                        if quality:
+                            self.logger.log(step, {
+                                f"val_{k}": v for k, v in quality.items()})
+                    except Exception as e:  # dumps must not kill training
+                        print(f"validation audio dump failed: {e}")
                 if done:
                     break
             save_checkpoint(self.train_cfg.checkpoint_dir, self.state)

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from efficientspeech_tpu_torch.models import modules
+from efficientspeech_tpu_torch.models.acoustic import ScalarEmbedding
 from efficientspeech_tpu_torch.models.modules import reset_parameters
 
 _TRANSPOSED = re.compile(r"^(up|upsample)\d+$")
@@ -58,6 +60,39 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
         state[".".join([*mods, name])] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return state
+
+
+# the JAX leaf name of each module class's ``weight``
+_WEIGHT_LEAF = {modules.Linear: "kernel", modules.Conv1d: "kernel",
+                modules.ConvTranspose1d: "kernel", modules.LayerNorm: "scale",
+                modules.Embedding: "embedding", ScalarEmbedding: "embedding"}
+
+
+def to_jax_params(model: nn.Module) -> Dict:
+    """The exact inverse of ``from_jax_params``: the model's parameters as
+    a JAX parameter tree of float32 numpy arrays (what
+    ``convert/to_torch.py`` writes out in the reference's formats)."""
+    tree: Dict = {}
+    for mod_name, mod in model.named_modules():
+        for name, param in mod.named_parameters(recurse=False):
+            arr = param.detach().float().cpu().numpy()
+            path = mod_name.split(".") if mod_name else []
+            if name == "weight":
+                name = _WEIGHT_LEAF[type(mod)]
+                if name == "kernel" and arr.ndim == 2:
+                    arr = arr.T
+                elif name == "kernel" and isinstance(
+                        mod, modules.ConvTranspose1d):
+                    arr = arr.transpose(2, 0, 1)
+                elif name == "kernel":
+                    arr = arr.transpose(2, 1, 0)
+            elif name not in ("bias", "speaker_embedding"):
+                raise ValueError(f"{mod_name}.{name}: unknown parameter")
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:

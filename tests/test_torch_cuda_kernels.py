@@ -747,3 +747,24 @@ def test_adpcm_encode_kernel(card, bits, rows, blocks):
     assert adpcm.launches[bits] == before[bits] + 1
     assert got.dtype == torch.uint8 and got.shape == want.shape
     assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_mel_extractor_on_card_ignores_tf32(card, monkeypatch):
+    """The mel extractor on the card against the CPU's, with TF32 turned
+    on globally first: its mel product runs in float64, so the card's
+    log-mel stays within 1e-4 of the CPU's and the energy within 1e-5
+    relative (a TF32 product would round the mel to about 1e-3)."""
+    from efficientspeech_tpu_torch.audio.stft import MelSpectrogram
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    rng = np.random.default_rng(0)
+    t = np.arange(3 * 22050) / 22050
+    y = np.stack([0.4 * np.sin(2 * np.pi * (150 + 30 * b) * t)
+                  + 0.02 * rng.standard_normal(len(t)) for b in range(2)]
+                 ).astype(np.float32)
+    want = MelSpectrogram(device="cpu").extract_bucketed(y)
+    got = MelSpectrogram(device=card).extract_bucketed(y)
+    assert got[0].shape == want[0].shape
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)

@@ -158,3 +158,34 @@ def test_precision_f32_turns_tf32_off(monkeypatch, tmp_path, cli):
              else args[:3] + ["f32"] + args[4:])
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("entry", ["demo", "preprocess", "Preprocessor",
+                                   "MelSpectrogram"])
+def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    """The demo and the preprocessing entry points compute on the card and
+    refuse to start without one unless asked for the CPU; prepare_align
+    does no device work (tests/test_torch_preprocess.py runs it)."""
+    from efficientspeech_tpu_torch import demo, preprocess
+    from efficientspeech_tpu_torch.audio.stft import MelSpectrogram
+    from efficientspeech_tpu_torch.config import PreprocessConfig
+    from efficientspeech_tpu_torch.data.preprocessor import Preprocessor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    yaml = tmp_path / "p.yaml"
+    yaml.write_text(f"path:\n  preprocessed_path: {tmp_path}\n")
+    call = {
+        "demo": lambda **kw: demo.main(
+            ["--text", "hi", "--wav-path", str(tmp_path), "--warmup", "0",
+             "--precision", "f32"] + (["--device", kw["device"]]
+                                      if kw else [])),
+        "preprocess": lambda **kw: preprocess.main(
+            [str(yaml)] + (["--device", kw["device"]] if kw else [])),
+        "Preprocessor": lambda **kw: Preprocessor(
+            PreprocessConfig(preprocessed_path=str(tmp_path)), **kw),
+        "MelSpectrogram": lambda **kw: MelSpectrogram(**kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    if entry in ("Preprocessor", "MelSpectrogram"):
+        call(device="cpu")

@@ -458,3 +458,137 @@ def test_synthesizer_serves_a_trainer_checkpoint(preprocessed_corpus,
     assert not torch.allclose(fresh["mel"], want["mel"])
     with pytest.raises(FileNotFoundError):
         build(str(tmp_path / "logs"))
+
+
+# a small vocoder for the validation audio (ResBlock 1, 64x upsampling)
+SMALL_VOCODER = dict(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+                     upsample_initial_channel=16,
+                     resblock_kernel_sizes=(3, 5),
+                     resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
+
+
+def _vocoder_tree(seed=4):
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
+    from efficientspeech_tpu_torch.weights import init_params, to_jax_params
+
+    return to_jax_params(init_params(
+        HifiGanGenerator(HifiGanConfig(**SMALL_VOCODER)), seed))
+
+
+def test_validate_audio_matches_jax(preprocessed_corpus, tmp_path):
+    """``Trainer.validate_audio`` of the port and of the JAX package on the
+    same acoustic parameters (duration bias 2.0, so the mels are not
+    empty), vocoder and validation batch, float32 on the CPU: the same
+    ``val_*`` keys; the mel and duration metrics within 1e-4 relative
+    (the models agree to ~1e-6, and DTW takes the same path); the F0
+    metrics, from DIO on two vocoders' float32 waveforms, within 0.02 of
+    voicing share and 1 Hz.  Both write the same wav files and
+    prediction.txt; each PCM within 8 LSB of the JAX one."""
+    from scipy.io import wavfile
+
+    from efficientspeech_tpu.config import HifiGanConfig as JaxHifiGanConfig
+    from efficientspeech_tpu.training.loop import Trainer as JaxTrainer
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    cfg = _port_cfg(preprocessed_corpus)
+    stats = cfg.load_stats()
+    sizes = dict(pitch_stats=tuple(stats["pitch"][:2]),
+                 energy_stats=tuple(stats["energy"][:2]), max_phoneme_len=32,
+                 max_mel_len=256)
+    vocoder = _vocoder_tree()
+    runs = {}
+    for name in ("jax", "port"):
+        kw = dict(batch_size=2, max_epochs=5, warmup_epochs=1,
+                  checkpoint_dir=str(tmp_path / name / "ckpt"),
+                  log_dir=str(tmp_path / name / "logs"),
+                  wav_path=str(tmp_path / name / "wavs"))
+        if name == "jax":
+            jt = JaxTrainer(JaxModelConfig.preset("tiny", **sizes),
+                            JaxTrainConfig(**kw), preprocessed_corpus,
+                            hifigan_cfg=JaxHifiGanConfig(**SMALL_VOCODER),
+                            hifigan_params=vocoder, dtype=jnp.float32)
+            params = jax.tree_util.tree_map(np.asarray, jt.state.params)
+            params["phoneme2mel"]["encoder"]["duration_decoder"]["linear"][
+                "bias"] = np.array([2.0], np.float32)
+            jt.state = jt.state.replace(params=params)
+            runs[name] = jt.validate_audio(epoch=9)
+        else:
+            pt = Trainer(ModelConfig.preset("tiny", **sizes),
+                         TrainConfig(**kw), cfg,
+                         hifigan_cfg=HifiGanConfig(**SMALL_VOCODER),
+                         hifigan_params=vocoder, dtype=torch.float32,
+                         device="cpu")
+            load_jax_params(pt.model, params["phoneme2mel"])
+            runs[name] = pt.validate_audio(epoch=9)
+    want, got = runs["jax"], runs["port"]
+    assert sorted(got) == sorted(want)
+    assert {"mcd_db", "mcd_floor_db", "duration_mae_frames", "f0_rmse_hz",
+            "voicing_f1"} <= set(got)
+    for k, w in want.items():
+        if k.startswith(("mcd", "duration")):
+            np.testing.assert_allclose(got[k], w, rtol=1e-4, err_msg=k)
+        elif k.startswith("voicing"):
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=0.02,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=1.0,
+                                       err_msg=k)
+    names = sorted(os.listdir(tmp_path / "jax" / "wavs"))
+    assert names == sorted(os.listdir(tmp_path / "port" / "wavs")) == [
+        "prediction-0.wav", "prediction-1.wav", "prediction.txt",
+        "reconstruction-0.wav", "reconstruction-1.wav"]
+    assert (tmp_path / "jax" / "wavs" / "prediction.txt").read_bytes() == \
+        (tmp_path / "port" / "wavs" / "prediction.txt").read_bytes()
+    for n in names[:2] + names[3:]:
+        (sr_w, w), (sr_g, g) = (wavfile.read(str(tmp_path / d / "wavs" / n))
+                                for d in ("jax", "port"))
+        assert sr_w == sr_g and w.shape == g.shape and len(w) > 0, n
+        assert np.abs(g.astype(np.int32) - w).max() <= 8, n
+
+
+def test_train_cli_writes_validation_audio(preprocessed_corpus, tmp_path,
+                                          monkeypatch, capsys):
+    """``python -m efficientspeech_tpu_torch.train --device cpu
+    --hifigan-checkpoint G --wav-path W --resume`` writes the validation
+    audio during ``fit`` (its tenth epoch) and logs the quality metrics;
+    a failing dump is printed, and training goes on."""
+    from efficientspeech_tpu_torch import train
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.convert.to_torch import (
+        save_hifigan_checkpoint)
+    from efficientspeech_tpu_torch.training import loop
+
+    gen = tmp_path / "vocoder" / "generator"
+    gen.parent.mkdir()
+    save_hifigan_checkpoint(str(gen), _vocoder_tree(),
+                            HifiGanConfig(**SMALL_VOCODER))
+    yaml = tmp_path / "p.yaml"
+    yaml.write_text(f"path:\n  preprocessed_path: "
+                    f"{preprocessed_corpus.preprocessed_path}\n")
+    wavs, logs = tmp_path / "wavs", tmp_path / "logs"
+    argv = ["--device", "cpu", "--precision", "f32", "--preprocess-config",
+            str(yaml), "--batch-size", "2", "--max-phoneme-len", "32",
+            "--max-mel-len", "256", "--max-epochs", "10", "--warmup-epochs",
+            "1", "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-dir",
+            str(logs), "--hifigan-checkpoint", str(gen), "--wav-path",
+            str(wavs), "--resume"]
+    assert train.main(argv) == 20
+    assert sorted(os.listdir(wavs)) == [
+        "prediction-0.wav", "prediction-1.wav", "prediction.txt",
+        "reconstruction-0.wav", "reconstruction-1.wav"]
+    lines = [json.loads(line) for line in open(logs / "metrics.jsonl")]
+    quality = [r for r in lines if "val_duration_mae_frames" in r]
+    assert len(quality) == 1 and quality[0]["step"] == 20
+    assert np.isfinite(quality[0]["val_duration_mae_frames"])
+
+    def broken(self, epoch, quality_n=16):
+        raise RuntimeError("disk full")
+
+    monkeypatch.setattr(loop.Trainer, "validate_audio", broken)
+    argv[argv.index("--max-epochs") + 1] = "20"
+    capsys.readouterr()
+    assert train.main(argv) == 40  # resumed at step 20
+    assert "validation audio dump failed: disk full" in \
+        capsys.readouterr().out
