@@ -47,10 +47,22 @@ Phases (each prints its lines; any failure exits non-zero):
                the abandoned read counted, recovery); every PCM held to
                its text's single request at the batch bar (the adpcm4
                answer to the int16 one at the codec's bar);
+     vocoder - (after the reference, preprocess and validate phases)
+               vocoder training in float32, TF32 off: the LJ_V2-width
+               generator with the full MPD and MSD from seed 0, the first
+               GAN step at batch 1 held to the same step on the CPU, 10
+               steps at batch 8 x 8,192 samples (median step, peak
+               memory, a trace of two), then python -m
+               efficientspeech_tpu_torch.train_vocoder --from-acoustic on
+               the preprocessed corpus from the validate phase's
+               checkpoint with a holdout (before and after metrics, the
+               eval's wall), its teacher-forced pairs' forward (K3 and K4
+               float32 forward, counted) held to the plain route;
   6. f32     - phases 3-5 again for a float32 synthesizer (the same model,
                folded in float32: --precision f32), through the kernels'
                float32 variants, with one long and one short request, and
-               a batch of 4 long requests;
+               a batch of 4 long requests; first the reference phase for
+               it, held to its seed build at the float32 bar;
      ADPCM   - the ADPCM encoder (csrc/adpcm_encode.cu) against its plain
                version, bit-equal, for 4, 3 and 2 bits at the long
                request's and the batch's shapes, with times and its byte
@@ -86,6 +98,11 @@ Phases (each prints its lines; any failure exits non-zero):
                over repeated steps on one batch, and the kernel route's
                loss and gradients held against the plain route's on one
                batch;
+ device-data - the tiny bf16 trainer's first epoch on the device-resident
+               corpus (--device-data), in single steps and in chunks of 4
+               (--device-data-scan-steps 4), against the loader's path over
+               the same rows: epoch losses, K3 and K4 launches, median
+               step times and a trace of a step of each path;
  11. bench   - python -m efficientspeech_tpu_torch.bench --iter 5 --warmup
                2 --batch 16 in a process of its own, its lines printed.
 The kernel table goes on a JSON line before the last, 23 rows, each with
@@ -225,7 +242,10 @@ F32_ROUTE_LOSS_RTOL, F32_ROUTE_GRAD_COS = 1e-4, 0.999
 # quarter of the vocoder's float32 weights by an ulp, 11 of 925,985 of
 # them across a bf16 rounding, and the bf16 route spreads any change to
 # its own noise (59.2 dB measured, NVIDIA H100 80GB HBM3, 700 W): that
-# comparison is held at E2E_SNR_DB, the bf16 route's end-to-end bar
+# comparison is held at E2E_SNR_DB, the bf16 route's end-to-end bar.  The
+# float32 synthesizer's files are held to its seed build at the float32
+# route's F32_E2E_SNR_DB (the fold moves a weight by at most two float32
+# ulps: 124.8 dB for the conv generator on the CPU)
 REFERENCE_SNR_DB = 60.0
 # the preprocessing phase: a raw corpus of LJSpeech's length range, and
 # the card's run held to the CPU's (log-mel absolute; energy relative;
@@ -239,6 +259,26 @@ PREPROCESS_STATS_RTOL = 1e-6
 # the train + validation audio phase on that corpus: the tiny preset in
 # bf16, batch 16 (7 steps an epoch), two epochs
 VALIDATE_BATCH, VALIDATE_STEPS = 16, 14
+# the vocoder phase: train_vocoder's defaults (batch 8 of 8,192-sample
+# crops, the LJ_V2-width generator, the full MPD and MSD), float32 with
+# TF32 off; the first step's metrics held to a CPU run of the same step
+# at batch 1 (cuDNN sums in another order: about 1e-5 expected)
+VOCODER_BATCH, VOCODER_SEGMENT, VOCODER_STEPS, VOCODER_TIMED = 8, 8192, 10, 5
+VOCODER_CPU_RTOL = 1e-4
+# --from-acoustic on the preprocessed corpus, from the validate phase's
+# checkpoint: utterances of the pair sweep, held out share, GAN steps
+FROM_ACOUSTIC_UTTERANCES, FROM_ACOUSTIC_HOLDOUT = 64, 0.125
+FROM_ACOUSTIC_STEPS = 4
+# the device-data phase: the tiny bf16 trainer's first epoch on the
+# device-resident corpus, also with --device-data-scan-steps at this
+# (single steps in the port); each step's losses held to the loader
+# path's step on the same rows at DEVICE_DATA_STEP_RTOL, and a run that
+# gathers the next row of the corpus must read apart by more.  Measured
+# (NVIDIA H100 80GB HBM3, 700 W): 1.34e-3 sound (bf16 trajectories whose
+# batches hold the rows in another order drift apart by step 14), 5.13e-2
+# with the next-row gather; the bar sits between them
+DEVICE_DATA_SCAN = 4
+DEVICE_DATA_STEP_RTOL = 1e-2
 # the kernel-table rows whose kernels were redesigned for Hopper after
 # their first port, by launch key: the design each row's time belongs to
 DESIGNS = {
@@ -701,6 +741,23 @@ def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     return launches
 
 
+def _busy_ms(prof) -> float:
+    """The device's busy time in a trace: the union of its kernels' time
+    intervals (kernels that overlap, as on cuDNN's side streams, count
+    once)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
 def trace(fn, label: str, card: str):
     """Trace one call of ``fn`` (after one untraced call): device time by
     kernel and the idle share of its wall time."""
@@ -726,10 +783,12 @@ def trace(fn, label: str, card: str):
         print(f"[profile] {label}: no device time in the trace: not "
               f"measured | {card}")
         return
+    busy_ms = _busy_ms(prof)
     n_kernels = sum(e.count for e in events)
     print(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
-          f"{device_ms:.2f} ms in {n_kernels} kernels, idle share "
-          f"{1 - device_ms / wall_ms:.3f} | {card}")
+          f"{busy_ms:.2f} ms (kernel time {device_ms:.2f} ms in "
+          f"{n_kernels} kernels), idle share "
+          f"{1 - busy_ms / wall_ms:.3f} | {card}")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1688,8 +1747,9 @@ def phase_reference(synth, card: str, root: str):
     and K2 (launches counted from 0).  Its waveform is held at >=
     REFERENCE_SNR_DB to a synthesizer built directly from the trees the
     loaders read from the files, and its mel_len equals ``synth``'s,
-    whose waveform it holds at >= E2E_SNR_DB.  Returns the generator
-    file's path."""
+    whose waveform it holds at >= E2E_SNR_DB in bf16 and at
+    F32_E2E_SNR_DB for a float32 ``synth``.  Returns the generator file's
+    path."""
     from efficientspeech_tpu_torch.config import ModelConfig
     from efficientspeech_tpu_torch.convert.from_torch import (
         load_efficientspeech_checkpoint, load_hifigan_checkpoint)
@@ -1742,6 +1802,8 @@ def phase_reference(synth, card: str, root: str):
     seed, seed_info = synth.tts(LONG_TEXT)
     snr_same = snr_db(torch.from_numpy(same), torch.from_numpy(wav))
     snr_seed = snr_db(torch.from_numpy(seed), torch.from_numpy(wav))
+    seed_bar = (F32_E2E_SNR_DB if synth.dtype == torch.float32
+                else E2E_SNR_DB)
     print(f"[reference] {dname(synth.dtype)}: .ckpt "
           f"{os.path.getsize(ckpt) / 1e6:.2f} MB and generator "
           f"{os.path.getsize(gen) / 1e6:.2f} MB written and built in "
@@ -1751,7 +1813,7 @@ def phase_reference(synth, card: str, root: str):
           f"{info['total_secs'] * 1e3:.1f} ms RTF {info['rtf']:.1f}; "
           f"waveform SNR vs the direct build {snr_same:.1f} dB (tol >= "
           f"{REFERENCE_SNR_DB}), vs the seed build {snr_seed:.1f} dB (tol "
-          f">= {E2E_SNR_DB}) | {card}")
+          f">= {seed_bar}) | {card}")
     if (k1, k2) != (5, 4):
         fail(f"reference: the long request launched K1 {k1} and K2 {k2} "
              "times; expected 5 and 4")
@@ -1760,7 +1822,7 @@ def phase_reference(synth, card: str, root: str):
         fail(f"reference: mel_len {info['mel_len']}, direct build "
              f"{same_info['mel_len']}, seed build {seed_info['mel_len']}")
     if (not np.isfinite(wav).all() or snr_same < REFERENCE_SNR_DB
-            or snr_seed < E2E_SNR_DB):
+            or snr_seed < seed_bar):
         fail(f"reference: waveform SNR {snr_same:.1f} / {snr_seed:.1f} dB")
     del ref, direct
     return gen
@@ -2018,6 +2080,304 @@ def phase_validate(card: str, data: str, gen: str, root: str):
     trainer.logger.jsonl.close()
 
 
+def phase_vocoder(card: str, root: str, data: str):
+    """Vocoder training on the card, float32 with TF32 off: the LJ_V2-width
+    generator and the full MPD and MSD from seed 0 at train_vocoder's
+    defaults (batch VOCODER_BATCH of VOCODER_SEGMENT samples).  The first
+    step at batch 1 against the same step on the CPU; VOCODER_STEPS steps
+    on synthetic speech-like crops (median of the last VOCODER_TIMED,
+    peak memory, finite metrics) and a trace of two of them; then
+    ``train_vocoder --from-acoustic`` on the preprocessed corpus from the
+    validate phase's checkpoint, with a holdout, after the pairs' forward
+    (K3 and K4 float32 forward, counted) is held to the plain route's."""
+    from efficientspeech_tpu_torch import train_vocoder
+    from efficientspeech_tpu_torch.config import AudioConfig, HifiGanConfig
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+    from efficientspeech_tpu_torch.training.vocoder import (
+        create_vocoder_trainer, make_mel_fn)
+
+    audio, cfg = AudioConfig(), HifiGanConfig()
+    frames = VOCODER_SEGMENT // audio.hop_length
+    wavs = np.stack([speechlike(VOCODER_SEGMENT * (VOCODER_STEPS + 1),
+                                seed=i) for i in range(VOCODER_BATCH)])
+    crops = [torch.from_numpy(np.ascontiguousarray(
+        wavs[:, i * VOCODER_SEGMENT:(i + 1) * VOCODER_SEGMENT]))
+        for i in range(VOCODER_STEPS + 1)]
+
+    # the card against the CPU: the same first step at batch 1, from the
+    # same seeded weights and the same mel
+    t0 = time.perf_counter()
+    cpu_mel_of = make_mel_fn(audio, "cpu")
+    with torch.no_grad():
+        mel1 = cpu_mel_of(crops[0][:1])[:, :frames]
+    _, cpu_init, cpu_step = create_vocoder_trainer(cfg, audio, device="cpu")
+    _, cpu_m = cpu_step(cpu_init(seed=0), mel1, crops[0][:1])
+    cpu_s = time.perf_counter() - t0
+    gen, init, step = create_vocoder_trainer(cfg, audio)
+    n_gen = sum(p.numel() for p in gen.parameters())
+    state = init(seed=0)
+    n_disc = sum(p.numel() for m in (state.mpd, state.msd)
+                 for p in m.parameters())
+    _, card_m = step(state, mel1.cuda(), crops[0][:1].cuda())
+    card_m = {k: float(v) for k, v in card_m.items()}
+    rel = {k: abs(card_m[k] - float(v)) / abs(float(v))
+           for k, v in cpu_m.items()}
+    worst = max(rel, key=rel.get)
+    print(f"[vocoder] generator {n_gen:,} + discriminators {n_disc:,} "
+          f"float32 parameters; first step at batch 1, card vs CPU ("
+          f"{cpu_s:.1f} s there): "
+          + ", ".join(f"{k} {card_m[k]:.5f}" for k in sorted(card_m))
+          + f"; max rel diff {rel[worst]:.2e} at {worst} (tol <= "
+          f"{VOCODER_CPU_RTOL}) | {card}")
+    if rel[worst] > VOCODER_CPU_RTOL or not np.isfinite(
+            list(card_m.values())).all():
+        fail("vocoder: the card's GAN step does not hold the CPU's")
+
+    # VOCODER_STEPS steps at batch VOCODER_BATCH
+    mel_of = make_mel_fn(audio)
+    state = init(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, logged = [time.perf_counter()], []
+    for i in range(VOCODER_STEPS):
+        wav = crops[i].cuda()
+        with torch.no_grad():
+            mel = mel_of(wav)[:, :frames]
+        state, metrics = step(state, mel, wav)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        logged.append(metrics)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = np.diff(stamps) * 1e3
+    timed = step_ms[-VOCODER_TIMED:]
+    keys = sorted(logged[0])
+    values = torch.stack([torch.stack([m[k] for k in keys])
+                          for m in logged]).cpu().numpy()
+    print(f"[vocoder] {VOCODER_STEPS} GAN steps, batch {VOCODER_BATCH} x "
+          f"{VOCODER_SEGMENT} samples, float32: first {step_ms[0]:.1f} ms, "
+          f"median of the last {VOCODER_TIMED} {np.median(timed):.2f} ms "
+          f"(min {timed.min():.2f}, max {timed.max():.2f}), "
+          f"{VOCODER_BATCH * VOCODER_SEGMENT / np.median(timed) * 1e3:.0f} "
+          f"samples/s; peak memory {peak_gb:.2f} GiB; last step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, values[-1]))
+          + f" | {card}")
+    if not np.isfinite(values).all() or not np.isfinite(step_ms).all():
+        fail(f"vocoder: metrics not finite: {values}")
+    wav = crops[VOCODER_STEPS].cuda()
+    with torch.no_grad():
+        mel = mel_of(wav)[:, :frames]
+    trace(lambda: [step(state, mel, wav) for _ in range(2)],
+          f"two vocoder GAN steps, batch {VOCODER_BATCH} x "
+          f"{VOCODER_SEGMENT}, float32", card)
+    del state, gen, init, step
+    torch.cuda.empty_cache()
+
+    # --from-acoustic on the preprocessed corpus
+    cfg_yaml = os.path.join(root, "vocoder.yaml")
+    with open(cfg_yaml, "w") as f:
+        f.write(f"path:\n  corpus_path: {root}\n  raw_path: "
+                f"{os.path.join(root, 'raw')}\n  preprocessed_path: "
+                f"{data}\npreprocessing:\n  audio:\n    sampling_rate: "
+                "22050\n")
+    ckpt = os.path.join(root, "ckpt")
+    counters = (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+                k4.launches_bwd)
+    counts = lambda: tuple(d[128, torch.float32] for d in counters)  # noqa
+    mels = {}
+    for fused in (True, False):
+        for d in counters:
+            d.update(dict.fromkeys(d, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs, _, _ = train_vocoder.build_acoustic_pairs(
+            ckpt, "tiny", cfg_yaml, FROM_ACOUSTIC_UTTERANCES, 0,
+            fused=fused, mel_dtype=np.float32)
+        secs = time.perf_counter() - t0
+        mels[fused] = (torch.from_numpy(np.concatenate([m for m, _ in
+                                                        pairs])), counts(),
+                       secs, len(pairs))
+    (mel_k, launches, secs_k, n_pairs), (mel_p, plain_launches, secs_p, _) \
+        = mels[True], mels[False]
+    snr = snr_db(mel_p, mel_k) if mel_k.shape == mel_p.shape else -1.0
+    print(f"[vocoder] --from-acoustic pairs: {n_pairs} utterances, "
+          f"{mel_k.shape[0]} frames, teacher-forced float32 forward in "
+          f"{secs_k:.2f} s (plain route {secs_p:.2f} s); launches K3 C=128 "
+          f"f32 fwd, bwd, K4 fwd, bwd {launches} (plain route "
+          f"{plain_launches}); mels vs the plain route SNR {snr:.1f} dB "
+          f"(tol >= {F32_KERNEL_SNR_DB}) | {card}")
+    if launches[0] == 0 or launches[2] == 0 or any(plain_launches) \
+            or launches[1] or launches[3]:
+        fail(f"vocoder: the pairs' forward launched {launches} (plain "
+             f"route {plain_launches})")
+    if snr < F32_KERNEL_SNR_DB:
+        fail(f"vocoder: teacher-forced mels at {snr:.1f} dB")
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
+    t0 = time.perf_counter()
+    out = train_vocoder.main([
+        "--preprocess-config", cfg_yaml, "--from-acoustic", ckpt,
+        "--max-utterances", str(FROM_ACOUSTIC_UTTERANCES),
+        "--holdout-frac", str(FROM_ACOUSTIC_HOLDOUT),
+        "--steps", str(FROM_ACOUSTIC_STEPS), "--log-every", "1",
+        "--checkpoint-dir", os.path.join(root, "vocoder_ckpt"),
+        "--log-dir", os.path.join(root, "vocoder_logs")])
+    wall = time.perf_counter() - t0
+    run_launches = counts()
+    before, after = out["before"], out["after"]
+    shown = ("mel_l1", "mr_stft", "sc_1024", "logmag_1024")
+    print(f"[vocoder] train_vocoder --from-acoustic, {FROM_ACOUSTIC_STEPS} "
+          f"steps, holdout {int(before['n_utterances'])} utterances: "
+          f"{wall:.1f} s wall; holdout before "
+          + ", ".join(f"{k} {before[k]}" for k in shown) + "; after "
+          + ", ".join(f"{k} {after[k]}" for k in shown)
+          + f"; each eval {out['eval_secs'][0]:.2f} / "
+          f"{out['eval_secs'][1]:.2f} s wall; launches in the run "
+          f"{run_launches} | {card}")
+    if out["step"] != FROM_ACOUSTIC_STEPS or not all(
+            np.isfinite(m[k]) for m in (before, after) for k in shown):
+        fail(f"vocoder: --from-acoustic gave {out}")
+    if run_launches[0] == 0 or run_launches[2] == 0:
+        fail(f"vocoder: train_vocoder's pair forward launched "
+             f"{run_launches}")
+
+
+def phase_device_data(card: str, data: str, out: str):
+    """The device-resident corpus on the train phase's synthetic corpus,
+    tiny preset in bf16: one epoch (EPOCH_STEPS steps) of Trainer.fit with
+    --device-data, and with --device-data-scan-steps DEVICE_DATA_SCAN, and
+    the loader's path over the same rows (the cache's permutation through
+    the loader's assembly).  Each step's losses are held to the loader
+    path's same step at DEVICE_DATA_STEP_RTOL; a planted fault, the cache
+    gathering each index's next row, must read apart by more.  K3 and K4
+    counted, step times and idle shares of both paths."""
+    from efficientspeech_tpu_torch.config import (
+        ModelConfig, PreprocessConfig, TrainConfig)
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+    from efficientspeech_tpu_torch.training.loop import (
+        Trainer, batch_to_device)
+
+    dt = torch.bfloat16
+    preprocess_cfg = PreprocessConfig(preprocessed_path=data)
+    stats = preprocess_cfg.load_stats()
+    model_cfg = ModelConfig.preset(
+        "tiny", pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]),
+        max_phoneme_len=TRAIN_PHONEMES, max_mel_len=TRAIN_FRAMES)
+
+    def trainer(tag, **kw):
+        return Trainer(model_cfg, TrainConfig(
+            batch_size=TRAIN_BATCH, warmup_epochs=0, seed=0,
+            checkpoint_dir=os.path.join(out, tag, "ckpt"),
+            log_dir=os.path.join(out, tag, "logs"), **kw),
+            preprocess_cfg, dtype=dt)
+
+    def stacked(step_metrics):
+        """{key: (steps,) float64 array} of per-step metric dicts."""
+        return {k: torch.stack([m[k] for m in step_metrics]).double()
+                .cpu().numpy() for k in step_metrics[0]}
+
+    counters = (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+                k4.launches_bwd)
+    counts = lambda: tuple(d[128, dt] for d in counters)  # noqa: E731
+    results = {}
+    for tag, scan in (("single", 1), ("scan", DEVICE_DATA_SCAN),
+                      ("planted", 1)):
+        t0 = time.perf_counter()
+        tr = trainer(tag, device_data=True, device_data_scan_steps=scan)
+        setup_s = time.perf_counter() - t0
+        if tag == "planted":
+            # the fault: every index gathers the corpus's next row
+            rows_of, n_rows = (tr.device_cache.epoch_batches,
+                               tr.device_cache.num_samples)
+            tr.device_cache.epoch_batches = (
+                lambda *a, **kw: (rows_of(*a, **kw) + 1) % n_rows)
+        stamps, step_metrics = [], []
+
+        def on_step(step, metrics, stamps=stamps, step_metrics=step_metrics):
+            step_metrics.append(metrics)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        for d in counters:
+            d.update(dict.fromkeys(d, 0))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        last = tr.fit(max_steps=EPOCH_STEPS, on_step=on_step)
+        launches = counts()
+        gaps = np.diff(stamps)[WARMUP_STEPS:] * 1e3
+        results[tag] = dict(trainer=tr, steps=stacked(step_metrics),
+                            launches=launches, ms=float(np.median(gaps)))
+        mb = (tr.device_cache.nbytes + tr.val_device_cache.nbytes) / 2 ** 20
+        print(f"[device-data] {tag} (--device-data-scan-steps {scan}): "
+              f"cache of {tr.device_cache.num_samples} + "
+              f"{tr.val_device_cache.num_samples} utterances, {mb:.0f} "
+              f"MB on the card, trainer built in {setup_s:.1f} s; {last} "
+              f"steps, median step {results[tag]['ms']:.2f} ms; launches "
+              f"K3 C=128 bf16 fwd, bwd, K4 fwd, bwd {launches}; epoch "
+              f"loss {results[tag]['steps']['loss'].mean():.5f} | {card}")
+        if last != EPOCH_STEPS or launches != (3 * EPOCH_STEPS,
+                                               3 * EPOCH_STEPS,
+                                               4 * EPOCH_STEPS,
+                                               4 * EPOCH_STEPS):
+            fail(f"device-data: {tag} ran {last} steps with launches "
+                 f"{launches}")
+    cached = results["single"]["trainer"]
+
+    # the loader's path over the same rows, each batch assembled on the
+    # host first (the loader's prefetch threads do that beside the steps)
+    loader = trainer("loader")
+    rows = cached.device_cache.epoch_batches(TRAIN_BATCH, 0, seed=0)
+    host_batches = [loader.train_loader._assemble(r) for r in rows]
+    step_metrics, stamps = [], []
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    for host_batch in host_batches:
+        batch = batch_to_device(host_batch, loader.device)
+        loader.state, m = loader.train_step(loader.state, batch)
+        step_metrics.append(m)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    want = stacked(step_metrics)
+    loader_ms = float(np.median(np.diff(stamps)[WARMUP_STEPS:] * 1e3))
+
+    def worst_gap(tag):
+        """(largest relative gap over steps and losses, its step, key)."""
+        got = results[tag]["steps"]
+        return max((float(abs(got[k][i] - v[i]) / abs(v[i])), i + 1, k)
+                   for k, v in want.items() for i in range(len(v)))
+
+    gap = {tag: worst_gap(tag) for tag in results}
+    first = {tag: max(float(abs(results[tag]["steps"][k][0] - v[0])
+                            / abs(v[0])) for k, v in want.items())
+             for tag in results}
+    print(f"[device-data] loader path over the same rows (each batch "
+          f"assembled on the host first; its upload in the step): median "
+          f"step {loader_ms:.2f} ms, epoch loss {want['loss'].mean():.5f}; "
+          f"per-step losses, largest relative gap to the loader path "
+          f"(step, loss): "
+          + "; ".join(f"{tag} {g:.2e} at {i}, {k}"
+                      for tag, (g, i, k) in gap.items())
+          + f" (tol <= {DEVICE_DATA_STEP_RTOL}; the planted next-row "
+          f"gather must exceed it); at the first step "
+          + ", ".join(f"{tag} {g:.2e}" for tag, g in first.items())
+          + f" | {card}")
+    if max(gap["single"][0], gap["scan"][0]) > DEVICE_DATA_STEP_RTOL:
+        fail("device-data: the cached steps do not hold the loader's")
+    if gap["planted"][0] <= DEVICE_DATA_STEP_RTOL:
+        fail("device-data: a next-row gather reads within the bar")
+    idx = torch.from_numpy(rows[0].astype(np.int64)).cuda()
+    trace(lambda: cached._cached_step(cached.state,
+                                      cached.device_cache.arrays, idx),
+          "tiny bf16 step on the device-resident corpus", card)
+    trace(lambda: loader.train_step(loader.state, batch_to_device(
+        host_batches[0], loader.device)), "tiny bf16 step fed by the "
+          "loader (the batch's upload included)", card)
+    for tr in [r["trainer"] for r in results.values()] + [loader]:
+        tr.logger.jsonl.close()
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on one CUDA card.")
@@ -2053,6 +2413,7 @@ def main():
         torch.cuda.empty_cache()
         data = phase_preprocess(card, work)
         phase_validate(card, data, gen, work)
+        phase_vocoder(card, work, data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2065,6 +2426,8 @@ def main():
                               vocoder_mode="folded_kernel")
     print(f"[setup] float32 synthesizer on {synth.device} in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
+    with tempfile.TemporaryDirectory() as ref_root:
+        phase_reference(synth, card, ref_root)
     k1["f32"] = phase_k1(synth, card)
     k2["f32"] = phase_k2(synth, card)
     launches.update(phase_slice(synth, card,
@@ -2098,6 +2461,7 @@ def main():
                     card, preset, data,
                     os.path.join(root, f"{preset}_{dname(dt)}"),
                     args.profile, dt))
+        phase_device_data(card, data, os.path.join(root, "device_data"))
 
     phase_bench(card)
 

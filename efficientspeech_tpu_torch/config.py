@@ -239,8 +239,16 @@ class TrainConfig:
     precision: str = "bf16"  # compute dtype; params/optimizer always f32
     seed: int = 0
     val_every_n_epochs: int = 10
-    # the JAX config's mesh, device-resident-corpus and flat-optimizer
-    # fields are left out: the port has none of those
+    # device-resident corpus (data/device_cache.py): the whole train and
+    # val sets on the card, batches gathered there; optional bf16 mel
+    # targets.  device_data_scan_steps is the JAX package's steps per
+    # host call (one XLA scan); eager PyTorch has no such program, so
+    # here it is accepted for the same flags and runs K single steps
+    device_data: bool = False
+    device_cache_bf16_mel: bool = False
+    device_data_scan_steps: int = 1
+    # the JAX config's mesh and flat-optimizer fields are left out: the
+    # port has neither
     checkpoint_dir: str = "checkpoints"
     log_dir: str = "logs"
     wav_path: str = "wavs"

@@ -72,6 +72,31 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
+class Conv2d(nn.Module):
+    """torch.nn.Conv2d on NCHW (B, C, H, W); weight (out, in, kh, kw).  The
+    one module here that is not channels-last: the period discriminators
+    (``hifigan_disc.py``) run on torch's layout, and the weight bridge
+    maps the JAX package's (kh, kw, in, out) kernels to it."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=(1, 1),
+                 padding=(0, 0), bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch, *tuple(kernel_size)))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator):
+        fan_in = self.weight[0].numel()
+        _uniform_(self.weight, fan_in, gen)
+        if self.bias is not None:
+            _uniform_(self.bias, fan_in, gen)
+
+    def forward(self, x):
+        return F.conv2d(x.to(self.weight.dtype), self.weight, self.bias,
+                        stride=self.stride, padding=self.padding)
+
+
 class ConvTranspose1d(nn.Module):
     """torch.nn.ConvTranspose1d on (B, T, C); weight (in, out, k)."""
 

@@ -1,5 +1,5 @@
 """Acoustic-model training CLI of the PyTorch port (the flags of the JAX
-package's ``train.py``, without its mesh and device-resident-corpus ones):
+package's ``train.py``, without its mesh one):
 
     python -m efficientspeech_tpu_torch.train --preset tiny \\
         --preprocess-config configs/ljspeech.yaml --batch-size 128 \\
@@ -16,6 +16,10 @@ It runs on the CUDA card, and raises without one unless given
 ``--device cpu``.  ``--precision f32`` computes in float32 throughout:
 the decoder's kernels run their float32 variants, and cuDNN's
 convolutions and cuBLAS's products are kept out of TF32.
+``--device-data`` puts the whole corpus on the card once and gathers each
+batch there (``data/device_cache.py``).  ``--device-data-scan-steps`` is
+accepted for the JAX package's flags and runs single steps (see
+``TrainConfig``).
 """
 
 import argparse
@@ -63,6 +67,17 @@ def get_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card")
+    parser.add_argument("--device-data", action="store_true",
+                        help="upload the whole preprocessed corpus to the "
+                             "card once and gather batches there (a step "
+                             "uploads only its batch indices)")
+    parser.add_argument("--device-data-bf16-mel", action="store_true",
+                        help="store the cached mel targets as bf16 (halves "
+                             "their memory and upload)")
+    parser.add_argument("--device-data-scan-steps", type=int, default=1,
+                        help="the JAX package's optimizer steps per host "
+                             "call; accepted for its flags, the port runs "
+                             "single steps")
     add_arch_args(parser)
     return parser.parse_args(argv)
 
@@ -104,7 +119,10 @@ def main(argv=None):
         batch_size=args.batch_size, max_epochs=args.max_epochs,
         warmup_epochs=args.warmup_epochs, precision=args.precision,
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
-        log_dir=args.log_dir, wav_path=args.wav_path)
+        log_dir=args.log_dir, wav_path=args.wav_path,
+        device_data=args.device_data,
+        device_cache_bf16_mel=args.device_data_bf16_mel,
+        device_data_scan_steps=args.device_data_scan_steps)
     hifigan_cfg, hifigan_params = load_vocoder(args.hifigan_checkpoint)
     trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
                       hifigan_cfg=hifigan_cfg, hifigan_params=hifigan_params,

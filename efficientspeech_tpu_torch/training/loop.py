@@ -2,10 +2,11 @@
 card, epoch-averaged metrics in ``metrics.jsonl``, checkpoints, resume, a
 graceful stop on SIGTERM/SIGINT, and at each validation the teacher-forced
 losses and the validation audio with its objective quality metrics
-(counterpart of the JAX package's ``training/loop.py``).
+(counterpart of the JAX package's ``training/loop.py``).  With
+``TrainConfig.device_data`` the train and validation sets live on the
+card (``data/device_cache.py``) and each step uploads only its indices.
 
-Not ported yet: the device-resident corpus with scanned steps, and
-meshes.
+Not ported yet: meshes.
 """
 
 import dataclasses
@@ -24,6 +25,8 @@ from efficientspeech_tpu_torch.config import (
     HifiGanConfig, ModelConfig, PreprocessConfig, TrainConfig)
 from efficientspeech_tpu_torch.data.dataset import (
     BucketedLoader, LJSpeechDataset)
+from efficientspeech_tpu_torch.data.device_cache import (
+    DeviceDataCache, make_cached_eval_step, make_cached_train_step)
 from efficientspeech_tpu_torch.device import resolve_device
 from efficientspeech_tpu_torch.eval.quality import (
     batch_quality, duration_mae, utterance_quality)
@@ -122,6 +125,47 @@ class Trainer:
         self.train_step = make_train_step(dtype)
         self.eval_step = make_eval_step(dtype)
 
+        # the device-resident corpus: the train and validation sets on the
+        # card; a step uploads B indices instead of a batch
+        self.device_cache = self.val_device_cache = None
+        self._cached_step = self._cached_eval = None
+        if train_cfg.device_data:
+            mel_dtype = (torch.bfloat16 if train_cfg.device_cache_bf16_mel
+                         else torch.float32)
+            self.device_cache = DeviceDataCache(
+                self.train_ds, model_cfg.max_phoneme_len,
+                model_cfg.max_mel_len, mel_dtype=mel_dtype,
+                device=self.device)
+            self._cached_step = make_cached_train_step(dtype)
+            # validation mel targets stay float32: the loader's eval losses
+            self.val_device_cache = DeviceDataCache(
+                self.val_ds, model_cfg.max_phoneme_len,
+                model_cfg.max_mel_len, device=self.device)
+            self._cached_eval = make_cached_eval_step(dtype)
+            mb = (self.device_cache.nbytes
+                  + self.val_device_cache.nbytes) / 2 ** 20
+            print(f"device data cache: {self.device_cache.num_samples} "
+                  f"train + {self.val_device_cache.num_samples} val "
+                  f"samples, {mb:.0f} MB")
+
+    def _indices(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows.astype(np.int64)).to(self.device)
+
+    def _epoch_steps(self, epoch: int):
+        """(step function, its arguments after the state) of each step of
+        one epoch: the loader's batches, or on the device-resident corpus
+        the cache's index rows (one step each, whatever
+        ``device_data_scan_steps`` says)."""
+        if self.device_cache is None:
+            self.train_loader.epoch = epoch  # deterministic resume
+            for batch in self.train_loader:
+                yield self.train_step, (batch_to_device(batch, self.device),)
+            return
+        arrays = self.device_cache.arrays
+        for row in self.device_cache.epoch_batches(
+                self.train_cfg.batch_size, epoch, seed=self.train_cfg.seed):
+            yield self._cached_step, (arrays, self._indices(row))
+
     def maybe_resume(self) -> int:
         path = latest_checkpoint(self.train_cfg.checkpoint_dir)
         if path:
@@ -129,15 +173,28 @@ class Trainer:
             print(f"resumed from {path} at step {self.state.step}")
         return self.state.step
 
+    def _eval_batches(self):
+        """(metrics, utterances) of each validation batch: the loader's
+        batches, or the device-resident corpus's rows in order, the last
+        batch shorter."""
+        if self.val_device_cache is None:
+            for batch in self.val_loader:
+                yield self.eval_step(self.model, batch_to_device(
+                    batch, self.device)), len(batch["text"])
+            return
+        bs = self.train_cfg.batch_size
+        s = self.val_device_cache.num_samples
+        for lo in range(0, s, bs):
+            rows = np.arange(lo, min(lo + bs, s))
+            yield self._cached_eval(self.model, self.val_device_cache.arrays,
+                                    self._indices(rows)), len(rows)
+
     def evaluate(self) -> Dict[str, float]:
         """Teacher-forced losses over the validation set, weighted by the
-        number of utterances in each batch."""
+        number of utterances in each batch; the sums stay on the card."""
         acc, count = None, 0
         self.model.eval()
-        for batch in self.val_loader:
-            real_b = len(batch["text"])
-            metrics = self.eval_step(self.model,
-                                     batch_to_device(batch, self.device))
+        for metrics, real_b in self._eval_batches():
             metrics = {k: v * real_b for k, v in metrics.items()}
             acc = metrics if acc is None else {
                 k: acc[k] + metrics[k] for k in acc}
@@ -272,10 +329,8 @@ class Trainer:
                                max_epochs):
                 # metric sums stay on the card; one fetch per epoch
                 acc, count = None, 0
-                self.train_loader.epoch = epoch  # deterministic resume
-                for batch in self.train_loader:
-                    self.state, metrics = self.train_step(
-                        self.state, batch_to_device(batch, self.device))
+                for step_fn, step_args in self._epoch_steps(epoch):
+                    self.state, metrics = step_fn(self.state, *step_args)
                     step = self.state.step
                     count += 1
                     acc = metrics if acc is None else {

@@ -10,6 +10,7 @@ paths; only the leaf names and layouts differ:
 - ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k);
 - ``kernel`` (k, in, out) of a transposed conv (``up<i>``,
   ``upsample<i>``) → ConvTranspose1d ``weight`` (in, out, k);
+- ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw);
 - ``scale`` → LayerNorm ``weight``; ``embedding`` → ``weight``;
 - ``bias`` and ``speaker_embedding`` keep their names.
 """
@@ -49,6 +50,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 arr = arr.transpose(1, 2, 0)
             elif arr.ndim == 3:
                 arr = arr.transpose(2, 1, 0)
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
             else:
                 raise ValueError(f"{'/'.join(path)}: unexpected kernel "
                                  f"shape {arr.shape}")
@@ -64,6 +67,7 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 # the JAX leaf name of each module class's ``weight``
 _WEIGHT_LEAF = {modules.Linear: "kernel", modules.Conv1d: "kernel",
+                modules.Conv2d: "kernel",
                 modules.ConvTranspose1d: "kernel", modules.LayerNorm: "scale",
                 modules.Embedding: "embedding", ScalarEmbedding: "embedding"}
 
@@ -84,6 +88,8 @@ def to_jax_params(model: nn.Module) -> Dict:
                 elif name == "kernel" and isinstance(
                         mod, modules.ConvTranspose1d):
                     arr = arr.transpose(2, 0, 1)
+                elif name == "kernel" and arr.ndim == 4:
+                    arr = arr.transpose(2, 3, 1, 0)
                 elif name == "kernel":
                     arr = arr.transpose(2, 1, 0)
             elif name not in ("bias", "speaker_embedding"):

@@ -768,3 +768,90 @@ def test_mel_extractor_on_card_ignores_tf32(card, monkeypatch):
     assert got[0].shape == want[0].shape
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("mr_stft_weight", [0.0, 2.5])
+def test_gan_step_on_card_matches_cpu(card, mr_stft_weight):
+    """One vocoder GAN step (generator width 32, the full MPD and MSD, TF32
+    off) on the card against the same step on the CPU from the same
+    seeded weights and inputs, in float64 and in float32.
+
+    Float64 shows the card computes the CPU's step: every metric within
+    1e-9 relative, every gradient within 1e-9 of its norm (1e-12
+    measured).  Float32: every metric within 1e-4 relative, the
+    discriminators' gradients within 1e-4 of their norms, and the
+    generator's within 5e-4 of the CPU's without the STFT term.  With it
+    the generator's float32 gradient carries the rounding of quiet bins'
+    log-magnitudes (4.50e-4 of the norm from float64 on the CPU, 4.93e-4
+    on the card, 9.23e-4 between them, NVIDIA H100 80GB HBM3, 700 W), so
+    it is held to the float64 step instead: the card's distance from it
+    at most 1.5 times the CPU's."""
+    from efficientspeech_tpu_torch.config import AudioConfig
+    from efficientspeech_tpu_torch.training.vocoder import (
+        create_vocoder_trainer)
+
+    cfg = HifiGanConfig(upsample_initial_channel=32)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    mel = torch.randn(2, 16, 80, generator=g) * 2 - 3
+    wav = torch.randn(2, 16 * 256, generator=g) * 0.3
+    results = {}
+    for device, dtype in (("cpu", torch.float64), (card, torch.float64),
+                          ("cpu", torch.float32), (card, torch.float32)):
+        _, init, step = create_vocoder_trainer(
+            cfg, AudioConfig(), mr_stft_weight=mr_stft_weight,
+            device=device)
+        state = init(seed=3)
+        for module in (state.gen, state.mpd, state.msd):
+            module.to(dtype)
+        state, metrics = step(state, mel.to(device, dtype),
+                              wav.to(device, dtype))
+        grads = {name: torch.cat([p.grad.flatten().double().cpu()
+                                  for p in getattr(state, name).parameters()])
+                 for name in ("gen", "mpd", "msd")}
+        results[str(device), dtype] = (
+            {k: float(v) for k, v in metrics.items()}, grads)
+
+    def rel(a, b, name):
+        return float((a[1][name] - b[1][name]).norm() / b[1][name].norm())
+
+    for dtype, m_tol, g_tol in ((torch.float64, 1e-9, 1e-9),
+                                (torch.float32, 1e-4, 1e-4)):
+        want, got = results["cpu", dtype], results[str(card), dtype]
+        assert set(got[0]) == set(want[0])
+        for k in want[0]:
+            np.testing.assert_allclose(got[0][k], want[0][k], rtol=m_tol,
+                                       err_msg=(k, dtype))
+        for name in ("gen", "mpd", "msd") if dtype == torch.float64 \
+                else ("mpd", "msd"):
+            assert rel(got, want, name) <= g_tol, (name, dtype)
+    exact = results["cpu", torch.float64]
+    cpu32, card32 = results["cpu", torch.float32], results[
+        str(card), torch.float32]
+    if mr_stft_weight == 0:
+        assert rel(card32, cpu32, "gen") <= 5e-4
+    assert rel(card32, exact, "gen") <= 1.5 * rel(cpu32, exact, "gen"), (
+        rel(card32, exact, "gen"), rel(cpu32, exact, "gen"))
+
+
+def test_gather_batch_on_card(card):
+    """The device-resident corpus's gather on the card equals the CPU's,
+    a bf16 mel cast back to float32."""
+    from efficientspeech_tpu_torch.data.device_cache import (
+        gather_batch, upload_cache)
+
+    rng = np.random.default_rng(0)
+    host = {"phoneme": rng.integers(1, 80, (6, 32)).astype(np.int32),
+            "speaker": np.zeros(6, np.int32),
+            "pitch": rng.normal(size=(6, 32)).astype(np.float32),
+            "energy": rng.normal(size=(6, 32)).astype(np.float32),
+            "duration": rng.integers(0, 5, (6, 32)).astype(np.int32),
+            "mel": rng.normal(size=(6, 128, 80)).astype(np.float32),
+            "phoneme_len": rng.integers(1, 33, 6).astype(np.int32),
+            "mel_len": rng.integers(1, 129, 6).astype(np.int32)}
+    idx = torch.tensor([4, 0, 4, 2])
+    for dtype in (torch.float32, torch.bfloat16):
+        want = gather_batch(upload_cache(host, "cpu", dtype), idx)
+        got = gather_batch(upload_cache(host, card, dtype), idx.to(card))
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype, k
+            assert torch.equal(got[k].cpu(), v), k

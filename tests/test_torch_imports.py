@@ -161,15 +161,20 @@ def test_precision_f32_turns_tf32_off(monkeypatch, tmp_path, cli):
 
 
 @pytest.mark.parametrize("entry", ["demo", "preprocess", "Preprocessor",
-                                   "MelSpectrogram"])
+                                   "MelSpectrogram", "train_vocoder",
+                                   "create_vocoder_trainer"])
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
-    """The demo and the preprocessing entry points compute on the card and
-    refuse to start without one unless asked for the CPU; prepare_align
-    does no device work (tests/test_torch_preprocess.py runs it)."""
-    from efficientspeech_tpu_torch import demo, preprocess
+    """The demo, the preprocessing and the vocoder-training entry points
+    compute on the card and refuse to start without one unless asked for
+    the CPU; prepare_align does no device work
+    (tests/test_torch_preprocess.py runs it)."""
+    from efficientspeech_tpu_torch import demo, preprocess, train_vocoder
     from efficientspeech_tpu_torch.audio.stft import MelSpectrogram
-    from efficientspeech_tpu_torch.config import PreprocessConfig
+    from efficientspeech_tpu_torch.config import (
+        AudioConfig, HifiGanConfig, PreprocessConfig)
     from efficientspeech_tpu_torch.data.preprocessor import Preprocessor
+    from efficientspeech_tpu_torch.training.vocoder import (
+        create_vocoder_trainer)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     yaml = tmp_path / "p.yaml"
@@ -184,8 +189,13 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
         "Preprocessor": lambda **kw: Preprocessor(
             PreprocessConfig(preprocessed_path=str(tmp_path)), **kw),
         "MelSpectrogram": lambda **kw: MelSpectrogram(**kw),
+        "train_vocoder": lambda **kw: train_vocoder.main(
+            ["--preprocess-config", str(yaml)]
+            + (["--device", kw["device"]] if kw else [])),
+        "create_vocoder_trainer": lambda **kw: create_vocoder_trainer(
+            HifiGanConfig(upsample_initial_channel=16), AudioConfig(), **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
-    if entry in ("Preprocessor", "MelSpectrogram"):
+    if entry in ("Preprocessor", "MelSpectrogram", "create_vocoder_trainer"):
         call(device="cpu")

@@ -97,9 +97,12 @@ def test_schedule_matches_jax(warmup):
                                    atol=1e-10, err_msg=str(step))
 
 
-def test_adamw_matches_optax():
-    """Three AdamW steps on the same numpy gradients, lr from the
-    schedule at the pre-increment step, decay on every parameter."""
+@pytest.mark.parametrize("case", ["acoustic", "vocoder"])
+def test_adamw_matches_optax(case):
+    """Three AdamW steps on the same numpy gradients, decay on every
+    parameter.  acoustic: the train state's AdamW, lr from the schedule
+    at the pre-increment step; vocoder: the vocoder trainer's optimizers,
+    a constant rate with betas (0.8, 0.99) and decay 0.01."""
     rng = np.random.default_rng(2)
     params = {"w": rng.normal(size=(6, 5)).astype(np.float32),
               "b": rng.normal(size=(5,)).astype(np.float32)}
@@ -107,8 +110,11 @@ def test_adamw_matches_optax():
               for k, v in params.items()} for _ in range(3)]
     cfg = TrainConfig(lr=1e-2, weight_decay=0.1, warmup_epochs=1,
                       max_epochs=4)
-    tx = optax.adamw(jax_schedule(cfg.lr, 1, 4, 2),
-                     weight_decay=cfg.weight_decay)
+    if case == "acoustic":
+        tx = optax.adamw(jax_schedule(cfg.lr, 1, 4, 2),
+                         weight_decay=cfg.weight_decay)
+    else:
+        tx = optax.adamw(1e-2, b1=0.8, b2=0.99, weight_decay=0.01)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     opt_state = tx.init(jp)
     for g in grads:
@@ -119,13 +125,33 @@ def test_adamw_matches_optax():
     model = torch.nn.ParameterDict(
         {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
          for k, v in params.items()})
-    state = create_train_state(model, cfg, warmup_cosine_schedule(
-        cfg.lr, 1, 4, 2))
+    if case == "acoustic":
+        state = create_train_state(model, cfg, warmup_cosine_schedule(
+            cfg.lr, 1, 4, 2))
+        step = lambda: apply_gradients(state)  # noqa: E731
+    else:
+        from efficientspeech_tpu_torch.config import (
+            AudioConfig, HifiGanConfig)
+        from efficientspeech_tpu_torch.training.vocoder import (
+            create_vocoder_trainer)
+
+        _, init, _ = create_vocoder_trainer(
+            HifiGanConfig(upsample_initial_channel=16), AudioConfig(),
+            lr=1e-2, device="cpu")
+        opt = init().gen_opt
+        assert opt.defaults["betas"] == (0.8, 0.99)
+        assert opt.defaults["weight_decay"] == 0.01
+        assert opt.defaults["eps"] == 1e-8
+        opt = torch.optim.AdamW(model.values(), **{
+            k: opt.defaults[k] for k in ("lr", "betas", "eps",
+                                         "weight_decay")})
+        step = opt.step
     for g in grads:
         for k, p in model.items():
             p.grad = torch.from_numpy(g[k])
-        state = apply_gradients(state)
-    assert state.step == 3
+        step()
+    if case == "acoustic":
+        assert state.step == 3
     for k in params:
         np.testing.assert_allclose(model[k].detach().numpy(),
                                    np.asarray(jp[k]), rtol=1e-5, atol=1e-6,
