@@ -103,6 +103,19 @@ Phases (each prints its lines; any failure exits non-zero):
                (--device-data-scan-steps 4), against the loader's path over
                the same rows: epoch losses, K3 and K4 launches, median
                step times and a trace of a step of each path;
+ parallel    - ranks spawned by parallel.launch that share the card over
+               gloo (NCCL refuses two ranks on one device), each held to
+               one process on the same global work: (a) the tiny Trainer
+               at train.py's defaults on 2 ranks, float32 and bf16, by the
+               loader and on the device-resident corpus (losses, summed
+               gradients, K3 and K4 launches on each rank); (b) the GAN
+               step of the LJ_V2 generator with the full MPD and MSD at
+               batch 8 x 8,192 on 2 ranks; (c) seq_parallel_vocode of the
+               LJ_V2-width folded generator on 4,096 frames whose valid
+               length ends in shard 0, float32 and bf16, on 2 ranks; (d) a
+               2 x 2 data x tensor parallel float32 step on 4 ranks; (e) a
+               step through an NCCL group of one rank; per-rank step ms,
+               all-reduce ms and bytes;
  11. bench   - python -m efficientspeech_tpu_torch.bench --iter 5 --warmup
                2 --batch 16 in a process of its own, its lines printed.
 The kernel table goes on a JSON line before the last, 23 rows, each with
@@ -279,6 +292,23 @@ FROM_ACOUSTIC_STEPS = 4
 # with the next-row gather; the bar sits between them
 DEVICE_DATA_SCAN = 4
 DEVICE_DATA_STEP_RTOL = 1e-2
+# the parallel phase: ranks sharing the card over gloo against one process
+# on the same global work.  float32 at test_train_step_matches_jax's
+# tolerances (losses rtol 1e-5, each gradient leaf 1e-4 of its largest),
+# bf16 at the train phase's route tolerances; the GAN step's metrics at
+# the JAX package's multichip bar (rtol = atol = 2e-5); the sequence-
+# parallel vocoder in float32 at the JAX test's rtol = atol = 1e-5, in
+# bf16 at E2E_SNR_DB
+PARALLEL_TRAIN_CASES = ((torch.float32, False), (torch.float32, True),
+                        (torch.bfloat16, False), (torch.bfloat16, True))
+PARALLEL_LOSS_RTOL, PARALLEL_GRAD_ATOL = 1e-5, 1e-4
+PARALLEL_TIMED = 5
+# where the phase's ranks run, and the backend of its one-rank group (a
+# CPU rehearsal sets "cpu" and "gloo")
+PARALLEL_DEVICE, PARALLEL_NCCL = "cuda:0", "nccl"
+GAN_TOL = 2e-5
+SEQ_FRAMES, SEQ_VALID = 4096, 1500
+SEQ_RTOL = SEQ_ATOL = 1e-5
 # the kernel-table rows whose kernels were redesigned for Hopper after
 # their first port, by launch key: the design each row's time belongs to
 DESIGNS = {
@@ -2378,6 +2408,467 @@ def phase_device_data(card: str, data: str, out: str):
         tr.logger.jsonl.close()
 
 
+# --- the parallel phase: ranks that share the card over gloo -----------------
+
+def _counters():
+    from efficientspeech_tpu_torch.ops.kernels import decoder_block as k4
+    from efficientspeech_tpu_torch.ops.kernels import layer_norm as k3
+
+    return (k3.launches_fwd, k3.launches_bwd, k4.launches_fwd,
+            k4.launches_bwd)
+
+
+def _median_ms(fn, n: int, device) -> float:
+    """The median of ``n`` timed calls of ``fn`` after one untimed one,
+    each ended by a synchronize of ``device`` (host clock: a step's host
+    work counts)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    gaps = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        gaps.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(gaps))
+
+
+def _allreduce_ms(params, group, timed: int, device) -> tuple:
+    """(median ms of summing ``params``' gradients over ``group`` in one
+    flat all-reduce, its bytes); (None, bytes) without a group."""
+    from efficientspeech_tpu_torch.parallel.comm import sum_gradients
+
+    params = list(params)
+    nbytes = 4 * sum(p.numel() for p in params)
+    if group is None:
+        return None, nbytes
+    saved = [p.grad.clone() for p in params]
+    ms = _median_ms(lambda: sum_gradients(params, group), timed, device)
+    for p, g in zip(params, saved):
+        p.grad.copy_(g)
+    return ms, nbytes
+
+
+def _train_run(device, mesh, sizes: dict, out: str, dt, device_data: bool):
+    """One tiny acoustic Trainer at ``sizes["shape"]`` (batch, phonemes,
+    frames) on ``mesh`` (None: one process) over the corpus in
+    ``sizes["data"]``: its first step through ``fit`` (metrics, the summed
+    float32 gradients, K3/K4 launches counted from 0), then the median of
+    ``sizes["timed"]`` steps on one batch and of the gradient all-reduce
+    alone."""
+    from efficientspeech_tpu_torch.config import (
+        ModelConfig, PreprocessConfig, TrainConfig)
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
+    batch, phonemes, frames = sizes["shape"]
+    pre = PreprocessConfig(preprocessed_path=sizes["data"])
+    stats = pre.load_stats()
+    model_cfg = ModelConfig.preset(
+        "tiny", pitch_stats=tuple(stats["pitch"][:2]),
+        energy_stats=tuple(stats["energy"][:2]),
+        max_phoneme_len=phonemes, max_mel_len=frames)
+    tr = Trainer(model_cfg, TrainConfig(
+        batch_size=batch, warmup_epochs=0, seed=0,
+        device_data=device_data, checkpoint_dir=os.path.join(out, "ckpt"),
+        log_dir=os.path.join(out, "logs")), pre, dtype=dt, device=device,
+        mesh=mesh)
+    counters = _counters()
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
+    logged = []
+    tr.fit(max_steps=1, on_step=lambda step, m: logged.append(
+        {k: float(v) for k, v in m.items()}))
+    launches = tuple(d[128, dt] for d in counters)
+    other = sum(sum(d.values()) for d in counters) - sum(launches)
+    grads = {n: p.grad.float().cpu().numpy()
+             for n, p in tr.model.named_parameters()}
+    steps = tr._epoch_steps(0)
+    step_fn, args = next(steps)
+    steps.close()
+
+    def one():
+        tr.state, _ = step_fn(tr.state, *args)
+
+    step_ms = _median_ms(one, sizes["timed"], device)
+    ar_ms, ar_bytes = _allreduce_ms(
+        tr.model.parameters(), None if mesh is None else mesh.group("data"),
+        sizes["timed"], device)
+    return dict(metrics=logged[0], grads=grads, launches=launches,
+                other=other, step_ms=step_ms, allreduce_ms=ar_ms,
+                allreduce_bytes=ar_bytes)
+
+
+def _gan_run(device, mesh, mel: np.ndarray, wav: np.ndarray, timed: int):
+    """The LJ_V2 generator with the full MPD and MSD from seed 0, float32:
+    the first GAN step on this rank's rows of (mel, wav) (metrics), then
+    the median of ``timed`` more and of the gradient all-reduce."""
+    from efficientspeech_tpu_torch.config import AudioConfig, HifiGanConfig
+    from efficientspeech_tpu_torch.parallel.mesh import shard_batch
+    from efficientspeech_tpu_torch.training.vocoder import (
+        create_vocoder_trainer)
+
+    rows = shard_batch({"mel": mel, "wav": wav}, mesh)
+    mel_t = torch.from_numpy(rows["mel"]).to(device)
+    wav_t = torch.from_numpy(rows["wav"]).to(device)
+    _, init, step = create_vocoder_trainer(HifiGanConfig(), AudioConfig(),
+                                           device=device, mesh=mesh)
+    state = init(seed=0)
+    state, m = step(state, mel_t, wav_t)
+    metrics = {k: float(v) for k, v in m.items()}
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], mel_t, wav_t)
+
+    step_ms = _median_ms(one, timed, device)
+    params = [p for part in (state.gen, state.mpd, state.msd)
+              for p in part.parameters()]
+    ar_ms, ar_bytes = _allreduce_ms(
+        params, None if mesh is None else mesh.group("data"), timed, device)
+    return dict(metrics=metrics, step_ms=step_ms, allreduce_ms=ar_ms,
+                allreduce_bytes=ar_bytes)
+
+
+def _seq_run(device, mesh, mel: np.ndarray, valid: int, dt):
+    """``seq_parallel_vocode`` of the LJ_V2-width generator (seed 0) on
+    ``mesh``'s "sp" axis: this rank's block and its ms."""
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
+    from efficientspeech_tpu_torch.models.hifigan_folded import fold_hifigan
+    from efficientspeech_tpu_torch.parallel.seq_vocoder import (
+        seq_parallel_vocode)
+    from efficientspeech_tpu_torch.weights import init_params
+
+    cfg = HifiGanConfig()
+    arrays, meta = fold_hifigan(init_params(HifiGanGenerator(cfg), 0).to(
+        device), dtype=dt)
+    mel_t = torch.from_numpy(mel).to(device)
+    vl = torch.tensor([valid], device=device)
+
+    def run():
+        with torch.no_grad():
+            return seq_parallel_vocode(arrays, meta, cfg, mel_t, mesh,
+                                       valid_len=vl, dtype=dt)
+
+    wav = run()
+    return dict(wav=wav.cpu().numpy(), index=mesh.index("sp"),
+                ms=_median_ms(run, 3, device))
+
+
+def _tp_batch(sizes: dict):
+    """The first batch of the corpus's seeded loader at the training
+    shape (numpy)."""
+    from efficientspeech_tpu_torch.config import PreprocessConfig
+    from efficientspeech_tpu_torch.data.dataset import (
+        BucketedLoader, LJSpeechDataset)
+
+    batch, phonemes, frames = sizes["shape"]
+    loader = BucketedLoader(
+        LJSpeechDataset("train.txt", PreprocessConfig(
+            preprocessed_path=sizes["data"])),
+        batch, shuffle=True, seed=0, max_phoneme_len=phonemes,
+        max_mel_len=frames, drop_last=True, fixed_shape=True, prefetch=0)
+    batch = next(iter(loader))
+    batch.pop("text")
+    return batch
+
+
+def _tp_run(device, mesh, sizes: dict, tensor_parallel: bool):
+    """One float32 tiny step (seed 0, the decoder on K3/K4) on the first
+    loader batch: tensor-parallel over ``mesh``'s "model" axis and data
+    parallel over its "data" axis when asked, else one process.  Returns
+    the metrics, the unsharded gradients, the launches and the ms."""
+    from efficientspeech_tpu_torch.config import ModelConfig, TrainConfig
+    from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
+    from efficientspeech_tpu_torch.parallel.mesh import shard_batch
+    from efficientspeech_tpu_torch.parallel.sharding import (
+        gather_params, shard_tensor_parallel)
+    from efficientspeech_tpu_torch.training.schedule import (
+        warmup_cosine_schedule)
+    from efficientspeech_tpu_torch.training.state import create_train_state
+    from efficientspeech_tpu_torch.training.step import make_train_step
+    from efficientspeech_tpu_torch.weights import init_params
+
+    _, phonemes, frames = sizes["shape"]
+    model = init_params(Phoneme2Mel(
+        ModelConfig.preset("tiny", max_phoneme_len=phonemes,
+                           max_mel_len=frames),
+        fused_decoder_norm=True, fused_decoder_block=True), 0).to(device)
+    if tensor_parallel:
+        shard_tensor_parallel(model, mesh)
+    state = create_train_state(model, TrainConfig(warmup_epochs=0),
+                               warmup_cosine_schedule(1e-3, 0, 10, 4))
+    step = make_train_step(torch.float32, mesh if tensor_parallel else None)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in shard_batch(
+        _tp_batch(sizes), mesh if tensor_parallel else None).items()}
+    counters = _counters()
+    for d in counters:
+        d.update(dict.fromkeys(d, 0))
+    state, m = step(state, batch)
+    launches = tuple(d[128, torch.float32] for d in counters)
+    grads = gather_params(model, {n: p.grad for n, p in
+                                  model.named_parameters()})
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], batch)
+
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                grads={k: v.cpu().numpy() for k, v in grads.items()},
+                launches=launches,
+                step_ms=_median_ms(one, sizes["timed"], device))
+
+
+def _nccl_run(device, sizes: dict, backend: str):
+    """One float32 tiny step whose data group is the process group of
+    this one rank (``backend``: NCCL, so every collective of the step goes
+    through NCCL), against the same step with no group."""
+    import torch.distributed as dist
+
+    from efficientspeech_tpu_torch.parallel.mesh import Mesh
+
+    if dist.get_backend() != backend:
+        raise RuntimeError(f"the group runs {dist.get_backend()}, not "
+                           f"{backend}")
+    alone = _tp_run(device, None, sizes, False)
+    mesh = Mesh({"data": 1, "model": 1},
+                groups={"data": dist.group.WORLD})
+    through = _tp_run(device, mesh, sizes, True)
+    return dict(alone=alone, through=through)
+
+
+def parallel_rank(device, case):
+    """The body of each rank of the parallel phase (spawned by
+    ``parallel.launch``): the cases named in ``case``, TF32 off as in the
+    parent (a per-process setting)."""
+    from efficientspeech_tpu_torch.device import set_full_f32
+    from efficientspeech_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    set_full_f32()
+    sizes = case["sizes"]
+    if "nccl" in case:
+        return {"nccl": _nccl_run(device, sizes, case["nccl"])}
+    if "tp" in case:
+        mesh = make_mesh(data_parallel=2, model_parallel=2)
+        return {"tp": _tp_run(device, mesh, sizes, True)}
+    mesh = make_mesh()
+    rank = mesh.rank
+    out = {}
+    for dt, device_data in PARALLEL_TRAIN_CASES:
+        key = (dname(dt), device_data)
+        out[key] = _train_run(device, mesh, sizes, os.path.join(
+            case["root"], f"rank{rank}_{dname(dt)}_{int(device_data)}"),
+            dt, device_data)
+    out["gan"] = _gan_run(device, mesh, *case["gan"], sizes["timed"])
+    seq_mesh = Mesh.create({"sp": mesh.size})
+    for dt in (torch.float32, torch.bfloat16):
+        out["seq", dname(dt)] = _seq_run(device, seq_mesh, *case["seq"], dt)
+    return out
+
+
+def _grad_gap(got: dict, want: dict) -> tuple:
+    """(largest gradient gap over leaves, as a share of each leaf's
+    largest, its leaf; least gradient cosine, its leaf)."""
+    gap, cos = {}, {}
+    for name, w in want.items():
+        g = got[name].astype(np.float64).ravel()
+        w = w.astype(np.float64).ravel()
+        scale = np.abs(w).max()
+        if scale == 0:
+            continue
+        gap[name] = float(np.abs(g - w).max() / scale)
+        cos[name] = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+    worst_gap = max(gap, key=gap.get)
+    worst_cos = min(cos, key=cos.get)
+    return gap[worst_gap], worst_gap, cos[worst_cos], worst_cos
+
+
+def phase_parallel(card: str, root: str):
+    """Data, sequence and tensor parallelism on the card: ranks that share
+    cuda:0 over gloo (NCCL refuses two ranks on one device), each part
+    held against one process on the same global work, and one step
+    through an NCCL group of one rank.  (a) the tiny acoustic Trainer at
+    train.py's defaults, float32 (TF32 off) and bf16, by the loader and
+    on the device-resident corpus, 2 ranks: losses and summed gradients,
+    K3/K4 launches per rank; (b) the GAN step of the LJ_V2 generator with
+    the full MPD and MSD at batch VOCODER_BATCH x VOCODER_SEGMENT, 2
+    ranks; (c) seq_parallel_vocode of the LJ_V2-width folded generator on
+    SEQ_FRAMES frames whose valid length ends in shard 0, float32 and
+    bf16, 2 ranks; (d) a 2 x 2 data x tensor parallel float32 step, 4
+    ranks; (e) NCCL at world size 1.  Per-rank step ms, all-reduce ms and
+    bytes, launches."""
+    from efficientspeech_tpu_torch.config import AudioConfig, HifiGanConfig
+    from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
+    from efficientspeech_tpu_torch.models.hifigan_folded import (
+        fold_hifigan, folded_plan_apply)
+    from efficientspeech_tpu_torch.parallel import launch
+    from efficientspeech_tpu_torch.training.vocoder import make_mel_fn
+    from efficientspeech_tpu_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    data = os.path.join(root, "parallel_data")
+    write_corpus(data, n_train=2 * TRAIN_BATCH)
+    sizes = dict(data=data, shape=(TRAIN_BATCH, TRAIN_PHONEMES, TRAIN_FRAMES),
+                 timed=PARALLEL_TIMED)
+    dev = torch.device(PARALLEL_DEVICE)
+    # the one-process references, each on the whole global work
+    ref = {}
+    for dt, device_data in PARALLEL_TRAIN_CASES:
+        ref[dname(dt), device_data] = _train_run(
+            dev, None, sizes, os.path.join(
+                root, "parallel_one", f"{dname(dt)}_{int(device_data)}"),
+            dt, device_data)
+    audio = AudioConfig()
+    wav = np.stack([speechlike(VOCODER_SEGMENT, seed=20 + i)
+                    for i in range(VOCODER_BATCH)])
+    with torch.no_grad():
+        mel = make_mel_fn(audio, dev)(torch.from_numpy(wav).to(dev))[
+            :, :VOCODER_SEGMENT // audio.hop_length].cpu().numpy()
+    ref["gan"] = _gan_run(dev, None, mel, wav, PARALLEL_TIMED)
+    seq_mel = np.random.default_rng(5).normal(
+        -4, 2, (1, SEQ_FRAMES, 80)).astype(np.float32)
+    seq_mel[0, SEQ_VALID:] = 0
+    cfg = HifiGanConfig()
+    gen = init_params(HifiGanGenerator(cfg), 0).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        arrays, meta = fold_hifigan(gen, dtype=dt)
+        with torch.no_grad():
+            ref["seq", dname(dt)] = folded_plan_apply(
+                arrays, meta, cfg, torch.from_numpy(seq_mel).to(dev),
+                torch.tensor([SEQ_VALID], device=dev), dtype=dt).cpu()
+    ref["tp"] = _tp_run(dev, None, sizes, False)
+    del gen, arrays
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = launch(parallel_rank, 2, [dev, dev], backend="gloo",
+                 args=(dict(sizes=sizes, root=os.path.join(root, "parallel"),
+                            gan=(mel, wav), seq=(seq_mel, SEQ_VALID)),))
+    spawn_s = time.perf_counter() - t0
+
+    # (a) data-parallel acoustic training
+    for dt, device_data in PARALLEL_TRAIN_CASES:
+        key = (dname(dt), device_data)
+        want = ref[key]
+        feed = "device-resident corpus" if device_data else "loader"
+        loss_rtol, grad_atol, grad_cos = (
+            (PARALLEL_LOSS_RTOL, PARALLEL_GRAD_ATOL, F32_ROUTE_GRAD_COS)
+            if dt == torch.float32 else (ROUTE_LOSS_RTOL, None,
+                                         ROUTE_GRAD_COS))
+        for rank, r in enumerate(g[key] for g in got):
+            rel = max(abs(r["metrics"][k] - v) / abs(v)
+                      for k, v in want["metrics"].items())
+            gap, gap_at, cos, cos_at = _grad_gap(r["grads"], want["grads"])
+            print(f"[parallel] (a) tiny {dname(dt)} by the {feed}, rank "
+                  f"{rank} of 2 on {dev} (gloo): loss "
+                  f"{r['metrics']['loss']:.6f} vs one process "
+                  f"{want['metrics']['loss']:.6f}, largest loss rel diff "
+                  f"{rel:.2e} (tol <= {loss_rtol}); gradient gap "
+                  f"{gap:.2e} of the leaf's largest at {gap_at}"
+                  + (f" (tol <= {grad_atol})" if grad_atol else "")
+                  + f", least cosine {cos:.7f} at {cos_at} (tol >= "
+                  f"{grad_cos}); K3 fwd, bwd, K4 fwd, bwd launches "
+                  f"{r['launches']} (one process {want['launches']}); step "
+                  f"{r['step_ms']:.2f} ms (one process "
+                  f"{want['step_ms']:.2f}), gradient all-reduce "
+                  f"{r['allreduce_ms']:.2f} ms for {r['allreduce_bytes']:,} "
+                  f"bytes | {card}")
+            if rel > loss_rtol or cos < grad_cos or (
+                    grad_atol is not None and gap > grad_atol):
+                fail(f"parallel: rank {rank}'s {dname(dt)} step by the "
+                     f"{feed} does not hold the one-process step")
+            if r["launches"] != (3, 3, 4, 4) or r["other"]:
+                fail(f"parallel: rank {rank} launched K3/K4 "
+                     f"{r['launches']} (+{r['other']} of another variant) "
+                     "in its step; expected (3, 3, 4, 4)")
+    # (b) the GAN step
+    want = ref["gan"]
+    for rank, r in enumerate(g["gan"] for g in got):
+        # allclose's measure: |diff| / (atol + rtol |want|), at most 1
+        rel = {k: abs(r["metrics"][k] - v) / (GAN_TOL + GAN_TOL * abs(v))
+               for k, v in want["metrics"].items()}
+        worst = max(rel, key=rel.get)
+        print(f"[parallel] (b) GAN step, LJ_V2 + MPD + MSD, float32, batch "
+              f"{VOCODER_BATCH} x {VOCODER_SEGMENT} ({VOCODER_BATCH // 2} "
+              f"on rank {rank} of 2): "
+              + ", ".join(f"{k} {r['metrics'][k]:.6f}"
+                          for k in sorted(r["metrics"]))
+              + f"; against one process, |diff| / (atol + rtol |want|) at "
+              f"rtol = atol = {GAN_TOL}: {rel[worst]:.3f} at {worst} (tol "
+              f"<= 1); step "
+              f"{r['step_ms']:.2f} ms (one process {want['step_ms']:.2f}), "
+              f"gradient all-reduce {r['allreduce_ms']:.2f} ms for "
+              f"{r['allreduce_bytes']:,} bytes | {card}")
+        if rel[worst] > 1.0:
+            fail(f"parallel: rank {rank}'s GAN step does not hold the "
+                 "one-process step")
+    # (c) the sequence-parallel vocoder
+    for dt in (torch.float32, torch.bfloat16):
+        want = ref["seq", dname(dt)].numpy()
+        blocks = sorted((g["seq", dname(dt)]["index"],
+                         g["seq", dname(dt)]["wav"]) for g in got)
+        wav_sp = np.concatenate([b for _, b in blocks], axis=1)
+        err = np.abs(wav_sp - want)
+        over = float((err / (SEQ_ATOL + SEQ_RTOL * np.abs(want))).max())
+        snr = float(snr_db(torch.from_numpy(want), torch.from_numpy(wav_sp)))
+        tail = float(np.abs(wav_sp[:, SEQ_VALID * 256:]).max())
+        ms = [g["seq", dname(dt)]["ms"] for g in got]
+        print(f"[parallel] (c) seq_parallel_vocode {dname(dt)}, LJ_V2 width, "
+              f"{SEQ_FRAMES} frames over 2 ranks, valid {SEQ_VALID} (in "
+              f"shard 0): max abs diff from the one-process folded route "
+              f"{err.max():.2e}, SNR {snr:.1f} dB, samples past valid max "
+              f"{tail:.1e}; ms per rank {[round(v, 2) for v in ms]} | "
+              f"{card}")
+        bad = (over > 1.0 if dt == torch.float32 else snr < E2E_SNR_DB)
+        if bad or tail != 0.0 or not np.isfinite(wav_sp).all():
+            fail(f"parallel: seq_parallel_vocode {dname(dt)} does not hold "
+                 "the one-process route (f32 at rtol 1e-5, bf16 at "
+                 f"{E2E_SNR_DB} dB, zeros past valid)")
+
+    # (d) data x tensor parallelism, 4 ranks
+    t1 = time.perf_counter()
+    tp = launch(parallel_rank, 4, [dev] * 4, backend="gloo",
+                args=(dict(tp=True, sizes=sizes),))
+    want = ref["tp"]
+    for rank, r in enumerate(g["tp"] for g in tp):
+        rel = max(abs(r["metrics"][k] - v) / abs(v)
+                  for k, v in want["metrics"].items())
+        gap, gap_at, cos, cos_at = _grad_gap(r["grads"], want["grads"])
+        print(f"[parallel] (d) 2 x 2 data x tensor parallel tiny float32, "
+              f"rank {rank} of 4: loss rel diff {rel:.2e} (tol <= "
+              f"{PARALLEL_LOSS_RTOL}), gradient gap {gap:.2e} at {gap_at} "
+              f"(tol <= {PARALLEL_GRAD_ATOL}); K3/K4 {r['launches']}; step "
+              f"{r['step_ms']:.2f} ms (replicated, one process "
+              f"{want['step_ms']:.2f}) | {card}")
+        if rel > PARALLEL_LOSS_RTOL or gap > PARALLEL_GRAD_ATOL or \
+                r["launches"] != (3, 3, 4, 4):
+            fail(f"parallel: rank {rank}'s tensor-parallel step does not "
+                 "hold the replicated step")
+    # (e) NCCL at world size 1
+    nccl = launch(parallel_rank, 1, [dev], backend=PARALLEL_NCCL,
+                  args=(dict(nccl=PARALLEL_NCCL, sizes=sizes),))[0]["nccl"]
+    a, b = nccl["alone"], nccl["through"]
+    rel = max(abs(b["metrics"][k] - v) / abs(v)
+              for k, v in a["metrics"].items())
+    gap = _grad_gap(b["grads"], a["grads"])[0]
+    print(f"[parallel] (e) NCCL group of one rank: a float32 step whose "
+          f"collectives go through it {b['step_ms']:.2f} ms, without a "
+          f"group {a['step_ms']:.2f} ms; loss rel diff {rel:.1e} (tol <= "
+          f"{PARALLEL_LOSS_RTOL}), gradient gap {gap:.1e} (tol <= "
+          f"{PARALLEL_GRAD_ATOL}); K3/K4 {b['launches']} | {card}")
+    if rel > PARALLEL_LOSS_RTOL or gap > PARALLEL_GRAD_ATOL:
+        fail("parallel: a step through a one-rank NCCL group does not "
+             "hold the step without one")
+    print(f"[parallel] spawned launches {spawn_s:.1f} s (2 ranks), "
+          f"{time.perf_counter() - t1:.1f} s (4 ranks, then 1 over NCCL); "
+          f"phase {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on one CUDA card.")
@@ -2462,6 +2953,8 @@ def main():
                     os.path.join(root, f"{preset}_{dname(dt)}"),
                     args.profile, dt))
         phase_device_data(card, data, os.path.join(root, "device_data"))
+        torch.cuda.empty_cache()
+        phase_parallel(card, root)
 
     phase_bench(card)
 

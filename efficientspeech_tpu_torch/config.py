@@ -247,8 +247,10 @@ class TrainConfig:
     device_data: bool = False
     device_cache_bf16_mel: bool = False
     device_data_scan_steps: int = 1
-    # the JAX config's mesh and flat-optimizer fields are left out: the
-    # port has neither
+    # data-parallel ranks of the Trainer's mesh (parallel/mesh.py); 1 = one
+    # device.  The JAX config's flat-optimizer field is left out: the port
+    # has no flat optimizer
+    num_data_axis: int = 1
     checkpoint_dir: str = "checkpoints"
     log_dir: str = "logs"
     wav_path: str = "wavs"

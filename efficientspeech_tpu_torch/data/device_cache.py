@@ -9,17 +9,22 @@ LJSpeech-size corpus (13,100 utterances, mel (S, 1,152, 80)) is about
 4.8 GB in float32; ``mel_dtype=torch.bfloat16`` halves the mel's share,
 and the gather casts it back to float32 before the loss.
 
-There is one card: the cache is not sharded or replicated over devices.
+On a data-parallel mesh every rank uploads the whole corpus to its own
+device (the cache is replicated, as the JAX package replicates it over
+its mesh), and each step takes the global index vector and gathers only
+this rank's slice of it: no collective touches the corpus.
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from efficientspeech_tpu_torch.device import resolve_device
+from efficientspeech_tpu_torch.parallel.comm import reduce_metrics
+from efficientspeech_tpu_torch.parallel.mesh import Mesh, shard_rows
 from efficientspeech_tpu_torch.training.step import (
-    forward_losses, make_train_step)
+    data_group, forward_losses, make_train_step)
 
 
 def build_host_cache(dataset, max_phoneme_len: int, max_mel_len: int
@@ -131,26 +136,41 @@ class DeviceDataCache:
         return order[: n_full * batch_size].reshape(n_full, batch_size)
 
 
-def make_cached_eval_step(dtype: torch.dtype = torch.bfloat16):
-    """eval_step(model, cache, idx) → the teacher-forced losses over the
-    device-resident rows ``idx``, no grad."""
+def make_cached_eval_step(dtype: torch.dtype = torch.bfloat16,
+                          mesh: Optional[Mesh] = None):
+    """eval_step(model, cache, idx, row_valid) → the teacher-forced losses
+    over the device-resident rows ``idx``, no grad.  ``row_valid`` (B,)
+    bool marks the real rows: a last batch padded to the full batch with
+    ``row_valid`` False rows has them masked out of every loss, so its
+    losses are those of its real rows (the JAX package's rule; the model
+    still sees the padding rows' data, finite everywhere).  On a mesh
+    ``idx`` and ``row_valid`` are the global vectors; each rank gathers
+    its slice, and the losses are the global ones."""
+    group = data_group(mesh)
 
     @torch.no_grad()
-    def eval_step(model, cache, idx) -> Dict[str, torch.Tensor]:
-        return forward_losses(model, gather_batch(cache, idx), dtype)
+    def eval_step(model, cache, idx, row_valid) -> Dict[str, torch.Tensor]:
+        rows = shard_rows(len(idx), mesh)
+        batch = gather_batch(cache, idx[rows])
+        pad = ~row_valid[rows][:, None]
+        loss_batch = dict(batch, phoneme_mask=batch["phoneme_mask"] | pad,
+                          mel_mask=batch["mel_mask"] | pad)
+        return reduce_metrics(forward_losses(
+            model, batch, dtype, group, loss_batch=loss_batch), group)
 
     return eval_step
 
 
-def make_cached_train_step(dtype: torch.dtype = torch.bfloat16
-                           ) -> Callable:
+def make_cached_train_step(dtype: torch.dtype = torch.bfloat16,
+                           mesh: Optional[Mesh] = None) -> Callable:
     """train_step(state, cache, idx) → (state, metrics): the gather on the
     card, then the port's train step (forward, masked losses, backward,
-    AdamW)."""
-    step = make_train_step(dtype)
+    AdamW).  On a mesh ``idx`` is the global index vector and each rank
+    gathers its slice."""
+    step = make_train_step(dtype, mesh)
 
     def cached_step(state, cache, idx):
-        return step(state, gather_batch(cache, idx))
+        return step(state, gather_batch(cache, idx[shard_rows(len(idx),
+                                                             mesh)]))
 
     return cached_step
-

@@ -1,5 +1,5 @@
 """Acoustic-model training CLI of the PyTorch port (the flags of the JAX
-package's ``train.py``, without its mesh one):
+package's ``train.py``):
 
     python -m efficientspeech_tpu_torch.train --preset tiny \\
         --preprocess-config configs/ljspeech.yaml --batch-size 128 \\
@@ -20,6 +20,13 @@ convolutions and cuBLAS's products are kept out of TF32.
 batch there (``data/device_cache.py``).  ``--device-data-scan-steps`` is
 accepted for the JAX package's flags and runs single steps (see
 ``TrainConfig``).
+
+``--data-parallel N`` trains on N cards (default: all of them): the CLI
+spawns one rank a card over NCCL, each takes its rows of every global
+batch of ``--batch-size``, and rank 0 writes the logs and the
+checkpoints, which resume or serve on one card.  N = 1 runs in this
+process with no process group.  With ``--device cpu`` the ranks are CPU
+processes over gloo.  N above the number of cards raises.
 """
 
 import argparse
@@ -45,6 +52,9 @@ def get_args(argv=None):
     parser.add_argument("--max-epochs", type=int, default=5000)
     parser.add_argument("--warmup-epochs", type=int, default=50)
     parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--data-parallel", type=int, default=None,
+                        help="data-parallel ranks, one a card (default: "
+                             "all cards; 1 with --device cpu)")
     parser.add_argument("--precision", default="bf16",
                         choices=["bf16", "f32"],
                         help="bf16 compute on float32 masters, or float32 "
@@ -101,10 +111,28 @@ def load_vocoder(hifigan_checkpoint):
 
 def main(argv=None):
     args = get_args(argv)
-    from efficientspeech_tpu_torch.device import resolve_device, set_full_f32
-    from efficientspeech_tpu_torch.training.loop import Trainer
+    from efficientspeech_tpu_torch.device import resolve_device
+    from efficientspeech_tpu_torch.parallel.mesh import launch, make_mesh
 
     device = resolve_device(args.device)
+    n = args.data_parallel
+    if device.type == "cuda":
+        n = make_mesh(data_parallel=n).axis_size("data")
+    elif n is None:
+        n = 1
+    if n == 1:
+        return run(device, args)
+    devices = ([torch.device("cuda", i) for i in range(n)]
+               if device.type == "cuda" else [device] * n)
+    return launch(run, n, devices, args=(args, n))[0]
+
+
+def run(device, args, data_parallel: int = 1):
+    """Train on ``device`` as one rank of ``data_parallel`` (the body of
+    each spawned rank); returns the final step."""
+    from efficientspeech_tpu_torch.device import set_full_f32
+    from efficientspeech_tpu_torch.training.loop import Trainer
+
     if args.precision == "f32":
         set_full_f32()
     preprocess_cfg = PreprocessConfig.from_yaml(args.preprocess_config)
@@ -122,19 +150,21 @@ def main(argv=None):
         log_dir=args.log_dir, wav_path=args.wav_path,
         device_data=args.device_data,
         device_cache_bf16_mel=args.device_data_bf16_mel,
-        device_data_scan_steps=args.device_data_scan_steps)
+        device_data_scan_steps=args.device_data_scan_steps,
+        num_data_axis=data_parallel)
     hifigan_cfg, hifigan_params = load_vocoder(args.hifigan_checkpoint)
     trainer = Trainer(model_cfg, train_cfg, preprocess_cfg,
                       hifigan_cfg=hifigan_cfg, hifigan_params=hifigan_params,
                       dtype=torch.bfloat16 if args.precision == "bf16"
                       else torch.float32, device=device)
-    print(f"training on {device}: {trainer.steps_per_epoch} steps per epoch")
+    trainer.print_rank0(f"training on {device} x {data_parallel}: "
+                        f"{trainer.steps_per_epoch} steps per epoch")
     start = time.time()
     final_step = trainer.fit(max_epochs=args.max_epochs,
                              max_steps=args.max_steps)
     elapsed = time.time() - start
-    print(f"Training done at step {final_step}: {elapsed:.2f}s "
-          f"({elapsed / 3600:.2f}h)")
+    trainer.print_rank0(f"Training done at step {final_step}: "
+                        f"{elapsed:.2f}s ({elapsed / 3600:.2f}h)")
     return final_step
 
 

@@ -19,8 +19,14 @@ those pairs is held out and scored before and after training
 
 Everything runs in float32 with TF32 off, as the JAX package trains its
 vocoder.  It runs on the CUDA card, and raises without one unless given
-``--device cpu``.  Data parallelism is not ported yet:
-``--data-parallel`` above 1 is refused.
+``--device cpu``.
+
+``--data-parallel N`` (which must divide ``--batch-size``) spawns one
+rank a card over NCCL (CPU processes over gloo with ``--device cpu``;
+N above the number of cards raises): every rank draws the same global
+crops from the seeded sampler and trains on its rows, the gradients are
+averaged over the ranks, and rank 0 alone writes the checkpoints, the
+logs and the holdout eval.
 """
 
 import argparse
@@ -220,7 +226,8 @@ def get_args(argv=None):
                              "512/1024/2048 FFTs); 0 is the pure HiFi-GAN "
                              "objective")
     parser.add_argument("--data-parallel", type=int, default=1,
-                        help="data-parallel replicas: only 1 for now")
+                        help="data-parallel ranks, one a card (must divide "
+                             "batch-size)")
     parser.add_argument("--init-generator", default=None,
                         help="warm-start generator weights: a reference "
                              "HiFi-GAN generator file (e.g. LJ_V2's "
@@ -256,34 +263,56 @@ def get_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card")
     args = parser.parse_args(argv)
-    if args.data_parallel != 1:
-        parser.error("--data-parallel above 1 is not ported yet: data "
-                     "parallelism (torch DDP) comes with the port's "
-                     "parallelism slice")
+    if args.batch_size % args.data_parallel:
+        parser.error(f"--batch-size ({args.batch_size}) must be divisible "
+                     f"by --data-parallel ({args.data_parallel})")
     return args
 
 
 def main(argv=None):
     """Train; returns ``{"step", "checkpoint", "before", "after",
     "eval_secs"}`` (the holdout summaries and the wall seconds of each
-    holdout pass, None without a holdout)."""
+    holdout pass, None without a holdout; rank 0's with
+    ``--data-parallel``)."""
     args = get_args(argv)
+    from efficientspeech_tpu_torch.device import resolve_device
+    from efficientspeech_tpu_torch.parallel.mesh import launch, make_mesh
 
+    device = resolve_device(args.device)
+    n = args.data_parallel
+    if n == 1:
+        return run(device, args)
+    if device.type == "cuda":
+        make_mesh(data_parallel=n)  # raises when n exceeds the cards
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [device] * n
+    return launch(run, n, devices, args=(args,))[0]
+
+
+def run(device, args):
+    """Train on ``device``, as one rank of ``--data-parallel`` when there
+    are more (the body of each spawned rank)."""
     import yaml
 
     from efficientspeech_tpu_torch.config import AudioConfig, HifiGanConfig
     from efficientspeech_tpu_torch.data.preprocessor import load_wav
-    from efficientspeech_tpu_torch.device import resolve_device, set_full_f32
+    from efficientspeech_tpu_torch.device import set_full_f32
     from efficientspeech_tpu_torch.eval.vocoder_eval import (
         evaluate_pairs, make_holdout_eval)
+    from efficientspeech_tpu_torch.parallel.mesh import (
+        barrier, make_mesh, shard_batch)
     from efficientspeech_tpu_torch.training.checkpoint import (
         latest_checkpoint)
     from efficientspeech_tpu_torch.training.vocoder import (
         create_vocoder_trainer, make_mel_fn, restore_vocoder_checkpoint,
         save_vocoder_checkpoint)
 
-    device = resolve_device(args.device)
     set_full_f32()
+    mesh = (make_mesh(data_parallel=args.data_parallel)
+            if args.data_parallel > 1 else None)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     with open(args.preprocess_config) as f:
         config = yaml.safe_load(f)
     audio = AudioConfig(
@@ -295,12 +324,12 @@ def main(argv=None):
     if not wav_paths and not args.from_acoustic:
         raise SystemExit(f"no .wav files under "
                          f"{config['path']['raw_path']}")
-    print(f"{len(wav_paths)} wav files; batch {args.batch_size} x "
-          f"{args.segment} samples on {device}")
+    say(f"{len(wav_paths)} wav files; batch {args.batch_size} x "
+        f"{args.segment} samples on {device} x {args.data_parallel}")
 
     gen, init, train_step = create_vocoder_trainer(
         cfg, audio, lr=args.lr, mr_stft_weight=args.mr_stft_weight,
-        device=device)
+        device=device, mesh=mesh)
     mel_of = make_mel_fn(audio, device)
 
     gen_state = gen_tree = None
@@ -311,7 +340,7 @@ def main(argv=None):
     if gen_state is not None:
         state.gen.load_state_dict(gen_state, strict=True)
     if args.init_generator:
-        print(f"generator warm-started from {args.init_generator}")
+        say(f"generator warm-started from {args.init_generator}")
 
     start_step = 0
     if args.resume:
@@ -319,10 +348,12 @@ def main(argv=None):
         if path:
             state = restore_vocoder_checkpoint(path, state)
             start_step = state.step
-            print(f"resumed from {path} (step {start_step})")
+            say(f"resumed from {path} (step {start_step})")
 
-    os.makedirs(args.log_dir, exist_ok=True)
-    log_f = open(os.path.join(args.log_dir, "metrics.jsonl"), "a")
+    log_f = None
+    if rank0:
+        os.makedirs(args.log_dir, exist_ok=True)
+        log_f = open(os.path.join(args.log_dir, "metrics.jsonl"), "a")
 
     # host-side sampler: random file, random crop (the HiFi-GAN recipe);
     # the mel targets are computed on the device from the same crop
@@ -345,10 +376,13 @@ def main(argv=None):
             k = min(k, len(acoustic_pairs) - 1)
             holdout_pairs = acoustic_pairs[-k:]
             acoustic_pairs = acoustic_pairs[:-k]
-        print(f"fine-tuning on {len(acoustic_pairs)} teacher-forced "
-              f"acoustic-mel/audio pairs from {args.from_acoustic}"
-              + (f" ({len(holdout_pairs)} held out)" if holdout_pairs
-                 else ""))
+        say(f"fine-tuning on {len(acoustic_pairs)} teacher-forced "
+            f"acoustic-mel/audio pairs from {args.from_acoustic}"
+            + (f" ({len(holdout_pairs)} held out)" if holdout_pairs
+               else ""))
+    # the holdout eval runs on rank 0 alone
+    if not rank0:
+        holdout_pairs = None
 
     eval_fn = (make_holdout_eval(state.gen, audio) if holdout_pairs
                else None)
@@ -402,15 +436,20 @@ def main(argv=None):
         before = eval_holdout("before") if holdout_pairs else None
         t0 = time.time()
         for step in range(start_step + 1, args.steps + 1):
+            # every rank draws the global batch and keeps its rows
             if acoustic_pairs is not None:
                 mel_np, wav_np = sample_batch()
-                mel = torch.from_numpy(mel_np).to(device)
-                wav = torch.from_numpy(wav_np).to(device)
+                rows = shard_batch({"mel": mel_np, "wav": wav_np}, mesh)
+                mel = torch.from_numpy(rows["mel"]).to(device)
+                wav = torch.from_numpy(rows["wav"]).to(device)
             else:
-                wav = torch.from_numpy(sample_batch()).to(device)
+                wav = torch.from_numpy(shard_batch(
+                    {"wav": sample_batch()}, mesh)["wav"]).to(device)
                 with torch.no_grad():
                     mel = mel_of(wav)[:, : args.segment // hop, :]
             state, metrics = train_step(state, mel, wav)
+            if not rank0:
+                continue
             if step % args.log_every == 0 or step == args.steps:
                 keys = sorted(metrics)
                 values = torch.stack([metrics[k] for k in keys]).cpu()
@@ -421,7 +460,10 @@ def main(argv=None):
                 log_f.flush()
             if step % args.checkpoint_every == 0:
                 save_vocoder_checkpoint(args.checkpoint_dir, state)
-        path = save_vocoder_checkpoint(args.checkpoint_dir, state)
+        path = (save_vocoder_checkpoint(args.checkpoint_dir, state)
+                if rank0 else None)
+        # the checkpoint is on disk before any rank returns
+        barrier(mesh)
         after = None
         if holdout_pairs:
             after = eval_holdout("after")
@@ -429,8 +471,9 @@ def main(argv=None):
                   + ", ".join(f"{k} {after[k] - before[k]:+.5f}"
                               for k in ("mel_l1", "mr_stft")))
     finally:
-        log_f.close()
-    print(f"done at step {state.step}; checkpoint {path}")
+        if log_f is not None:
+            log_f.close()
+    say(f"done at step {state.step}; checkpoint {path}")
     return {"step": state.step, "checkpoint": path, "before": before,
             "after": after, "eval_secs": eval_secs or None}
 

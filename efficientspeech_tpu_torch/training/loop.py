@@ -6,7 +6,13 @@ losses and the validation audio with its objective quality metrics
 ``TrainConfig.device_data`` the train and validation sets live on the
 card (``data/device_cache.py``) and each step uploads only its indices.
 
-Not ported yet: meshes.
+With a ``mesh`` (``parallel/mesh.py``) each rank runs the same seeded
+loader or cache permutation and takes its rows of every global batch;
+its step sums the gradients over the data group, so every rank takes
+the update of the global batch.  Rank 0 alone writes metrics.jsonl,
+checkpoints (the unsharded ``step_*.pt``, which a one-device run
+resumes or serves) and the validation audio; every rank restores on
+resume.  A stop signal on any rank stops them all after the same step.
 """
 
 import dataclasses
@@ -35,6 +41,8 @@ from efficientspeech_tpu_torch.models.modules import (
     cast_params_, compute_params)
 from efficientspeech_tpu_torch.models.phoneme2mel import Phoneme2Mel
 from efficientspeech_tpu_torch.ops.kernels import decoder_block
+from efficientspeech_tpu_torch.parallel.mesh import (
+    Mesh, any_rank, barrier, make_mesh, shard_batch)
 from efficientspeech_tpu_torch.training.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint)
 from efficientspeech_tpu_torch.training.schedule import (
@@ -44,6 +52,17 @@ from efficientspeech_tpu_torch.training.step import (
     make_eval_step, make_train_step)
 from efficientspeech_tpu_torch.utils.tools import write_batch_wavs
 from efficientspeech_tpu_torch.weights import init_params, load_jax_params
+
+
+def pad_rows(v: np.ndarray, rows: int) -> np.ndarray:
+    """``v`` padded along its first axis to ``rows`` rows: zeros, or True
+    for a boolean mask (True = pad)."""
+    if len(v) >= rows:
+        return v
+    padding = np.zeros((rows - len(v),) + v.shape[1:], v.dtype)
+    if v.dtype == bool:
+        padding[:] = True
+    return np.concatenate([v, padding], axis=0)
 
 
 class MetricLogger:
@@ -67,7 +86,12 @@ class Trainer:
     the mel decoder's LayerNorms run through kernel K3 and its block bodies
     through K4 (widths 128 and 256, so every preset, in bf16 or float32),
     and a decoder width or dtype K4 does not cover raises here; on the CPU
-    the decoder takes its plain route (same parameters).
+    the decoder takes its plain route (same parameters).  A rank of a
+    mesh runs the same single-device step with its kernels on.
+
+    ``mesh``: the data-parallel mesh this rank belongs to (default one of
+    ``train_cfg.num_data_axis`` ranks, which must then run under
+    ``parallel.launch``); ``train_cfg.batch_size`` is the global batch.
 
     ``hifigan_params`` (a JAX-layout tree, e.g. from
     ``convert.from_torch.load_hifigan_checkpoint``) of a vocoder shaped by
@@ -78,8 +102,17 @@ class Trainer:
                  preprocess_cfg: PreprocessConfig,
                  hifigan_cfg: Optional[HifiGanConfig] = None,
                  hifigan_params=None,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        if mesh is None and train_cfg.num_data_axis > 1:
+            mesh = make_mesh(data_parallel=train_cfg.num_data_axis)
+        self.mesh = mesh
+        self.is_rank0 = mesh is None or mesh.rank == 0
+        n_data = 1 if mesh is None else mesh.axis_size("data")
+        if train_cfg.batch_size % n_data:
+            raise ValueError(f"batch size {train_cfg.batch_size} does not "
+                             f"split over {n_data} data-parallel ranks")
         self.train_cfg = train_cfg
         self.preprocess_cfg = preprocess_cfg
         self.hifigan_cfg = hifigan_cfg or HifiGanConfig()
@@ -103,7 +136,8 @@ class Trainer:
         init_params(self.model, train_cfg.seed)
         self.model.to(self.device)
 
-        self.logger = MetricLogger(train_cfg.log_dir)
+        self.logger = (MetricLogger(train_cfg.log_dir) if self.is_rank0
+                       else None)
         # every batch at the static (max_phoneme_len, max_mel_len) shape:
         # the train-mode model expands into a max_mel_len buffer
         self.train_loader = BucketedLoader(
@@ -122,8 +156,8 @@ class Trainer:
             self.steps_per_epoch)
         self.state = create_train_state(self.model, train_cfg,
                                         self.lr_schedule)
-        self.train_step = make_train_step(dtype)
-        self.eval_step = make_eval_step(dtype)
+        self.train_step = make_train_step(dtype, mesh)
+        self.eval_step = make_eval_step(dtype, mesh)
 
         # the device-resident corpus: the train and validation sets on the
         # card; a step uploads B indices instead of a batch
@@ -136,17 +170,23 @@ class Trainer:
                 self.train_ds, model_cfg.max_phoneme_len,
                 model_cfg.max_mel_len, mel_dtype=mel_dtype,
                 device=self.device)
-            self._cached_step = make_cached_train_step(dtype)
+            self._cached_step = make_cached_train_step(dtype, mesh)
             # validation mel targets stay float32: the loader's eval losses
             self.val_device_cache = DeviceDataCache(
                 self.val_ds, model_cfg.max_phoneme_len,
                 model_cfg.max_mel_len, device=self.device)
-            self._cached_eval = make_cached_eval_step(dtype)
+            self._cached_eval = make_cached_eval_step(dtype, mesh)
             mb = (self.device_cache.nbytes
                   + self.val_device_cache.nbytes) / 2 ** 20
-            print(f"device data cache: {self.device_cache.num_samples} "
-                  f"train + {self.val_device_cache.num_samples} val "
-                  f"samples, {mb:.0f} MB")
+            self.print_rank0(
+                f"device data cache: {self.device_cache.num_samples} train "
+                f"+ {self.val_device_cache.num_samples} val samples, "
+                f"{mb:.0f} MB")
+
+    def print_rank0(self, *args):
+        """print, on rank 0 of the mesh only."""
+        if self.is_rank0:
+            print(*args)
 
     def _indices(self, rows: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(rows.astype(np.int64)).to(self.device)
@@ -155,11 +195,13 @@ class Trainer:
         """(step function, its arguments after the state) of each step of
         one epoch: the loader's batches, or on the device-resident corpus
         the cache's index rows (one step each, whatever
-        ``device_data_scan_steps`` says)."""
+        ``device_data_scan_steps`` says).  On a mesh this rank's rows of
+        the loader's batch; the cached step slices its own indices."""
         if self.device_cache is None:
             self.train_loader.epoch = epoch  # deterministic resume
             for batch in self.train_loader:
-                yield self.train_step, (batch_to_device(batch, self.device),)
+                yield self.train_step, (batch_to_device(
+                    shard_batch(batch, self.mesh), self.device),)
             return
         arrays = self.device_cache.arrays
         for row in self.device_cache.epoch_batches(
@@ -170,24 +212,34 @@ class Trainer:
         path = latest_checkpoint(self.train_cfg.checkpoint_dir)
         if path:
             self.state = restore_checkpoint(path, self.state)
-            print(f"resumed from {path} at step {self.state.step}")
+            self.print_rank0(f"resumed from {path} at step "
+                             f"{self.state.step}")
         return self.state.step
 
     def _eval_batches(self):
         """(metrics, utterances) of each validation batch: the loader's
-        batches, or the device-resident corpus's rows in order, the last
-        batch shorter."""
+        batches, or the device-resident corpus's rows in order.  The last
+        batch is padded to the full batch, as the JAX package pads it, so
+        that it splits over the mesh: the loader's with all-pad rows (every
+        mask True), the cache's with ``row_valid`` False rows; either way
+        the padding adds nothing to the losses."""
+        bs = self.train_cfg.batch_size
         if self.val_device_cache is None:
             for batch in self.val_loader:
+                real_b = len(batch["text"])
+                host = {k: pad_rows(np.asarray(v), bs)
+                        for k, v in batch.items() if k != "text"}
                 yield self.eval_step(self.model, batch_to_device(
-                    batch, self.device)), len(batch["text"])
+                    shard_batch(host, self.mesh), self.device)), real_b
             return
-        bs = self.train_cfg.batch_size
         s = self.val_device_cache.num_samples
         for lo in range(0, s, bs):
-            rows = np.arange(lo, min(lo + bs, s))
+            real_b = min(bs, s - lo)
+            rows = np.zeros(bs, np.int64)
+            rows[:real_b] = np.arange(lo, lo + real_b)
+            valid = torch.from_numpy(np.arange(bs) < real_b).to(self.device)
             yield self._cached_eval(self.model, self.val_device_cache.arrays,
-                                    self._indices(rows)), len(rows)
+                                    self._indices(rows), valid), real_b
 
     def evaluate(self) -> Dict[str, float]:
         """Teacher-forced losses over the validation set, weighted by the
@@ -306,17 +358,19 @@ class Trainer:
         """Train until ``max_epochs`` or ``max_steps``; returns the last
         step.  SIGTERM/SIGINT (caught when fit runs on the main thread)
         finish the current step, checkpoint and return; a later ``fit``
-        resumes from the checkpoint.  ``on_step(step, metrics)`` runs
-        after every step."""
+        resumes from the checkpoint.  On a mesh the ranks agree after
+        every step whether any was signalled (a host all-reduce), so all
+        stop after the same step and rank 0 checkpoints it.
+        ``on_step(step, metrics)`` runs after every step."""
         max_epochs = max_epochs or self.train_cfg.max_epochs
         start_step = self.maybe_resume()
         t0 = time.time()
         step = start_step
-        stop = threading.Event()
+        signalled = threading.Event()
         old_handlers = {}
         if threading.current_thread() is threading.main_thread():
             def request_stop(signum, _frame):
-                stop.set()
+                signalled.set()
                 print(f"signal {signum}: stopping after this step, "
                       "checkpointing...")
 
@@ -324,6 +378,7 @@ class Trainer:
                 old_handlers[sig] = signal.signal(sig, request_stop)
 
         self.model.train()
+        stop = False
         try:
             for epoch in range(start_step // self.steps_per_epoch,
                                max_epochs):
@@ -337,39 +392,45 @@ class Trainer:
                         k: acc[k] + metrics[k] for k in acc}
                     if on_step is not None:
                         on_step(step, metrics)
-                    if (max_steps is not None and step >= max_steps) or \
-                            stop.is_set():
+                    stop = any_rank(signalled.is_set(), self.mesh)
+                    if (max_steps is not None and step >= max_steps) or stop:
                         break
-                keys = sorted(acc or {})
-                values = (torch.stack([acc[k] for k in keys]).cpu().tolist()
-                          if keys else [])
-                scalars = {k.replace("_loss", ""): v / max(count, 1)
-                           for k, v in zip(keys, values)}
-                scalars["lr"] = float(self.lr_schedule(step))
-                scalars["epoch"] = epoch
-                scalars["wall_secs"] = time.time() - t0
-                self.logger.log(step, scalars)
+                if self.is_rank0:
+                    keys = sorted(acc or {})
+                    values = (torch.stack([acc[k] for k in keys]).cpu()
+                              .tolist() if keys else [])
+                    scalars = {k.replace("_loss", ""): v / max(count, 1)
+                               for k, v in zip(keys, values)}
+                    scalars["lr"] = float(self.lr_schedule(step))
+                    scalars["epoch"] = epoch
+                    scalars["wall_secs"] = time.time() - t0
+                    self.logger.log(step, scalars)
 
-                done = ((max_steps is not None and step >= max_steps)
-                        or stop.is_set())
-                if (epoch + 1) % checkpoint_every_epochs == 0 and not done:
+                done = (max_steps is not None and step >= max_steps) or stop
+                if (epoch + 1) % checkpoint_every_epochs == 0 and not done \
+                        and self.is_rank0:
                     save_checkpoint(self.train_cfg.checkpoint_dir,
                                     self.state)
                 if epoch >= 1 and \
                         (epoch + 1) % self.train_cfg.val_every_n_epochs == 0:
                     val = self.evaluate()
-                    self.logger.log(step, {f"val_{k}": v
-                                           for k, v in val.items()})
-                    try:
-                        quality = self.validate_audio(epoch)
-                        if quality:
-                            self.logger.log(step, {
-                                f"val_{k}": v for k, v in quality.items()})
-                    except Exception as e:  # dumps must not kill training
-                        print(f"validation audio dump failed: {e}")
+                    if self.is_rank0:
+                        self.logger.log(step, {f"val_{k}": v
+                                               for k, v in val.items()})
+                        try:
+                            quality = self.validate_audio(epoch)
+                            if quality:
+                                self.logger.log(step, {
+                                    f"val_{k}": v
+                                    for k, v in quality.items()})
+                        except Exception as e:  # must not kill training
+                            print(f"validation audio dump failed: {e}")
                 if done:
                     break
-            save_checkpoint(self.train_cfg.checkpoint_dir, self.state)
+            if self.is_rank0:
+                save_checkpoint(self.train_cfg.checkpoint_dir, self.state)
+            # the checkpoint is on disk before any rank returns
+            barrier(self.mesh)
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)

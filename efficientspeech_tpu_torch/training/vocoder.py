@@ -10,6 +10,14 @@ Everything is float32, as the JAX package trains its vocoder (its
 generator, discriminators and convolutions are all float32); on the card
 the callers keep TF32 off (``device.set_full_f32``).  A step's metrics
 stay on the device.
+
+On a data-parallel ``mesh`` each rank runs its rows of the global batch.
+Every loss is a mean over the batch, so the global loss is the mean of
+the ranks' equal-sized shares: after each ``torch.autograd.grad`` (the
+discriminators' before their step, the generator's before its) the
+gradients are averaged over the data group in one all-reduce, and so
+are the metrics.  ``autograd.grad`` bypasses ``DistributedDataParallel``'s
+hooks, so the models are not wrapped in it.
 """
 
 import dataclasses
@@ -27,6 +35,9 @@ from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
 from efficientspeech_tpu_torch.models.hifigan_disc import (
     MultiPeriodDiscriminator, MultiScaleDiscriminator, discriminator_loss,
     feature_loss, generator_loss)
+from efficientspeech_tpu_torch.parallel.comm import (
+    group_size, reduce_metrics, sum_gradients)
+from efficientspeech_tpu_torch.parallel.mesh import Mesh
 from efficientspeech_tpu_torch.weights import init_params, load_jax_params
 
 # (n_fft, hop, win): the conventional multi-resolution STFT triple
@@ -101,7 +112,8 @@ def create_vocoder_trainer(cfg: HifiGanConfig, audio: AudioConfig,
                            b2: float = 0.99, mel_weight: float = 45.0,
                            fm_weight: float = 2.0,
                            mr_stft_weight: float = 0.0,
-                           weight_decay: float = 0.01, device=None):
+                           weight_decay: float = 0.01, device=None,
+                           mesh: Optional[Mesh] = None):
     """Returns ``(gen, init, train_step)``.
 
     ``gen`` is the generator on ``device`` (the card unless ``"cpu"``;
@@ -115,8 +127,12 @@ def create_vocoder_trainer(cfg: HifiGanConfig, audio: AudioConfig,
 
     ``train_step(state, mel, wav)`` → (state, metrics): the discriminator
     step on a detached generator output, then the generator step against
-    the updated discriminators."""
+    the updated discriminators.  On a ``mesh`` mel and wav are this
+    rank's rows of the global batch, and the gradients and metrics are
+    those of the global batch."""
     device = resolve_device(device)
+    group = None if mesh is None else mesh.group("data")
+    scale = 1.0 / group_size(group)
     gen = HifiGanGenerator(cfg).to(device)
     mel_of = make_mel_fn(audio, device)
 
@@ -160,6 +176,7 @@ def create_vocoder_trainer(cfg: HifiGanConfig, audio: AudioConfig,
             discriminator_loss(s_r, s_g)[0]
         _set_grads(disc_params, torch.autograd.grad(
             d_loss, disc_params, allow_unused=True))
+        sum_gradients(disc_params, group, scale)
         state.disc_opt.step()
 
         # the generator's step, against the updated discriminators; the
@@ -181,11 +198,12 @@ def create_vocoder_trainer(cfg: HifiGanConfig, audio: AudioConfig,
         gen_params = list(state.gen.parameters())
         _set_grads(gen_params, torch.autograd.grad(
             total, gen_params, allow_unused=True))
+        sum_gradients(gen_params, group, scale)
         state.gen_opt.step()
 
         state.step += 1
         metrics = {"disc_loss": d_loss, "gen_loss": total, **metrics}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, reduce_metrics(metrics, group, scale)
 
     return gen, init, train_step
 

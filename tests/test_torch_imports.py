@@ -199,3 +199,28 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
         call()
     if entry in ("Preprocessor", "MelSpectrogram", "create_vocoder_trainer"):
         call(device="cpu")
+
+
+def test_parallel_modules_import_without_jax_or_a_process_group():
+    """``parallel/`` stands alone like the rest of the port: its modules
+    import with JAX blocked, and importing them starts no process group
+    and spawns no rank."""
+    parallel = [m for m in MODULES if ".parallel." in m]
+    assert {m.rsplit(".", 1)[1] for m in parallel} >= {
+        "__init__", "comm", "mesh", "seq_vocoder", "sharding"}
+    code = "\n".join([
+        "import importlib, multiprocessing, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',",
+        "             'efficientspeech_tpu'):",
+        "    sys.modules[name] = None",
+        f"for mod in {parallel!r}:",
+        "    importlib.import_module(mod.removesuffix('.__init__'))",
+        "import torch.distributed as dist",
+        "assert not dist.is_initialized()",
+        "assert not multiprocessing.active_children()",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

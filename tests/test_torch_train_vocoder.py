@@ -209,7 +209,10 @@ def test_init_generator_takes_both_formats(preprocessed_corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data-parallel", "2"], "parallelism"),
+    # the JAX CLI's check: the ranks split the global batch evenly
+    pytest.param(["--data-parallel", "2", "--batch-size", "3"],
+                 "must be divisible by --data-parallel",
+                 id="flags0-parallelism"),
 ])
 def test_refused_flags(tmp_path, capsys, flags, match):
     with pytest.raises(SystemExit):
