@@ -58,6 +58,24 @@ Phases (each prints its lines; any failure exits non-zero):
                checkpoint with a holdout (before and after metrics, the
                eval's wall), its teacher-forced pairs' forward (K3 and K4
                float32 forward, counted) held to the plain route;
+     export  - python -m efficientspeech_tpu_torch.convert on the card from
+               the reference phase's files: --precision bf16 --export,
+               then float32 --export --torchscript --onnx --output, at
+               --insize 128 (sizes, the .onnx file's structure); the
+               torch.export and TorchScript programs loaded back on the
+               card and held to eager EfficientSpeech.predict there, the
+               float32 ones also to the CPU's predict, and the exported
+               float32 waveform to the serving kernel route's (K1 5, K2 4
+               launches, the f32 wire) on the same padded phonemes; ms a
+               call of each beside eager predict and the serving route;
+     g2p     - python -m efficientspeech_tpu_torch.train_g2p on the card at
+               its defaults for 300 steps into a temp dir (the pairs count,
+               its eval lines), the written .npz decoded through NeuralG2p
+               to the logged accuracy; the median step at batch 256 and a
+               traced step's idle share; three dropout-0 steps (the first
+               at rate 0, then at 1e-3) held to the same steps on the CPU:
+               losses, the first step's gradients, and AdamW's moves from
+               the same gradients;
   6. f32     - phases 3-5 again for a float32 synthesizer (the same model,
                folded in float32: --precision f32), through the kernels'
                float32 variants, with one long and one short request, and
@@ -117,7 +135,10 @@ Phases (each prints its lines; any failure exits non-zero):
                step through an NCCL group of one rank; per-rank step ms,
                all-reduce ms and bytes;
  11. bench   - python -m efficientspeech_tpu_torch.bench --iter 5 --warmup
-               2 --batch 16 in a process of its own, its lines printed.
+               2 --batch 16 in a process of its own, its lines printed;
+               then --metric rtf --iter 2 --profile DIR, whose profile
+               line (the device's busy ms and idle share over the timed
+               runs) is checked and whose profiled numbers are not kept.
 The kernel table goes on a JSON line before the last, 23 rows, each with
 its dtype (the rows of kernels redesigned for Hopper also name the
 design; float32 product bounds at the faster of FFMA's 67 TFLOP/s and
@@ -183,6 +204,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from efficientspeech_tpu_torch.utils.timing import busy_ms
 from efficientspeech_tpu_torch.utils.timing import card as card_name
 from efficientspeech_tpu_torch.utils.timing import time_ms, time_ms_flushed
 
@@ -309,6 +331,31 @@ PARALLEL_DEVICE, PARALLEL_NCCL = "cuda:0", "nccl"
 GAN_TOL = 2e-5
 SEQ_FRAMES, SEQ_VALID = 4096, 1500
 SEQ_RTOL = SEQ_ATOL = 1e-5
+# the g2p phase: python -m efficientspeech_tpu_torch.train_g2p at its
+# defaults (batch 256, dropout 0.2, ~80,800 pairs) for G2P_STEPS steps
+# with an eval every G2P_EVAL_EVERY; the step timed over G2P_TIMED steps;
+# then G2P_HELD dropout-0 steps of a trainer with a one-count warmup (the
+# first update at rate 0, the next ones at the full 1e-3) held to the same
+# steps on the CPU: each step's loss (float32, TF32 off: another
+# summation order, about 1e-6), taken at parameters the earlier updates
+# moved, and the first step's gradients at 1e-4 of each leaf's largest.
+# Later steps' gradients are printed beside the CPU's own float32 distance
+# from a float64 gradient at the same parameters, and not held: once the
+# updates have moved the parameters, a ReLU's or a mask's kink can put
+# the CPU's float32 gradient 1e-4 or more from the float64 one.  The card's
+# AdamW updates from the CPU's gradients, so that both updates see the
+# same input (Adam's update of a gradient near 0 follows its sign, which
+# rounding can flip), and each leaf's move is held to the CPU's at
+# G2P_UPDATE_RTOL of its largest (about eight float32 ulps of a parameter
+# near 1, against a 1e-3 move)
+G2P_STEPS, G2P_EVAL_EVERY, G2P_TIMED, G2P_HELD = 300, 150, 30, 3
+G2P_LOSS_RTOL, G2P_GRAD_ATOL, G2P_UPDATE_RTOL = 1e-5, 1e-4, 1e-3
+# the export phase: the convert CLI from the reference phase's files at
+# the reference's --insize; each loaded program held to eager predict on
+# the card, in float32 also to the CPU's, and the exported float32
+# waveform to the serving kernel route's on the same padded phonemes
+EXPORT_INSIZE, EXPORT_TIMED = 128, 10
+
 # the kernel-table rows whose kernels were redesigned for Hopper after
 # their first port, by launch key: the design each row's time belongs to
 DESIGNS = {
@@ -771,23 +818,6 @@ def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     return launches
 
 
-def _busy_ms(prof) -> float:
-    """The device's busy time in a trace: the union of its kernels' time
-    intervals (kernels that overlap, as on cuDNN's side streams, count
-    once)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.time_range.end > e.time_range.start)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    return busy / 1e3
-
-
 def trace(fn, label: str, card: str):
     """Trace one call of ``fn`` (after one untraced call): device time by
     kernel and the idle share of its wall time."""
@@ -813,12 +843,12 @@ def trace(fn, label: str, card: str):
         print(f"[profile] {label}: no device time in the trace: not "
               f"measured | {card}")
         return
-    busy_ms = _busy_ms(prof)
+    busy = busy_ms(prof)
     n_kernels = sum(e.count for e in events)
     print(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms (kernel time {device_ms:.2f} ms in "
+          f"{busy:.2f} ms (kernel time {device_ms:.2f} ms in "
           f"{n_kernels} kernels), idle share "
-          f"{1 - busy_ms / wall_ms:.3f} | {card}")
+          f"{1 - busy / wall_ms:.3f} | {card}")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1318,21 +1348,42 @@ def phase_adpcm(card: str, batch_frames: int):
 
 def phase_bench(card: str):
     """The bench entry point once, in a process of its own, at a small
-    size; its lines are printed as they come."""
-    cmd = [sys.executable, "-m", "efficientspeech_tpu_torch.bench",
-           "--iter", "5", "--warmup", "2", "--batch", "16"]
+    size, its lines printed as they come; then a short run of its
+    single-stream metric with --profile, which checks the profile's line
+    (the device's busy ms and idle share over the timed runs) and whose
+    numbers, taken under the profiler, are not kept."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    bench = [sys.executable, "-m", "efficientspeech_tpu_torch.bench"]
+
+    def run(args):
+        out = subprocess.run(bench + args, capture_output=True, text=True,
+                             timeout=600, cwd=here)
+        if out.returncode != 0:
+            fail(f"bench {' '.join(args)} exited {out.returncode}:\n"
+                 f"{out.stderr[-4000:]}")
+        return out.stdout.splitlines()
+
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
-    for line in out.stdout.splitlines():
+    lines = run(["--iter", "5", "--warmup", "2", "--batch", "16"])
+    for line in lines:
         print(f"[bench] {line}")
-    if out.returncode != 0:
-        fail(f"{' '.join(cmd[1:])} exited {out.returncode}:\n"
-             f"{out.stderr[-4000:]}")
-    last = json.loads(out.stdout.splitlines()[-1])
+    last = json.loads(lines[-1])
     if last["metric"] != "text_to_wav_rtf" or not last["value"] > 0:
         fail(f"bench: the last line is not a text_to_wav_rtf: {last}")
     print(f"[bench] {time.perf_counter() - t0:.1f} s | {card}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as prof:
+        lines = run(["--metric", "rtf", "--iter", "2", "--warmup", "1",
+                     "--profile", prof])
+        trace_bytes = os.path.getsize(os.path.join(prof, "bench_trace.json"))
+    summary = json.loads(lines[0])
+    if not (isinstance(summary.get("device_busy_ms"), float)
+            and 0 < summary["idle_share"] < 1 and trace_bytes > 0):
+        fail(f"bench --profile: {summary}, trace {trace_bytes} bytes")
+    print(f"[bench] --metric rtf --iter 2 --profile: {lines[0]}; trace "
+          f"{trace_bytes / 1e6:.1f} MB; {time.perf_counter() - t0:.1f} s "
+          f"(profiled, not a bench number) | {card}")
 
 
 def _snr_check(tag: str, pairs, card: str, bar: float = KERNEL_SNR_DB,
@@ -2869,6 +2920,285 @@ def phase_parallel(card: str, root: str):
           f"phase {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+def phase_g2p(card: str):
+    """python -m efficientspeech_tpu_torch.train_g2p on the card at its
+    defaults for G2P_STEPS steps into a temp dir (its lines printed: the
+    pairs count and the eval lines), the median step at batch 256 and a
+    traced step's idle share, G2P_HELD dropout-0 steps held to the CPU's
+    (losses, the first step's gradients, and AdamW's moves from the same
+    gradients), and
+    the written .npz decoded through NeuralG2p to the logged
+    accuracy."""
+    import contextlib
+    import io
+
+    from efficientspeech_tpu_torch import train_g2p
+    from efficientspeech_tpu_torch.text import g2p_data
+    from efficientspeech_tpu_torch.text import g2p_model as M
+    from efficientspeech_tpu_torch.text.g2p_eval import load_eval_lexicon
+    from efficientspeech_tpu_torch.text.neural_g2p import NeuralG2p
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out, log = os.path.join(root, "g2p.npz"), os.path.join(root,
+                                                              "g2p.jsonl")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            best = train_g2p.main(["--steps", str(G2P_STEPS), "--eval-every",
+                                   str(G2P_EVAL_EVERY), "--out", out,
+                                   "--log", log])
+        cli_s = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            print(f"[g2p] {line}")
+        lines = [json.loads(x) for x in open(log).read().splitlines()]
+        pairs = int(re.search(r"training pairs: (\d+) rows",
+                              buf.getvalue()).group(1))
+        if [x["step"] for x in lines] != list(range(
+                G2P_EVAL_EVERY, G2P_STEPS + 1, G2P_EVAL_EVERY)):
+            fail(f"g2p: eval lines at steps {[x['step'] for x in lines]}")
+        if not all(np.isfinite(x["loss"]) and 0 <= x["val_per"]
+                   for x in lines):
+            fail(f"g2p: eval lines {lines}")
+        neural = NeuralG2p(out, beam=1)
+        val_lex = load_eval_lexicon(
+            train_g2p.repo_path(train_g2p.DEFAULT_EVAL_SET))
+        per, acc, _ = train_g2p.evaluate_neural(neural.params_list[0],
+                                                val_lex)
+        word = next(iter(val_lex))
+        print(f"[g2p] CLI {G2P_STEPS} steps in {cli_s:.1f} s; {pairs} pairs; "
+              f"best step {best['step']} val_acc {best['acc']:.4f}; the "
+              f".npz ({os.path.getsize(out) / 1e6:.2f} MB) through "
+              f"NeuralG2p: acc {acc:.4f} per {per:.4f}, {word!r} -> "
+              f"{neural(word)[0]} | {card}")
+        if (round(acc, 4) != neural.meta["val_acc"]
+                or acc != best["acc"] or round(per, 4)
+                != neural.meta["val_per"]):
+            fail(f"g2p: the .npz decodes to acc {acc} per {per}, logged "
+                 f"{best} / meta {neural.meta}")
+
+    pairs_list = g2p_data.build_pairs()
+    src, tgt = g2p_data.encode_pairs(pairs_list)
+    order = np.random.default_rng(0).permutation(len(src))
+    batches = [order[i * 256:(i + 1) * 256] for i in range(G2P_TIMED + 6)]
+    params = M.init_params(0)
+    trainer = train_g2p.G2pTrainer(params, 6000, dropout=0.2,
+                                   label_smoothing=0.1,
+                                   device="cuda")
+    for idx in batches[:5]:
+        trainer.step(src[idx], tgt[idx])
+    rows = iter(batches[5:])
+
+    def step():
+        idx = next(rows)
+        return trainer.step(src[idx], tgt[idx])
+
+    step_ms = _median_ms(step, G2P_TIMED, torch.device("cuda"))
+    print(f"[g2p] train step at batch 256 (dropout 0.2, float32, TF32 "
+          f"off): median {step_ms:.2f} ms over {G2P_TIMED} steps, each "
+          f"ended by a synchronise | {card}")
+    last = batches[-1]
+    trace(lambda: trainer.step(src[last], tgt[last]),
+          "G2P train step at batch 256", card)
+
+    held = {dev: train_g2p.G2pTrainer(params, 6000, warmup=1,
+                                      dropout=0.0, label_smoothing=0.1,
+                                      device=dev)
+            for dev in ("cuda", "cpu")}
+    card_t, cpu_t = held["cuda"], held["cpu"]
+    loss_rel = update_gap = 0.0
+    rates, grad_gaps, f64_gaps = [], [], []
+    for b in batches[:G2P_HELD]:
+        before = {dev: t.numpy_params() for dev, t in held.items()}
+        lc, lh = float(card_t.backward(src[b], tgt[b])), float(
+            cpu_t.backward(src[b], tgt[b]))
+        loss_rel = max(loss_rel, abs(lc - lh) / abs(lh))
+        p64 = {k: p.detach().double().requires_grad_()
+               for k, p in cpu_t.params.items()}
+        train_g2p.g2p_loss(p64, torch.from_numpy(src[b].astype(np.int64)),
+                           torch.from_numpy(tgt[b].astype(np.int64)),
+                           cpu_t.xp, label_smoothing=0.1).backward()
+        grad_gaps.append(0.0)
+        f64_gaps.append(0.0)
+        for k, p in cpu_t.params.items():
+            gh = p.grad.numpy()
+            gc = card_t.params[k].grad.cpu().numpy()
+            scale = max(np.abs(gh).max(), 1e-30)
+            grad_gaps[-1] = max(grad_gaps[-1],
+                                float(np.abs(gc - gh).max() / scale))
+            f64_gaps[-1] = max(f64_gaps[-1], float(
+                np.abs(gh - p64[k].grad.numpy()).max() / scale))
+            card_t.params[k].grad.copy_(p.grad)
+        rates.append(cpu_t.lr(cpu_t.count))
+        card_t.update()
+        cpu_t.update()
+        after = {dev: t.numpy_params() for dev, t in held.items()}
+        for k in params:
+            dh = after["cpu"][k] - before["cpu"][k]
+            dc = after["cuda"][k] - before["cuda"][k]
+            if np.abs(dh).max() > 0:
+                update_gap = max(update_gap, float(
+                    np.abs(dc - dh).max() / np.abs(dh).max()))
+            elif np.abs(dc).max() > 0:
+                fail(f"g2p: {k} moved on the card at rate {rates[-1]}")
+    if not rates[-1] > 0:
+        fail(f"g2p: the held steps' rates {rates} reach no update")
+    print(f"[g2p] dropout-0 steps 1-{G2P_HELD} (rates {rates}) on the card "
+          f"vs the CPU: loss rel diff {loss_rel:.1e} (tol <= "
+          f"{G2P_LOSS_RTOL}), first step's gradients {grad_gaps[0]:.1e} of "
+          f"a leaf's largest (tol <= {G2P_GRAD_ATOL}); gradients a step "
+          f"{', '.join(f'{x:.1e}' for x in grad_gaps)} (the CPU's float32 "
+          f"from float64: {', '.join(f'{x:.1e}' for x in f64_gaps)}); "
+          f"AdamW's move from the same gradients {update_gap:.1e} of a "
+          f"leaf's largest (tol <= {G2P_UPDATE_RTOL}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    if (loss_rel > G2P_LOSS_RTOL or grad_gaps[0] > G2P_GRAD_ATOL
+            or update_gap > G2P_UPDATE_RTOL):
+        fail("g2p: the card's step does not hold the CPU's")
+
+
+def phase_export(card: str, root: str):
+    """The convert CLI on the card from the reference phase's files in
+    ``root`` (the tiny model from seed 0 and its LJ_V2-width generator),
+    in bf16 (--export) and float32 (--export, --torchscript, --onnx,
+    --output), at --insize EXPORT_INSIZE; the programs loaded back on the
+    card and held to eager predict there, in float32 also to the CPU's
+    eager predict, and the exported float32 waveform to the serving
+    kernel route's on the same padded phonemes."""
+    from efficientspeech_tpu_torch.convert import __main__ as convert_cli
+    from efficientspeech_tpu_torch.convert.export import (
+        fixed_size_model, load_exported)
+    from efficientspeech_tpu_torch.infer import build_model, build_synthesizer
+    from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+    from efficientspeech_tpu_torch.ops.kernels import mrf_block
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(root, "tiny_seed0.ckpt")
+    gen = os.path.join(root, "LJ_V2", "generator_v2")
+    out = os.path.join(root, "export")
+    files = {"bf16": {"export": os.path.join(out, "tiny_bf16.pt2")},
+             "f32": {"export": os.path.join(out, "tiny_f32.pt2"),
+                     "torchscript": os.path.join(out, "tiny.ts"),
+                     "onnx": os.path.join(out, "tiny.onnx"),
+                     "output": os.path.join(out, "tiny_native.pt")}}
+    os.makedirs(out)
+    for precision, want in files.items():
+        flags = [f"--{k}={v}" for k, v in want.items()]
+        t0 = time.perf_counter()
+        written = convert_cli.main(["--checkpoint", ckpt,
+                                    "--hifigan-checkpoint", gen,
+                                    "--precision", precision, "--insize",
+                                    str(EXPORT_INSIZE)] + flags)
+        if written != want:
+            fail(f"export: the convert CLI wrote {written}")
+        print(f"[export] convert --precision {precision} "
+              f"{' '.join(k for k in want)}: {time.perf_counter() - t0:.1f}"
+              f" s; " + ", ".join(f"{os.path.basename(v)} "
+                                 f"{os.path.getsize(v) / 1e6:.2f} MB"
+                                 for v in want.values()) + f" | {card}")
+    onnx = open(files["f32"]["onnx"], "rb").read()
+    names = [n for n in (b"inputs", b"wav", b"lengths", b"duration")
+             if n in onnx]
+    producer = "pytorch" if b"pytorch" in onnx[:64] else "?"
+    print(f"[export] ONNX: {len(onnx)} bytes, ModelProto tag "
+          f"0x{onnx[0]:02x}, producer {producer}, names "
+          f"{[n.decode() for n in names]}, no searchsorted "
+          f"{b'searchsorted' not in onnx.lower()} (onnxruntime absent: "
+          f"not run) | {card}")
+    if (onnx[0] != 0x08 or b"pytorch" not in onnx[:64] or len(names) != 4
+            or b"searchsorted" in onnx.lower()):
+        fail("export: the .onnx file's structure")
+
+    model = build_model(preset="tiny", checkpoint=ckpt,
+                        hifigan_checkpoint=gen)
+    cfg, hcfg = model.cfg, model.hifigan_cfg
+    # the f32 wire: the exported program returns float32 samples
+    ref = build_synthesizer(preset="tiny", checkpoint=ckpt,
+                            hifigan_checkpoint=gen, dtype=torch.float32,
+                            vocoder_mode="folded_kernel", transfer="f32")
+    seq = ref.phonemize(LONG_TEXT)[:EXPORT_INSIZE - 8]
+    phoneme = np.zeros((1, EXPORT_INSIZE), np.int32)
+    phoneme[0, :len(seq)] = seq
+    ph_cpu = torch.from_numpy(phoneme)
+    pad_cpu = ph_cpu == 0
+    cuda = torch.device("cuda")
+    ph, pad = ph_cpu.to(cuda), pad_cpu.to(cuda)
+    cuda_model = model.to(cuda)
+    wav32 = None
+    for precision, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fixed = fixed_size_model(cfg, hcfg, cuda_model, EXPORT_INSIZE, 16, dt)
+        with torch.no_grad():
+            eager = fixed.predict(ph, pad)
+        run = load_exported(files[precision]["export"])
+        progs = {"torch.export": run(ph, pad)}
+        timings = {"eager predict": _median_ms(
+            lambda: fixed.predict(ph, pad), EXPORT_TIMED, cuda),
+            "torch.export": _median_ms(lambda: run(ph, pad), EXPORT_TIMED,
+                                       cuda)}
+        if precision == "f32":
+            ts = torch.jit.load(files["f32"]["torchscript"],
+                                map_location="cuda")
+            with torch.no_grad():
+                w, ml, d = ts(ph)
+            progs["TorchScript"] = (w, None, ml, d)
+            timings["TorchScript"] = _median_ms(lambda: ts(ph),
+                                                EXPORT_TIMED, cuda)
+        bar = F32_E2E_SNR_DB if dt == torch.float32 else KERNEL_SNR_DB
+        mel_len = int(eager[2][0])
+        n = int(eager[1][0])
+        for name, got in progs.items():
+            snr = snr_db(eager[0][0, :n].float(), got[0][0, :n].float())
+            print(f"[export] {precision} {name} on the card vs eager "
+                  f"predict: mel_len {int(got[2][0])} / {mel_len}, SNR "
+                  f"{snr:.1f} dB (tol >= {bar}) | {card}")
+            if int(got[2][0]) != mel_len or not snr >= bar:
+                fail(f"export: {precision} {name} does not hold eager "
+                     "predict")
+        if precision == "f32":
+            with torch.no_grad():
+                cpu_out = fixed_size_model(cfg, hcfg, model.to("cpu"),
+                                           EXPORT_INSIZE, 16,
+                                           torch.float32).predict(
+                                               ph_cpu, pad_cpu)
+            model.to("cuda")
+            for name, got in progs.items():
+                snr = snr_db(cpu_out[0][0, :n], got[0][0, :n].float().cpu())
+                print(f"[export] f32 {name} on the card vs eager predict on "
+                      f"the CPU: mel_len {int(cpu_out[2][0])}, SNR "
+                      f"{snr:.1f} dB (tol >= {F32_E2E_SNR_DB}) | {card}")
+                if int(cpu_out[2][0]) != mel_len or not snr >= \
+                        F32_E2E_SNR_DB:
+                    fail(f"export: f32 {name} does not hold the CPU")
+            wav32 = progs["torch.export"][0][0, :n].float().cpu()
+        print(f"[export] {precision} ms a call, {EXPORT_INSIZE} phonemes "
+              f"({len(seq)} real), {mel_len} of {EXPORT_INSIZE * 16} "
+              "frames: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     timings.items()) + f" | {card}")
+
+    # the serving kernel route on the same padded phonemes: the mel buffer
+    # at the export's EXPORT_INSIZE x 16 frames, where K1 and K2 engage
+    ref.spec_min_frames = EXPORT_INSIZE * 16
+    ref.synthesize_ids(seq)
+    _reset_counts(fm, mrf_block)
+    wav_s, mel_s, _ = ref.synthesize_ids(seq)
+    k1, k2 = fm.launches[torch.float32], mrf_block.launches[torch.float32]
+    serve_ms = _median_ms(lambda: ref.synthesize_ids(seq), EXPORT_TIMED,
+                          cuda)
+    if mel_s * hcfg.total_upsample != len(wav32):
+        fail(f"export: the serving route's mel_len {mel_s}, the exported "
+             f"program's {len(wav32) // hcfg.total_upsample}")
+    snr = snr_db(torch.from_numpy(wav_s), wav32)
+    print(f"[export] f32 torch.export program vs the serving kernel route "
+          f"(K1 {k1}, K2 {k2} launches): mel_len {mel_s}, SNR {snr:.1f} dB "
+          f"(tol >= {F32_E2E_SNR_DB}); serving synthesize_ids "
+          f"{serve_ms:.2f} ms a call; phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    if (k1, k2) != (5, 4) or not snr >= F32_E2E_SNR_DB:
+        fail("export: the exported float32 waveform does not hold the "
+             "serving kernel route's")
+    del ref, model, cuda_model
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on one CUDA card.")
@@ -2905,6 +3235,8 @@ def main():
         data = phase_preprocess(card, work)
         phase_validate(card, data, gen, work)
         phase_vocoder(card, work, data)
+        phase_export(card, work)
+        phase_g2p(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -11,15 +11,27 @@ the baselines are the reference's: RTF 1,300 on an A100 (small model,
 long text) and mRTF 104 on a Raspberry Pi 4.
 
 Weights are a random init from ``--seed``, the duration head's bias set to
-6.0 so that the model predicts frame counts of LJSpeech's order.  Every
+6.0 so that the model predicts frame counts of LJSpeech's order, unless
+``--checkpoint`` loads a model (then its own bias stays).  Every
 time is taken after ``--warmup`` requests, by CUDA events on the card (by
 the host's clock with ``--device cpu``, where no number is a device's).
 It runs on the card unless ``--device cpu`` is given, and without a card
 it raises.
+
+``--verbose`` prints each single-stream request's timing and, on
+stderr, a JSON line of the model-only RTF and the run's shape.
+``--profile DIR`` traces the timed runs with torch.profiler (CPU and
+CUDA activity) into ``DIR/bench_trace.json`` and prints, on a line
+before the metrics, the wall time, the device's busy time (the union of
+its kernels' intervals) and its idle share; the metrics of such a run
+carry the profiler's host cost and are not comparable with a run
+without it.
 """
 
 import argparse
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -125,12 +137,24 @@ def run_batch_rtf(synth, text: str, batch: int, iters: int) -> dict:
                    BASELINE_RTF, batch=batch, transfer=synth.transfer)
 
 
-def run_rtf(synth, text: str, iters: int) -> dict:
-    """Single stream: the median RTF of ``tts`` (text frontend included)."""
-    rtfs, info = [], {}
+def run_rtf(synth, text: str, iters: int, verbose: bool = False) -> dict:
+    """Single stream: the median RTF of ``tts`` (text frontend included).
+    ``verbose`` prints each request's line and, on stderr, the mean
+    model-only RTF (the host's clock around the device work)."""
+    rtfs, model_rtfs, info = [], [], {}
     for _ in range(iters):
-        (_, info), ms = timed_ms(synth, lambda: synth.tts(text))
+        (_, info), ms = timed_ms(synth,
+                                 lambda: synth.tts(text, verbose=verbose))
         rtfs.append(info["voice_secs"] / (ms / 1e3))
+        model_rtfs.append(info["model_rtf"])
+    if verbose:
+        print(json.dumps({
+            "model_rtf_mean": round(float(np.mean(model_rtfs)), 2),
+            "voice_secs": round(info["voice_secs"], 3),
+            "phonemes": int(info["phoneme_len"]),
+            "device": str(synth.device),
+            "precision": "bf16" if synth.dtype == torch.bfloat16
+            else "f32"}), file=sys.stderr)
     return _result("text_to_wav_rtf", float(np.median(rtfs)), BASELINE_RTF,
                    voice_secs=round(info["voice_secs"], 3),
                    phonemes=int(info["phoneme_len"]),
@@ -149,7 +173,8 @@ def run_metrics(synth, batch_synth, args) -> list:
         "batch_rtf": lambda: run_batch_rtf(batch_synth, args.text,
                                            args.batch,
                                            max(3, args.iter // 10)),
-        "rtf": lambda: run_rtf(synth, args.text, args.iter),
+        "rtf": lambda: run_rtf(synth, args.text, args.iter,
+                               getattr(args, "verbose", False)),
     }
     names = (("mel_rtf", "device_rtf", "batch_rtf", "rtf")
              if args.metric == "all" else (args.metric,))
@@ -183,10 +208,51 @@ def get_args(argv=None):
                         choices=list(FORMATS),
                         help="card → host PCM wire format of the single "
                              "stream")
+    parser.add_argument("--checkpoint", default=None,
+                        help="reference .ckpt, a step_*.pt of the port's "
+                             "trainer (or its directory), or a native "
+                             "parameter file; random weights without one")
+    parser.add_argument("--profile", default=None,
+                        help="write a torch.profiler trace of the timed "
+                             "runs into this directory (the metrics then "
+                             "include the profiler's host cost)")
+    parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     return parser.parse_args(argv)
+
+
+def profiled(fn, out_dir: str, device: torch.device):
+    """``fn()`` under torch.profiler (CPU activity, and CUDA's on the
+    card), its trace written to ``out_dir/bench_trace.json``; returns
+    (fn(), a summary: wall ms, and on the card the device's busy ms and
+    idle share, else "not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficientspeech_tpu_torch.utils.timing import busy_ms
+
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, "bench_trace.json")
+    prof.export_chrome_trace(path)
+    summary = {"profile": path, "wall_ms": round(wall, 3)}
+    busy = busy_ms(prof) if device.type == "cuda" else 0.0
+    if busy > 0:
+        summary.update(device_busy_ms=round(busy, 3),
+                       idle_share=round(1 - busy / wall, 4))
+    else:
+        summary.update(device_busy_ms="not measured",
+                       idle_share="not measured")
+    return out, summary
 
 
 def main(argv=None):
@@ -201,9 +267,11 @@ def main(argv=None):
 
     def build(transfer):
         return build_synthesizer(
-            preset=args.preset, seed=args.seed, dtype=dtype,
-            bench_duration_bias=BENCH_DURATION_BIAS, transfer=transfer,
-            vocoder_mode=args.vocoder, device=device)
+            preset=args.preset, checkpoint=args.checkpoint, seed=args.seed,
+            dtype=dtype,
+            bench_duration_bias=(None if args.checkpoint
+                                 else BENCH_DURATION_BIAS),
+            transfer=transfer, vocoder_mode=args.vocoder, device=device)
 
     synth = build(args.transfer)
     batch_synth = synth
@@ -217,7 +285,14 @@ def main(argv=None):
     else:
         where = "cpu (host clock; no device number)"
     synth.warmup(args.text, iters=args.warmup)
-    for result in run_metrics(synth, batch_synth, args):
+    if args.profile:
+        results, summary = profiled(
+            lambda: run_metrics(synth, batch_synth, args), args.profile,
+            device)
+        print(json.dumps(dict(summary, device=where)), flush=True)
+    else:
+        results = run_metrics(synth, batch_synth, args)
+    for result in results:
         print(json.dumps(dict(result, device=where)), flush=True)
 
 

@@ -14,8 +14,11 @@ duration bias of 6.0, so the voice is noise-like.  The vocoder comes from
 shape), else it is a random init.  It runs on the card unless
 ``--device cpu`` is given.  ``--precision f32`` serves in float32
 throughout: the vocoder's kernels run their float32 variants, and cuDNN's
-convolutions and cuBLAS's products are kept out of TF32.  ``.onnx``
-checkpoints are not supported.
+convolutions and cuBLAS's products are kept out of TF32.  A ``.onnx``
+checkpoint (``python -m efficientspeech_tpu_torch.convert --onnx``) runs
+under onnxruntime, which must be installed, at its fixed
+``--onnx-insize``.  ``--play`` plays the audio through sounddevice, or
+saves it when that is not installed.
 """
 
 import argparse
@@ -35,8 +38,12 @@ def get_args(argv=None):
                         choices=["tiny", "small", "base"])
     parser.add_argument("--checkpoint", default=None,
                         help="reference .ckpt (converted), a step_*.pt of "
-                             "the port's trainer or its directory, or a "
-                             "URL of one")
+                             "the port's trainer or its directory, a native "
+                             "parameter file, a .onnx (run under "
+                             "onnxruntime), or a URL of one")
+    parser.add_argument("--onnx-insize", type=int, default=128,
+                        help="fixed phoneme input length baked into the "
+                             ".onnx graph (convert --insize)")
     parser.add_argument("--hifigan-checkpoint", default=None,
                         help="reference HiFi-GAN generator file; random "
                              "vocoder weights without one")
@@ -63,6 +70,9 @@ def get_args(argv=None):
                              "speculative frames on; folded: plain "
                              "matmuls; chunked: the conv generator over "
                              "128-frame chunks (split pipeline)")
+    parser.add_argument("--play", action="store_true",
+                        help="play audio instead of saving (needs "
+                             "sounddevice)")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random init")
@@ -92,11 +102,69 @@ def _maybe_download(checkpoint):
     return local
 
 
+def run_onnx(args):
+    """Run an exported ``.onnx`` under onnxruntime, an optional
+    dependency: without it, a clear SystemExit.  The graph's contract is
+    the exporter's (``convert/onnx_export.py``): inputs (1, insize) int →
+    (wav, lengths, duration), duration in mel frames; the text is padded
+    with silence words to ``--onnx-insize`` phonemes, and the wav is
+    trimmed to the rounded durations of its real phonemes × hop."""
+    try:
+        import onnxruntime
+    except ImportError:
+        raise SystemExit(
+            "onnxruntime is not installed; .onnx checkpoints need it "
+            "(pip install onnxruntime).  Reference .ckpt and the port's "
+            "checkpoints run without it.")
+    import time
+
+    import numpy as np
+
+    from efficientspeech_tpu_torch.config import PreprocessConfig
+    from efficientspeech_tpu_torch.text.g2p import (
+        get_lexicon_and_g2p, text2phoneme)
+    from efficientspeech_tpu_torch.utils.tools import write_wav
+
+    cfg = (PreprocessConfig.from_yaml(args.preprocess_config)
+           if args.preprocess_config else PreprocessConfig())
+    lexicon, g2p = get_lexicon_and_g2p(cfg)
+    session = onnxruntime.InferenceSession(args.checkpoint)
+    in_name = session.get_inputs()[0].name
+
+    text = args.text.strip().replace("-", " ")
+    n_real = min(len(text2phoneme(lexicon, g2p, text, cfg)),
+                 args.onnx_insize)
+    # the fixed-insize graph: pad the text with silence words, truncate
+    padded = text + 2 * args.onnx_insize * "- "
+    phoneme = text2phoneme(lexicon, g2p, padded, cfg)[None, :args.onnx_insize]
+    ort_inputs = {in_name: phoneme.astype(np.int32)}
+
+    wav = lengths = duration = None
+    elapsed = []
+    for _ in range(max(1, args.iter)):
+        t0 = time.perf_counter()
+        wav, lengths, duration = session.run(None, ort_inputs)
+        elapsed.append(time.perf_counter() - t0)
+    hop = cfg.audio.hop_length
+    n_samples = int(np.sum(np.round(np.asarray(duration).squeeze())
+                           [:n_real])) * hop
+    wav = np.asarray(wav).squeeze()[:n_samples]
+    voice_secs = len(wav) / cfg.audio.sampling_rate
+    med = float(np.median(elapsed))
+    print(f"voice length: {voice_secs:.2f}s  synthesis: {med * 1e3:.2f}ms  "
+          f"median RTF over {len(elapsed)} iter(s): {voice_secs / med:.1f} "
+          f"(onnxruntime, lengths={np.asarray(lengths).ravel()[:1]})")
+    path = os.path.join(args.wav_path, args.wav_filename)
+    write_wav(wav, path, cfg.audio.sampling_rate, cfg.audio.max_wav_value)
+    print(f"wrote {path}")
+    return wav
+
+
 def main(argv=None):
     args = get_args(argv)
     args.checkpoint = _maybe_download(args.checkpoint)
     if args.checkpoint and args.checkpoint.endswith(".onnx"):
-        raise SystemExit(".onnx checkpoints are not supported by the port")
+        return run_onnx(args)
     import torch
 
     from efficientspeech_tpu_torch.config import PreprocessConfig
@@ -131,10 +199,20 @@ def main(argv=None):
     print(f"device={synth.device} phonemes={info['phoneme_len']} "
           f"mel_len={info['mel_len']} voice={info['voice_secs']:.2f}s "
           f"synth={info['total_secs'] * 1e3:.1f}ms RTF={info['rtf']:.1f}")
-    path = os.path.join(args.wav_path, args.wav_filename)
-    write_wav(wav, path, synth.sampling_rate,
-              synth.preprocess_cfg.audio.max_wav_value)
-    print(f"wrote {path}")
+    if args.play:
+        try:
+            import sounddevice as sd
+
+            sd.play(wav, synth.sampling_rate)
+            sd.wait()
+        except ImportError:
+            print("sounddevice not installed; saving to file instead")
+            args.play = False
+    if not args.play:
+        path = os.path.join(args.wav_path, args.wav_filename)
+        write_wav(wav, path, synth.sampling_rate,
+                  synth.preprocess_cfg.audio.max_wav_value)
+        print(f"wrote {path}")
     return wav, info
 
 

@@ -620,9 +620,12 @@ class Synthesizer:
         return done
 
 
-def load_checkpoint_params(model: EfficientSpeech, checkpoint: str):
-    """Load a checkpoint of the port's trainer into ``model.phoneme2mel``:
-    a ``step_*.pt`` file, or a directory whose latest one is read."""
+def load_checkpoint_params(model: EfficientSpeech, checkpoint: str) -> bool:
+    """Load a checkpoint of the port into ``model``: a ``step_*.pt`` file
+    of its trainer, or a directory whose latest one is read, into
+    ``model.phoneme2mel``; a parameter file of the convert CLI
+    (``save_model_params``) also into ``model.hifigan``.  Returns whether
+    the vocoder was among them."""
     from efficientspeech_tpu_torch.training.checkpoint import (
         latest_checkpoint)
 
@@ -634,6 +637,19 @@ def load_checkpoint_params(model: EfficientSpeech, checkpoint: str):
                                     f"{checkpoint}")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     model.phoneme2mel.load_state_dict(payload["params"], strict=True)
+    if "hifigan" in payload:
+        model.hifigan.load_state_dict(payload["hifigan"], strict=True)
+    return "hifigan" in payload
+
+
+def save_model_params(path: str, model: EfficientSpeech):
+    """The port's native parameter file: ``{"params": the acoustic
+    model's state dict, "hifigan": the vocoder's}``, float32 as the
+    model holds them, which ``build_synthesizer(checkpoint=)`` and every
+    CLI's ``--checkpoint`` load."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"params": model.phoneme2mel.state_dict(),
+                "hifigan": model.hifigan.state_dict()}, path)
 
 
 def _is_port_checkpoint(path: str) -> bool:
@@ -673,44 +689,21 @@ def load_reference_params(model: EfficientSpeech, checkpoint: str):
     return "hifigan" in tree
 
 
-def build_synthesizer(preset: str = "tiny",
-                      params=None,
-                      checkpoint: Optional[str] = None,
-                      hifigan_checkpoint: Optional[str] = None,
-                      hifigan_cfg: Optional[HifiGanConfig] = None,
-                      hifigan_config: Optional[str] = None,
-                      preprocess_cfg: Optional[PreprocessConfig] = None,
-                      stats: Optional[dict] = None,
-                      dtype=torch.bfloat16,
-                      seed: int = 0,
-                      bench_duration_bias: Optional[float] = None,
-                      transfer: str = "int16",
-                      vocoder_mode: str = "folded_kernel",
-                      model_overrides: Optional[dict] = None,
-                      device=None) -> Synthesizer:
-    """Build a Synthesizer from a JAX-layout parameter tree (``params``,
-    with ``phoneme2mel`` and ``hifigan`` subtrees) or, without one, from a
-    native random init seeded by ``seed``.
-
-    ``checkpoint`` then replaces the acoustic model's parameters: a
-    reference EfficientSpeech checkpoint (``.ckpt``/``.pt``/``.pth``
-    holding ``phoneme2mel.*`` weights, and the vocoder's too where it has
-    ``hifigan.*`` ones), or a checkpoint of the port's trainer (a
-    ``step_*.pt`` file or its directory); the file's contents tell them
-    apart.  ``hifigan_checkpoint``, when that file exists, is a reference
-    HiFi-GAN generator file (``{"generator": state_dict}``) that replaces
-    the vocoder's parameters, unless ``params`` or ``checkpoint`` brought
-    them.  Otherwise the vocoder stays the random init.
-
-    ``hifigan_cfg`` / ``hifigan_config`` (a config.json path; default the
-    ``config.json`` beside ``hifigan_checkpoint`` where there is one)
-    choose the vocoder's shape, else the LJ_V2 widths.  ``stats`` (the
-    corpus's stats.json) sets the pitch and energy bins.
-    ``bench_duration_bias`` sets the duration head's bias of a random init
-    only (random weights otherwise predict ~0 frames); loaded ``params``
-    keep their own, as in the JAX package.  ``device`` defaults to the
-    card and raises without one."""
-    device = resolve_device(device)
+def build_model(preset: str = "tiny",
+                params=None,
+                checkpoint: Optional[str] = None,
+                hifigan_checkpoint: Optional[str] = None,
+                hifigan_cfg: Optional[HifiGanConfig] = None,
+                hifigan_config: Optional[str] = None,
+                stats: Optional[dict] = None,
+                seed: int = 0,
+                bench_duration_bias: Optional[float] = None,
+                model_overrides: Optional[dict] = None) -> EfficientSpeech:
+    """The float32 ``EfficientSpeech`` on the CPU (its ``cfg`` and
+    ``hifigan_cfg`` attached) from a JAX-layout parameter tree
+    (``params``, with ``phoneme2mel`` and ``hifigan`` subtrees) or,
+    without one, from a native random init seeded by ``seed``; the
+    arguments are ``build_synthesizer``'s."""
     overrides = dict(model_overrides or {})
     if stats is not None:
         overrides.setdefault("pitch_stats", tuple(stats["pitch"][:2]))
@@ -733,7 +726,7 @@ def build_synthesizer(preset: str = "tiny",
             set_duration_bias(model, bench_duration_bias)
     if checkpoint is not None:
         if _is_port_checkpoint(checkpoint):
-            load_checkpoint_params(model, checkpoint)
+            vocoder_loaded |= load_checkpoint_params(model, checkpoint)
         else:
             vocoder_loaded |= load_reference_params(model, checkpoint)
     if (not vocoder_loaded and hifigan_checkpoint
@@ -744,7 +737,55 @@ def build_synthesizer(preset: str = "tiny",
         load_jax_params(model.hifigan, load_hifigan_checkpoint(
             hifigan_checkpoint,
             num_kernels=len(hifigan_cfg.resblock_kernel_sizes)))
-    return Synthesizer(cfg, hifigan_cfg, model,
+    return model
+
+
+def build_synthesizer(preset: str = "tiny",
+                      params=None,
+                      checkpoint: Optional[str] = None,
+                      hifigan_checkpoint: Optional[str] = None,
+                      hifigan_cfg: Optional[HifiGanConfig] = None,
+                      hifigan_config: Optional[str] = None,
+                      preprocess_cfg: Optional[PreprocessConfig] = None,
+                      stats: Optional[dict] = None,
+                      dtype=torch.bfloat16,
+                      seed: int = 0,
+                      bench_duration_bias: Optional[float] = None,
+                      transfer: str = "int16",
+                      vocoder_mode: str = "folded_kernel",
+                      model_overrides: Optional[dict] = None,
+                      device=None) -> Synthesizer:
+    """Build a Synthesizer from a JAX-layout parameter tree (``params``,
+    with ``phoneme2mel`` and ``hifigan`` subtrees) or, without one, from a
+    native random init seeded by ``seed``.
+
+    ``checkpoint`` then replaces the acoustic model's parameters: a
+    reference EfficientSpeech checkpoint (``.ckpt``/``.pt``/``.pth``
+    holding ``phoneme2mel.*`` weights, and the vocoder's too where it has
+    ``hifigan.*`` ones), a checkpoint of the port's trainer (a
+    ``step_*.pt`` file or its directory), or a parameter file of the
+    port's convert CLI (``save_model_params``, the vocoder's too); the
+    file's contents tell them apart.  ``hifigan_checkpoint``, when that
+    file exists, is a reference HiFi-GAN generator file (``{"generator": state_dict}``) that replaces
+    the vocoder's parameters, unless ``params`` or ``checkpoint`` brought
+    them.  Otherwise the vocoder stays the random init.
+
+    ``hifigan_cfg`` / ``hifigan_config`` (a config.json path; default the
+    ``config.json`` beside ``hifigan_checkpoint`` where there is one)
+    choose the vocoder's shape, else the LJ_V2 widths.  ``stats`` (the
+    corpus's stats.json) sets the pitch and energy bins.
+    ``bench_duration_bias`` sets the duration head's bias of a random init
+    only (random weights otherwise predict ~0 frames); loaded ``params``
+    keep their own, as in the JAX package.  ``device`` defaults to the
+    card and raises without one."""
+    device = resolve_device(device)
+    model = build_model(preset, params=params, checkpoint=checkpoint,
+                        hifigan_checkpoint=hifigan_checkpoint,
+                        hifigan_cfg=hifigan_cfg,
+                        hifigan_config=hifigan_config, stats=stats,
+                        seed=seed, bench_duration_bias=bench_duration_bias,
+                        model_overrides=model_overrides)
+    return Synthesizer(model.cfg, model.hifigan_cfg, model,
                        preprocess_cfg=preprocess_cfg, dtype=dtype,
                        transfer=transfer, vocoder_mode=vocoder_mode,
                        device=device)

@@ -147,7 +147,9 @@ class Encoder(nn.Module):
 
     def forward(self, phoneme, pad_mask):
         cfg = self.cfg
-        *_, lengths, pools = encoder_stage_geometry(cfg, phoneme.shape[1])
+        # a Python int: a traced size (torch.jit.trace) would be a tensor
+        *_, lengths, pools = encoder_stage_geometry(
+            cfg, int(phoneme.shape[1]))
         # the compute dtype is the convs' (see modules.compute_params)
         x = self.embed(phoneme, self.stage0.merge3x3.weight.dtype)
         features, masks = [], []
@@ -251,11 +253,18 @@ class ScalarEmbedding(nn.Module):
 
     @property
     def bins(self) -> torch.Tensor:
+        if torch.jit.is_tracing():
+            # the TorchScript tracer (also under the ONNX exporter) cannot
+            # record view(dtype); the bins enter its graph as a constant
+            bits = self.bins_bits.cpu().numpy()
+            return torch.from_numpy(bits.view(np.float32)).to(
+                self.bins_bits.device)
         return self.bins_bits.view(torch.float32)
 
     def forward(self, value):
-        # torch.bucketize(v, bins) == searchsorted(bins, v, side='left')
-        idx = torch.searchsorted(self.bins, value.float().contiguous())
+        # bucketize(v, bins) == searchsorted(bins, v, side='left'), the
+        # JAX package's index; unlike searchsorted it exports to ONNX
+        idx = torch.bucketize(value.float(), self.bins)
         return self.weight[idx]
 
 

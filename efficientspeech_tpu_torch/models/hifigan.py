@@ -38,7 +38,9 @@ def _mask_tail(x: torch.Tensor, valid_len: Optional[torch.Tensor],
     if valid_start is not None:
         ge = pos >= valid_start[:, None]
         keep = ge if keep is None else keep & ge
-    return torch.where(keep[:, :, None], x, torch.zeros_like(x))
+    # masked_fill, not where(keep, x, zeros_like(x)): the same values,
+    # and a traced graph (ONNX) holds no zero tensor of x's size
+    return x.masked_fill(~keep[:, :, None], 0.0)
 
 
 class ResBlock1(nn.Module):
@@ -154,7 +156,8 @@ def chunked_vocoder_call(gen_fn, total_upsample: int, mel: torch.Tensor,
     gen_fn: (chunks (N, span, M), local valid (N,), local start (N,)) →
     (N, span·u).
     """
-    b, t, m = mel.shape
+    # Python ints: under torch.jit.trace a size is a CPU tensor
+    b, t, m = (int(d) for d in mel.shape)
     dev = mel.device
     n_chunks = -(-t // chunk_frames)
     pad_t = n_chunks * chunk_frames

@@ -2,7 +2,8 @@
 
 With ``cum = cumsum(durations)``, mel frame ``f`` belongs to the first
 phoneme ``j`` with ``cum[j] > f``, i.e. ``searchsorted(cum, f,
-right=True)``.  A gather plus the mask ``f < mel_len`` equals
+right=True)``, which is also the count of ``cum[j] <= f`` (the form an
+ONNX export takes).  A gather plus the mask ``f < mel_len`` equals
 repeat_interleave + padding at a fixed (max_mel_len) output shape, so the
 mel length never has to reach the host.
 
@@ -41,11 +42,20 @@ def length_regulate(features: torch.Tensor, durations: torch.Tensor,
         frames = torch.where(frame_valid[:, :, None], frames,
                              torch.zeros_like(frames))
         return frames, frame_valid, mel_len
-    idx = torch.searchsorted(cum, frame_pos.expand(b, -1).contiguous(),
-                             right=True)
-    idx = idx.clamp_max(features.shape[1] - 1)
+    if torch.onnx.is_in_onnx_export():
+        # aten::searchsorted has no ONNX export; this count is the same
+        # index, at (B, M, N) memory, which only the fixed-size exported
+        # graph can afford
+        idx = (cum[:, None, :] <= frame_pos[None, :, None]).sum(-1)
+    else:
+        idx = torch.searchsorted(cum, frame_pos.expand(b, -1).contiguous(),
+                                 right=True)
+    # a Python int: under torch.jit.trace a size is a CPU tensor, which
+    # clamp_max refuses beside a CUDA one
+    idx = idx.clamp_max(int(features.shape[1]) - 1)
     frames = torch.gather(
         features, 1, idx[:, :, None].expand(-1, -1, features.shape[2]))
-    frames = torch.where(frame_valid[:, :, None], frames,
-                         torch.zeros_like(frames))
+    # masked_fill keeps a traced graph (ONNX) free of a zero tensor of
+    # the frames' size
+    frames = frames.masked_fill(~frame_valid[:, :, None], 0.0)
     return frames, frame_valid, mel_len

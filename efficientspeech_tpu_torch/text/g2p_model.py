@@ -7,15 +7,18 @@ model replaces the rules as the primary OOV path (VERDICT r4 next #1).
 
 Design constraints drive the shape of this file:
 
-- The forward is array-library generic: every function takes ``xp``
-  (this package serves it with numpy) and the params are a flat dict of
-  arrays — no framework state.  Serving decodes without dropout; the
-  training side (dropout with a random key) is not part of this package.
+- The SAME forward runs under numpy (serving-time inference inside the
+  text frontend, which must stay light) and under torch (training on the
+  card, ``train_g2p.py``).  Every function therefore takes ``xp`` (the
+  numpy module, or a ``TorchXP`` namespace of the same functions over
+  torch tensors) and the params are a flat dict of arrays — no framework
+  state.  Dropout draws from a ``torch.Generator`` (the ``rng``
+  argument); serving decodes with ``rng=None``.
 - Sub-1M parameters (d=128, 3 encoder + 2 decoder pre-LN blocks,
   4 heads, FFN 256): trained on ~5k gold + augmented pairs, anything
   bigger memorizes.
-- Static shapes everywhere (MAX_SRC/MAX_TGT) so the jit'd training step
-  compiles once.
+- Static shapes everywhere (MAX_SRC/MAX_TGT): every training batch has
+  one shape.
 """
 
 import math
@@ -112,7 +115,51 @@ def init_params(seed: int = 0) -> Dict[str, np.ndarray]:
     return p
 
 
-# --- forward (xp = numpy) ------------------------------------------------------
+# --- forward (xp = numpy | TorchXP) -------------------------------------------
+
+class TorchXP:
+    """The numpy functions the forward calls, over torch tensors on
+    ``device`` (default: the card, raising without one), plus
+    ``bernoulli`` for dropout's keep mask."""
+
+    def __init__(self, device=None):
+        import torch
+
+        from efficientspeech_tpu_torch.device import resolve_device
+
+        self._torch = torch
+        self.device = resolve_device(device)
+        self.float32 = torch.float32
+        self.sqrt, self.exp = torch.sqrt, torch.exp
+        self.where, self.broadcast_to = torch.where, torch.broadcast_to
+
+    @staticmethod
+    def mean(x, axis, keepdims=False):
+        return x.mean(axis, keepdim=keepdims)
+
+    @staticmethod
+    def max(x, axis, keepdims=False):
+        return x.amax(axis, keepdim=keepdims)
+
+    @staticmethod
+    def sum(x, axis, keepdims=False):
+        return x.sum(axis, keepdim=keepdims)
+
+    @staticmethod
+    def maximum(x, y):
+        return x.clamp_min(y)
+
+    def arange(self, n):
+        return self._torch.arange(n, device=self.device)
+
+    def asarray(self, x, dtype=None):
+        return self._torch.asarray(x, dtype=dtype, device=self.device)
+
+    def bernoulli(self, gen, p, shape):
+        """True with probability ``p``, from the generator ``gen``."""
+        return self._torch.rand(shape, generator=gen,
+                                device=self.device) < p
+
 
 def _ln(x, s, b, xp):
     mu = xp.mean(x, axis=-1, keepdims=True)
@@ -134,15 +181,15 @@ def _mha(p, prefix, x_q, x_kv, mask, xp):
 
     def split(x, w, L):
         y = x @ p[f"{prefix}_{w}w"]
-        return y.reshape(B, L, N_HEADS, dh).transpose(0, 2, 1, 3)
+        return y.reshape(B, L, N_HEADS, dh).swapaxes(1, 2)
 
     q = split(x_q, "q", Lq)
     k = split(x_kv, "k", Lk)
     v = split(x_kv, "v", Lk)
-    att = q @ k.transpose(0, 1, 3, 2) / math.sqrt(dh)
+    att = q @ k.swapaxes(2, 3) / math.sqrt(dh)
     att = att + mask[:, None, :, :]
     att = _softmax(att, xp)
-    y = (att @ v).transpose(0, 2, 1, 3).reshape(B, Lq, D_MODEL)
+    y = (att @ v).swapaxes(1, 2).reshape(B, Lq, D_MODEL)
     return y @ p[f"{prefix}_ow"]
 
 
@@ -154,8 +201,8 @@ def _ffn(p, prefix, x, xp):
 def _dropout(x, rate, rng, xp):
     if rng is None or rate <= 0.0:
         return x
-    raise NotImplementedError("dropout is training-only; serving decodes "
-                              "with rng=None")
+    keep = xp.bernoulli(rng, 1.0 - rate, x.shape)
+    return xp.where(keep, x / (1.0 - rate), 0.0)
 
 
 def encoder(p, char_ids, xp, dropout=0.0, rng=None):
@@ -163,51 +210,43 @@ def encoder(p, char_ids, xp, dropout=0.0, rng=None):
     mask [B, 1, MAX_SRC])."""
     B = char_ids.shape[0]
     pad = (char_ids == CHAR_PAD)
-    mask = xp.where(pad[:, None, :], -1e9, 0.0).astype(xp.float32)
+    mask = xp.asarray(xp.where(pad[:, None, :], -1e9, 0.0),
+                      dtype=xp.float32)
     x = p["char_emb"][char_ids] + p["src_pos"][None, :, :]
-    rngs = _split_rngs(rng, 2 * N_ENC)
     for i in range(N_ENC):
         pre = f"enc{i}"
         h = _ln(x, p[f"{pre}_self_ln_s"], p[f"{pre}_self_ln_b"], xp)
         x = x + _dropout(_mha(p, f"{pre}_self", h, h,
                               xp.broadcast_to(mask, (B, MAX_SRC, MAX_SRC)),
-                              xp), dropout, rngs[2 * i], xp)
+                              xp), dropout, rng, xp)
         h = _ln(x, p[f"{pre}_ffn_ln_s"], p[f"{pre}_ffn_ln_b"], xp)
         x = x + _dropout(_ffn(p, f"{pre}_ffn", h, xp),
-                         dropout, rngs[2 * i + 1], xp)
+                         dropout, rng, xp)
     x = _ln(x, p["enc_ln_s"], p["enc_ln_b"], xp)
     return x, mask
-
-
-def _split_rngs(rng, n):
-    if rng is None:
-        return [None] * n
-    raise NotImplementedError("random keys are training-only; serving "
-                              "decodes with rng=None")
 
 
 def decoder_logits(p, memory, src_mask, tgt_in, xp, dropout=0.0, rng=None):
     """Teacher-forced decode: tgt_in [B, L] (BOS-shifted) → logits
     [B, L, N_PHONES].  L may be < MAX_TGT (greedy decode grows it)."""
     B, L = tgt_in.shape
-    causal = xp.where(
+    causal = xp.asarray(xp.where(
         xp.arange(L)[None, :, None] < xp.arange(L)[None, None, :],
-        -1e9, 0.0).astype(xp.float32)
+        -1e9, 0.0), dtype=xp.float32)
     causal = xp.broadcast_to(causal, (B, L, L))
     cross_mask = xp.broadcast_to(src_mask, (B, L, MAX_SRC))
     x = p["phone_emb"][tgt_in] + p["tgt_pos"][None, :L, :]
-    rngs = _split_rngs(rng, 3 * N_DEC)
     for i in range(N_DEC):
         pre = f"dec{i}"
         h = _ln(x, p[f"{pre}_self_ln_s"], p[f"{pre}_self_ln_b"], xp)
         x = x + _dropout(_mha(p, f"{pre}_self", h, h, causal, xp),
-                         dropout, rngs[3 * i], xp)
+                         dropout, rng, xp)
         h = _ln(x, p[f"{pre}_cross_ln_s"], p[f"{pre}_cross_ln_b"], xp)
         x = x + _dropout(_mha(p, f"{pre}_cross", h, memory, cross_mask, xp),
-                         dropout, rngs[3 * i + 1], xp)
+                         dropout, rng, xp)
         h = _ln(x, p[f"{pre}_ffn_ln_s"], p[f"{pre}_ffn_ln_b"], xp)
         x = x + _dropout(_ffn(p, f"{pre}_ffn", h, xp),
-                         dropout, rngs[3 * i + 2], xp)
+                         dropout, rng, xp)
     x = _ln(x, p["dec_ln_s"], p["dec_ln_b"], xp)
     return x @ p["head_w"] + p["head_b"]
 

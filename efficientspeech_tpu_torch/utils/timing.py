@@ -1,6 +1,7 @@
 """Timing on the card (the counterpart of the JAX package's
-``benchmarks/_chain.py``): CUDA events around a run of calls, and the
-card's name and power limit to print beside every number."""
+``benchmarks/_chain.py``): CUDA events around a run of calls, the
+device's busy time in a ``torch.profiler`` trace, and the card's name and
+power limit to print beside every number."""
 
 import subprocess
 import time
@@ -57,3 +58,20 @@ def time_ms_flushed(fn, iters: int, flush_bytes: int = 64 << 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in spans) / iters
+
+
+def busy_ms(prof) -> float:
+    """The device's busy time in a ``torch.profiler`` trace: the union of
+    its kernels' time intervals (kernels that overlap, as on cuDNN's side
+    streams, count once)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -162,13 +163,17 @@ def test_precision_f32_turns_tf32_off(monkeypatch, tmp_path, cli):
 
 @pytest.mark.parametrize("entry", ["demo", "preprocess", "Preprocessor",
                                    "MelSpectrogram", "train_vocoder",
-                                   "create_vocoder_trainer"])
+                                   "create_vocoder_trainer", "train_g2p",
+                                   "G2pTrainer", "convert"])
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
-    """The demo, the preprocessing and the vocoder-training entry points
-    compute on the card and refuse to start without one unless asked for
-    the CPU; prepare_align does no device work
+    """The demo, the preprocessing, the vocoder- and G2P-training and the
+    convert entry points compute on the card and refuse to start without
+    one unless asked for the CPU (the CLIs' runs with ``--device cpu`` are
+    in their own test files); prepare_align does no device work
     (tests/test_torch_preprocess.py runs it)."""
-    from efficientspeech_tpu_torch import demo, preprocess, train_vocoder
+    from efficientspeech_tpu_torch import (
+        demo, preprocess, train_g2p, train_vocoder)
+    from efficientspeech_tpu_torch.convert import __main__ as convert
     from efficientspeech_tpu_torch.audio.stft import MelSpectrogram
     from efficientspeech_tpu_torch.config import (
         AudioConfig, HifiGanConfig, PreprocessConfig)
@@ -194,10 +199,16 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
             + (["--device", kw["device"]] if kw else [])),
         "create_vocoder_trainer": lambda **kw: create_vocoder_trainer(
             HifiGanConfig(upsample_initial_channel=16), AudioConfig(), **kw),
+        "train_g2p": lambda **kw: train_g2p.main(["--steps", "1"]),
+        "G2pTrainer": lambda **kw: train_g2p.G2pTrainer(
+            {"w": np.zeros((2, 2), np.float32)}, 4, **kw),
+        "convert": lambda **kw: convert.main(
+            ["--checkpoint", str(tmp_path / "absent.ckpt")]),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
-    if entry in ("Preprocessor", "MelSpectrogram", "create_vocoder_trainer"):
+    if entry in ("Preprocessor", "MelSpectrogram", "create_vocoder_trainer",
+                 "G2pTrainer"):
         call(device="cpu")
 
 
