@@ -19,13 +19,24 @@ it.
 Every wait of the host for the card goes through one
 ``Synthesizer._device_get``, which a server arms with a deadline
 (``fetch_timeout_s``): a read that misses it raises ``SynthesisTimeout``.
+
+Each host phase is a span of ``utils/spans.py`` carrying the
+synthesizer's id (``synth``): ``tts_batch`` (a call, id ``call``) with
+``tts_batch.frontend``, ``.pack`` and ``.decode``; ``tts`` with
+``tts.frontend``; ``tts_stream.frontend`` and ``tts_stream.segment``;
+inside any of them ``synth.upload``, ``synth.acoustic``,
+``synth.vocoder`` (``synth.vocoder.row`` per row of the kernel route),
+``synth.encode``, ``synth.fetch.wait`` (the host blocked on the card) and
+``synth.fetch.copy``; counters ``synth.rows``, ``synth.pad_rows`` and
+``synth.reruns``.  The timings in each call's info are read from these
+spans' stamps.
 """
 
 import collections
+import itertools
 import os
 import pickle
 import threading
-import time
 import warnings
 from typing import Optional, Tuple
 
@@ -46,6 +57,7 @@ from efficientspeech_tpu_torch.models.modules import cast_params_
 from efficientspeech_tpu_torch.text.g2p import (
     get_lexicon_and_g2p, text2phoneme)
 from efficientspeech_tpu_torch.text.symbols import PAD_ID, symbols
+from efficientspeech_tpu_torch.utils import spans
 from efficientspeech_tpu_torch.utils.tools import next_bucket
 from efficientspeech_tpu_torch.weights import (
     init_params, load_jax_params, set_duration_bias)
@@ -152,6 +164,10 @@ class Synthesizer:
         self._fetch_fn = None
         self._live_fetches = 0
         self._fetch_lock = threading.Lock()
+        # every span of this synthesizer carries its id ``synth``; each
+        # ``tts_batch`` / ``tts`` call takes the next ``call`` id
+        self.span_id = spans.new_synth()
+        self._calls = itertools.count()
 
         model = model.to(self.device).eval()
         # Linear and conv weights in ``dtype``; LayerNorm and embedding
@@ -163,6 +179,9 @@ class Synthesizer:
                 arrays, self.fold_meta, hifigan_cfg)
         # the conv generator, computing in ``dtype``: the chunked mode's
         self.generator = cast_params_(model.hifigan, dtype)
+
+    def _span(self, name: str, **ids):
+        return spans.span(name, synth=self.span_id, **ids)
 
     # --- frontend ----------------------------------------------------------
     def phonemize(self, text: str) -> np.ndarray:
@@ -230,12 +249,18 @@ class Synthesizer:
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
+        # the read's spans belong to the caller's, on whichever thread
+        caller = spans.current()
 
         def read():
             try:
-                if done is not None:
-                    done.synchronize()
-                return fetch(tensors)
+                with spans.span("synth.fetch.wait", parent=caller,
+                                synth=self.span_id):
+                    if done is not None:
+                        done.synchronize()
+                with spans.span("synth.fetch.copy", parent=caller,
+                                synth=self.span_id):
+                    return fetch(tensors)
             finally:
                 with self._fetch_lock:
                     self._live_fetches -= 1
@@ -276,10 +301,11 @@ class Synthesizer:
         stream's earlier work: outside any deadline, and between programs
         that could have queued back to back).  PyTorch's pinned
         allocator keeps the staging block until the copy has run."""
-        t = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with self._span("synth.upload"):
+            t = torch.from_numpy(arr)
+            if self.device.type != "cuda":
+                return t
+            return t.pin_memory().to(self.device, non_blocking=True)
 
     # --- the device programs --------------------------------------------
     def _predict(self, phoneme: np.ndarray, frames: int,
@@ -297,8 +323,9 @@ class Synthesizer:
         ph = self._upload(phoneme)
         spk = (None if speaker is None else
                self._upload(np.array([speaker], np.int64)))
-        return self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
-                             speaker=spk)
+        with self._span("synth.acoustic"):
+            return self.acoustic(ph, ph == PAD_ID, max_mel_len=frames,
+                                 speaker=spk)
 
     def _vocode_folded(self, mel: torch.Tensor,
                        mel_len: torch.Tensor) -> torch.Tensor:
@@ -307,11 +334,12 @@ class Synthesizer:
         mode (row by row at B > 1); ``mel_len`` (B,) stays on the card."""
         use_kernel = (self.vocoder_mode == "folded_kernel"
                       and mel.shape[1] >= KERNEL_MIN_FRAMES)
-        return folded_plan_apply(
-            self.folded, self.fold_meta, self.hifigan_cfg, mel,
-            valid_len=torch.clamp(mel_len, max=mel.shape[1]),
-            dtype=self.dtype, use_kernel=use_kernel, fuse_mrf=use_kernel,
-            mrf=self.mrf)
+        with self._span("synth.vocoder"):
+            return folded_plan_apply(
+                self.folded, self.fold_meta, self.hifigan_cfg, mel,
+                valid_len=torch.clamp(mel_len, max=mel.shape[1]),
+                dtype=self.dtype, use_kernel=use_kernel, fuse_mrf=use_kernel,
+                mrf=self.mrf)
 
     @torch.no_grad()
     def _run(self, phoneme: np.ndarray, frames: int,
@@ -321,8 +349,9 @@ class Synthesizer:
         card, durations)."""
         pred = self._predict(phoneme, frames, speaker)
         wav = self._vocode_folded(pred["mel"], pred["mel_len"])
-        return encode_device(wav, self.transfer), pred["mel_len"], \
-            pred["duration"]
+        with self._span("synth.encode"):
+            pcm = encode_device(wav, self.transfer)
+        return pcm, pred["mel_len"], pred["duration"]
 
     @torch.no_grad()
     def _acoustic_split(self, phoneme: np.ndarray,
@@ -341,13 +370,16 @@ class Synthesizer:
         folded vocoder to int16 PCM, or in the chunked mode the conv
         generator over VOCODER_CHUNK-frame chunks to float."""
         if self.vocoder_mode == "chunked":
-            return chunked_vocoder_call(
-                lambda c, v, st: self.generator(c, valid_len=v,
-                                                valid_start=st),
-                self.hifigan_cfg.total_upsample, mel, mel_len,
-                chunk_frames=self.VOCODER_CHUNK,
-                halo=self.VOCODER_HALO).float()
-        return encode_device(self._vocode_folded(mel, mel_len), "int16")
+            with self._span("synth.vocoder"):
+                return chunked_vocoder_call(
+                    lambda c, v, st: self.generator(c, valid_len=v,
+                                                    valid_start=st),
+                    self.hifigan_cfg.total_upsample, mel, mel_len,
+                    chunk_frames=self.VOCODER_CHUNK,
+                    halo=self.VOCODER_HALO).float()
+        wav = self._vocode_folded(mel, mel_len)
+        with self._span("synth.encode"):
+            return encode_device(wav, "int16")
 
     @staticmethod
     def _chunk_bucket(n_chunks: int) -> int:
@@ -376,6 +408,7 @@ class Synthesizer:
         the card).  If the speculative buffer undershoots the true mel
         length, the utterance re-runs at a size that holds it."""
         phoneme, _, bucket = self._pad_to_bucket(seq)
+        spans.count("synth.rows", synth=self.span_id)
         if not self.fused_pipeline or self.vocoder_mode == "chunked":
             return self._synthesize_split(seq, phoneme, speaker)
         n_valid = int(min(len(seq), bucket))
@@ -386,6 +419,7 @@ class Synthesizer:
         if mel_len > spec:
             full = bucket * self.mel_expansion
             if spec < full:
+                spans.count("synth.reruns", synth=self.span_id)
                 spec = self._spec_frames(n_valid, bucket,
                                          min_frames=min(mel_len, full))
                 pcm, mel_len_dev, duration = self._run(phoneme, spec,
@@ -410,6 +444,7 @@ class Synthesizer:
         mel_len = min(int(self._device_get(mel_len_dev[:1])[0][0]),
                       mel.shape[1])
         if mel_len > slice_len:
+            spans.count("synth.reruns", synth=self.span_id)
             slice_len = self._split_slice(mel_len, mel.shape[1])
             wav = self._vocode_split(mel[:, :slice_len], mel_len_dev)
         n = mel_len * self.hifigan_cfg.total_upsample
@@ -451,22 +486,22 @@ class Synthesizer:
     def tts(self, text: str, verbose: bool = False,
             speaker: Optional[int] = None):
         """Text → (wav, info with stage timings and RTF)."""
-        t0 = time.time()
-        seq = self.phonemize(text)
-        t1 = time.time()
-        wav, mel_len, _ = self.tts_ids_timed(seq, speaker=speaker)
-        t2 = time.time()
+        with self._span("tts", call=next(self._calls)) as call:
+            with spans.span("tts.frontend") as frontend:
+                seq = self.phonemize(text)
+            wav, mel_len, _ = self.tts_ids_timed(seq, speaker=speaker)
         voice_len = len(wav) / self.sampling_rate
-        elapsed = t2 - t0
+        elapsed = call.secs
+        model = (call.end_ns - frontend.end_ns) / 1e9
         info = {
             "phoneme_len": len(seq),
             "mel_len": mel_len,
             "voice_secs": voice_len,
-            "frontend_secs": t1 - t0,
-            "model_secs": t2 - t1,
+            "frontend_secs": frontend.secs,
+            "model_secs": model,
             "total_secs": elapsed,
             "rtf": voice_len / elapsed if elapsed > 0 else float("inf"),
-            "model_rtf": voice_len / (t2 - t1) if t2 > t1 else float("inf"),
+            "model_rtf": voice_len / model if model > 0 else float("inf"),
         }
         if verbose:
             print(f"voice: {voice_len:.2f}s  synth: {elapsed * 1e3:.2f}ms  "
@@ -478,16 +513,21 @@ class Synthesizer:
         ({sp}) segment of at most ``segment_phonemes`` (default a quarter
         of the largest bucket), so the first audio waits for one
         segment's synthesis, not the whole text's."""
-        seq = self.phonemize(text)
-        max_len = min(segment_phonemes or self.phoneme_buckets[-1] // 4 or 1,
-                      self.phoneme_buckets[-1])
-        segments = self._segment(seq, max_len)
+        call = next(self._calls)
+        with self._span("tts_stream.frontend", call=call):
+            seq = self.phonemize(text)
+            max_len = min(
+                segment_phonemes or self.phoneme_buckets[-1] // 4 or 1,
+                self.phoneme_buckets[-1])
+            segments = self._segment(seq, max_len)
         for idx, seg in enumerate(segments):
-            t0 = time.time()
-            wav, mel_len, _ = self.synthesize_ids(seg)
+            # closed before the yield: the caller's code runs in between
+            with self._span("tts_stream.segment", call=call,
+                            segment=idx) as sp:
+                wav, mel_len, _ = self.synthesize_ids(seg)
             yield wav, {"segment": idx, "n_segments": len(segments),
                         "mel_len": mel_len, "phonemes": len(seg),
-                        "secs": time.time() - t0}
+                        "secs": sp.secs}
 
     def tts_batch(self, texts):
         """Batched synthesis (serving throughput): every text is
@@ -499,58 +539,64 @@ class Synthesizer:
         row's samples.  Returns (wav float32, info) per text."""
         if not self.fused_pipeline or self.vocoder_mode == "chunked":
             return self._tts_batch_split(texts)
-        rows, owner = [], []
-        for ti, text in enumerate(texts):
-            for seg in self._segment(self.phonemize(text)):
-                rows.append(seg)
-                owner.append(ti)
-        b = len(rows)
-        b_pad = self._chunk_bucket(b)
-        max_len = max(len(r) for r in rows)
-        bucket = next_bucket(max_len, self.phoneme_buckets)
-        spec = self._spec_frames(min(max_len, bucket), bucket)
-        phoneme = np.zeros((b_pad, bucket), np.int32)
-        for i, r in enumerate(rows):
-            phoneme[i, : len(r)] = r[: bucket]
-        up = self.hifigan_cfg.total_upsample
+        with self._span("tts_batch", call=next(self._calls)):
+            with spans.span("tts_batch.frontend"):
+                rows, owner = [], []
+                for ti, text in enumerate(texts):
+                    for seg in self._segment(self.phonemize(text)):
+                        rows.append(seg)
+                        owner.append(ti)
+            with spans.span("tts_batch.pack") as pack:
+                b = len(rows)
+                b_pad = self._chunk_bucket(b)
+                spans.count("synth.rows", b)
+                spans.count("synth.pad_rows", b_pad - b)
+                max_len = max(len(r) for r in rows)
+                bucket = next_bucket(max_len, self.phoneme_buckets)
+                spec = self._spec_frames(min(max_len, bucket), bucket)
+                phoneme = np.zeros((b_pad, bucket), np.int32)
+                for i, r in enumerate(rows):
+                    phoneme[i, : len(r)] = r[: bucket]
+            up = self.hifigan_cfg.total_upsample
 
-        def run(spec):
-            pcm, mel_len_dev, _ = self._run(phoneme, spec)
-            mel_lens = self._device_get(mel_len_dev[:b])[0]
-            n = min(int(mel_lens.max()), spec) * up
-            cut = elements_for_samples(self.transfer, n)
-            return self._device_get(pcm[:b, :cut])[0], mel_lens
+            def run(spec):
+                pcm, mel_len_dev, _ = self._run(phoneme, spec)
+                mel_lens = self._device_get(mel_len_dev[:b])[0]
+                n = min(int(mel_lens.max()), spec) * up
+                cut = elements_for_samples(self.transfer, n)
+                return self._device_get(pcm[:b, :cut])[0], mel_lens
 
-        t0 = time.time()
-        pcm_np, mel_lens = run(spec)
-        for i, r in enumerate(rows):
-            self._observe_ratio(int(mel_lens[i]), len(r))
-        full = bucket * self.mel_expansion
-        if mel_lens.max() > spec and spec < full:  # undershoot: re-run
-            spec = self._spec_frames(
-                min(max_len, bucket), bucket,
-                min_frames=min(int(mel_lens.max()), full))
             pcm_np, mel_lens = run(spec)
-        mel_lens = np.minimum(mel_lens, samples_for_elements(
-            self.transfer, pcm_np.shape[1]) // up)
-        elapsed = time.time() - t0
-
-        per_text_wavs = [[] for _ in texts]
-        per_text_mel = [0] * len(texts)
-        for i in range(b):
-            n = int(mel_lens[i]) * up
-            w = decode_host(
-                pcm_np[i][: elements_for_samples(self.transfer, n)],
-                self.transfer)[:n]
-            per_text_wavs[owner[i]].append(w)
-            per_text_mel[owner[i]] += int(mel_lens[i])
-        out = []
-        for ti in range(len(texts)):
-            w = (np.concatenate(per_text_wavs[ti]) if per_text_wavs[ti]
-                 else np.zeros(0, np.float32))
-            out.append((w, {"voice_secs": len(w) / self.sampling_rate,
-                            "batch_secs": elapsed,
-                            "mel_len": per_text_mel[ti]}))
+            for i, r in enumerate(rows):
+                self._observe_ratio(int(mel_lens[i]), len(r))
+            full = bucket * self.mel_expansion
+            if mel_lens.max() > spec and spec < full:  # undershoot: re-run
+                spans.count("synth.reruns")
+                spec = self._spec_frames(
+                    min(max_len, bucket), bucket,
+                    min_frames=min(int(mel_lens.max()), full))
+                pcm_np, mel_lens = run(spec)
+            mel_lens = np.minimum(mel_lens, samples_for_elements(
+                self.transfer, pcm_np.shape[1]) // up)
+            with spans.span("tts_batch.decode") as decode:
+                # the program and its reads, the re-run included
+                elapsed = (decode.start_ns - pack.end_ns) / 1e9
+                per_text_wavs = [[] for _ in texts]
+                per_text_mel = [0] * len(texts)
+                for i in range(b):
+                    n = int(mel_lens[i]) * up
+                    w = decode_host(
+                        pcm_np[i][: elements_for_samples(self.transfer, n)],
+                        self.transfer)[:n]
+                    per_text_wavs[owner[i]].append(w)
+                    per_text_mel[owner[i]] += int(mel_lens[i])
+                out = []
+                for ti in range(len(texts)):
+                    w = (np.concatenate(per_text_wavs[ti])
+                         if per_text_wavs[ti] else np.zeros(0, np.float32))
+                    out.append((w, {"voice_secs": len(w) / self.sampling_rate,
+                                    "batch_secs": elapsed,
+                                    "mel_len": per_text_mel[ti]}))
         return out
 
     def _tts_batch_split(self, texts):
@@ -558,29 +604,35 @@ class Synthesizer:
         one acoustic call for the batch, then one vocoder call on the
         chunks that cover the longest row.  Each text takes one row, cut
         at the largest bucket."""
-        seqs = [self.phonemize(t) for t in texts]
-        b = len(seqs)
-        bucket = next_bucket(max(len(s) for s in seqs), self.phoneme_buckets)
-        phoneme = np.zeros((b, bucket), np.int32)
-        for i, s in enumerate(seqs):
-            n = min(len(s), bucket)
-            phoneme[i, :n] = s[:n]
+        with self._span("tts_batch", call=next(self._calls)):
+            with spans.span("tts_batch.frontend"):
+                seqs = [self.phonemize(t) for t in texts]
+            with spans.span("tts_batch.pack") as pack:
+                b = len(seqs)
+                spans.count("synth.rows", b)
+                bucket = next_bucket(max(len(s) for s in seqs),
+                                     self.phoneme_buckets)
+                phoneme = np.zeros((b, bucket), np.int32)
+                for i, s in enumerate(seqs):
+                    n = min(len(s), bucket)
+                    phoneme[i, :n] = s[:n]
 
-        t0 = time.time()
-        mel, mel_len_dev, _ = self._acoustic_split(phoneme)
-        mel_lens = np.minimum(self._device_get(mel_len_dev)[0], mel.shape[1])
-        slice_len = self._split_slice(int(mel_lens.max()), mel.shape[1])
-        wavs = self._vocode_split(mel[:, :slice_len], mel_len_dev)
-        wavs = self._device_get(wavs)[0]
-        elapsed = time.time() - t0
+            mel, mel_len_dev, _ = self._acoustic_split(phoneme)
+            mel_lens = np.minimum(self._device_get(mel_len_dev)[0],
+                                  mel.shape[1])
+            slice_len = self._split_slice(int(mel_lens.max()), mel.shape[1])
+            wavs = self._vocode_split(mel[:, :slice_len], mel_len_dev)
+            wavs = self._device_get(wavs)[0]
 
-        out = []
-        up = self.hifigan_cfg.total_upsample
-        for i in range(b):
-            w = self._to_float(wavs[i, : int(mel_lens[i]) * up])
-            out.append((w, {"voice_secs": len(w) / self.sampling_rate,
-                            "batch_secs": elapsed,
-                            "mel_len": int(mel_lens[i])}))
+            with spans.span("tts_batch.decode") as decode:
+                elapsed = (decode.start_ns - pack.end_ns) / 1e9
+                out = []
+                up = self.hifigan_cfg.total_upsample
+                for i in range(b):
+                    w = self._to_float(wavs[i, : int(mel_lens[i]) * up])
+                    out.append((w, {"voice_secs": len(w) / self.sampling_rate,
+                                    "batch_secs": elapsed,
+                                    "mel_len": int(mel_lens[i])}))
         return out
 
     def warmup(self, text: str, iters: int = 10) -> int:

@@ -24,6 +24,7 @@ from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
     folded_matmul, leaky, mask_rows, window)
 from efficientspeech_tpu_torch.ops.kernels.mrf_block import (
     build_mrf_spec, mrf_fused)
+from efficientspeech_tpu_torch.utils import spans
 
 LRELU_SLOPE = 0.1
 
@@ -230,12 +231,18 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
     if use_kernel and x.shape[0] > 1:
         # the kernels take one utterance: the whole plan runs row by row,
         # as the JAX package maps it over the rows (jax.lax.map); each
-        # row's valid length stays a tensor on the card
-        return torch.cat([folded_plan_apply(
-            arrays, meta, cfg, mel[i:i + 1],
-            None if valid_len is None else valid_len[i:i + 1], dtype,
-            use_kernel, fuse_stage_sum, act_dtype, fuse_mrf, mrf)
-            for i in range(x.shape[0])])
+        # row's valid length stays a tensor on the card.  A span a row
+        # names the host's time in a trace (a span over the whole loop
+        # lies too far back among the host's ops for a reader to find)
+        rows = []
+        for i in range(x.shape[0]):
+            with spans.span("synth.vocoder.row", row=i):
+                rows.append(folded_plan_apply(
+                    arrays, meta, cfg, mel[i:i + 1],
+                    None if valid_len is None else valid_len[i:i + 1],
+                    dtype, use_kernel, fuse_stage_sum, act_dtype, fuse_mrf,
+                    mrf))
+        return torch.cat(rows)
     if valid_len is None:
         valid_len = torch.full((x.shape[0],), x.shape[1], device=x.device)
     vrows_cache = {}

@@ -15,7 +15,13 @@ segment as soon as it is synthesized (chunked transfer encoding).  A read
 from the card past ``--fetch-timeout`` answers 503 and opens a circuit
 breaker; queued requests past ``--queue-deadline`` are shed with 503;
 past ``--rss-limit-mb`` the worker drains and re-execs itself on the same
-listening socket.
+listening socket.  ``/statusz`` carries the span recorder's ``snapshot``
+(``utils/spans.py``): the batcher's ``serve.queue`` (a request's wait
+from ``submit`` until its batch is taken), ``serve.collect``,
+``serve.lock_wait`` and ``serve.batch``, the handler's ``serve.respond``,
+the synthesizer's own spans, and the counters ``serve.batches``,
+``serve.rows``, ``serve.shed`` and ``serve.timeouts`` (requests whose
+read from the card missed its deadline).
 
 The acoustic model's weights are a random init from ``--seed`` unless
 ``--checkpoint`` names a reference EfficientSpeech checkpoint (a
@@ -25,6 +31,7 @@ vocoder's come from ``--hifigan-checkpoint`` when that file exists (its
 """
 
 import argparse
+import itertools
 import json
 import os
 import socket as socketlib
@@ -41,6 +48,7 @@ import numpy as np
 from efficientspeech_tpu_torch.audio.transfer import FORMATS
 from efficientspeech_tpu_torch.config import add_arch_args, arch_overrides
 from efficientspeech_tpu_torch.infer import SynthesisTimeout
+from efficientspeech_tpu_torch.utils import spans
 
 # a zero-dependency page over the /tts endpoints
 INDEX_HTML = b"""<!doctype html>
@@ -364,7 +372,12 @@ class DynamicBatcher:
         # instead of synthesized late (its client has likely given up)
         self.queue_deadline_s = queue_deadline_s
         self.breaker = breaker
+        # the spans' ids: the synthesizer's, and a request's and a batch's
+        self.span_id = getattr(synth, "span_id", None)
+        self._requests = itertools.count()
+        self._batches = itertools.count()
         self._mutex = threading.Lock()
+        # (text, done, box, time.time_ns() at submit, request id)
         self._pending = []
         self._wake = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -378,7 +391,8 @@ class DynamicBatcher:
         done = threading.Event()
         box = {}
         with self._mutex:
-            self._pending.append((text, done, box, time.time()))
+            self._pending.append((text, done, box, time.time_ns(),
+                                  next(self._requests)))
         self._wake.set()
         while not done.wait(self.WAIT_SLICE_SECS):
             if not self._worker.is_alive():
@@ -394,22 +408,26 @@ class DynamicBatcher:
         now = time.time()
         with self._mutex:
             stale = [e for e in self._pending
-                     if now - e[3] > self.queue_deadline_s]
+                     if now - e[3] / 1e9 > self.queue_deadline_s]
             self._pending = [e for e in self._pending
-                             if now - e[3] <= self.queue_deadline_s]
-        for _, done, box, t_in in stale:
+                             if now - e[3] / 1e9 <= self.queue_deadline_s]
+        if stale:
+            spans.count("serve.shed", len(stale), synth=self.span_id)
+        for _, done, box, t_in, _ in stale:
             box["error"] = RequestShed(
-                f"shed after {now - t_in:.1f}s in queue "
+                f"shed after {now - t_in / 1e9:.1f}s in queue "
                 f"(deadline {self.queue_deadline_s:.1f}s)")
             done.set()
 
     def _run(self):
+        sid = self.span_id
         while True:
             self._wake.wait()
             with self._mutex:
                 backlog = len(self._pending)
             if backlog < self.max_batch:
-                time.sleep(self.window)  # the collection window
+                with spans.span("serve.collect", synth=sid):
+                    time.sleep(self.window)  # the collection window
             self._shed_stale()
             with self._mutex:
                 group = self._pending[: self.max_batch]
@@ -418,14 +436,26 @@ class DynamicBatcher:
                     self._wake.clear()
             if not group:
                 continue
-            texts = [t for t, _, _, _ in group]
+            batch, taken = next(self._batches), time.time_ns()
+            for _, _, _, t_in, rid in group:
+                spans.record("serve.queue", t_in, taken, synth=sid,
+                             request=rid, batch=batch)
+            spans.count("serve.batches", synth=sid)
+            spans.count("serve.rows", len(group), synth=sid)
+            texts = [e[0] for e in group]
             try:
-                with self.lock:
-                    outs = self.synth.tts_batch(texts)
+                with spans.span("serve.lock_wait", synth=sid, batch=batch):
+                    self.lock.acquire()
+                try:
+                    with spans.span("serve.batch", synth=sid, batch=batch,
+                                    rows=len(group)):
+                        outs = self.synth.tts_batch(texts)
+                finally:
+                    self.lock.release()
                 if self.breaker is not None:
                     self.breaker.close()  # the card answered
                 voice_total = sum(info["voice_secs"] for _, info in outs)
-                for (t, done, box, _), (wav, info) in zip(group, outs):
+                for (t, done, box, _, _), (wav, info) in zip(group, outs):
                     box["wav"] = wav
                     # rtf: this request's share of the batch; batch_rtf:
                     # the batch's voice seconds over its time, the figure
@@ -440,7 +470,7 @@ class DynamicBatcher:
             except BaseException as e:  # every waiter gets the failure
                 if isinstance(e, SynthesisTimeout) and self.breaker:
                     self.breaker.trip()  # wedged card: fail fast now
-                for _, done, box, _ in group:
+                for _, done, box, _, _ in group:
                     box["error"] = (e if isinstance(e, Exception)
                                     else RuntimeError(repr(e)))
                     done.set()
@@ -472,6 +502,7 @@ def make_handler(synth, lock=None, stream_segment_phonemes=None,
                              max_batch=max_batch,
                              queue_deadline_s=queue_deadline_s,
                              breaker=breaker) if dynamic_batch else None
+    sid = getattr(synth, "span_id", None)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -512,7 +543,8 @@ def make_handler(synth, lock=None, stream_segment_phonemes=None,
                     "rss_mb": round(rss_mb(), 1),
                     "inflight": state.inflight,
                     "ready": state.ready,
-                    "draining": state.draining}).encode(),
+                    "draining": state.draining,
+                    "spans": spans.snapshot()}).encode(),
                     "application/json")
                 return
             if parsed.path == "/healthz":
@@ -575,6 +607,7 @@ def make_handler(synth, lock=None, stream_segment_phonemes=None,
                             # the headers are out: end the stream early
                             # (the client keeps the segments it got) and
                             # open the breaker for everyone else
+                            spans.count("serve.timeouts", synth=sid)
                             breaker.trip()
                             print(f"[serve] /tts_stream timeout: {e}")
                             break
@@ -597,6 +630,7 @@ def make_handler(synth, lock=None, stream_segment_phonemes=None,
             except SynthesisTimeout as e:
                 # wedged card: 503 now, and the breaker sheds the pile-up
                 # until the next success closes it
+                spans.count("serve.timeouts", synth=sid)
                 breaker.trip()
                 self._unavailable(f"synthesis timed out: {e}",
                                   breaker.retry_after())
@@ -616,8 +650,9 @@ def make_handler(synth, lock=None, stream_segment_phonemes=None,
             headers.append(("X-RTF", f"{info['rtf']:.1f}"))
             headers.append(("X-Latency-Ms",
                             f"{(time.time() - t0) * 1e3:.1f}"))
-            self._send(200, wav_bytes(wav, synth.sampling_rate, max_wav),
-                       "audio/wav", headers)
+            with spans.span("serve.respond", synth=sid):
+                self._send(200, wav_bytes(wav, synth.sampling_rate,
+                                          max_wav), "audio/wav", headers)
 
         def log_message(self, fmt, *a):
             print(f"[serve] {fmt % a}")
