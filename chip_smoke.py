@@ -448,6 +448,13 @@ LONG_TEXT = (
     "speculative buffer large enough for both kernels to engage.")
 SHORT_TEXTS = ("Hello there.", "How are you today?",
                "The quick brown fox jumps over the lazy dog.")
+# 91 phonemes: bucket 128, whose speculative buffer is 1,024 frames, the
+# short-sentence server's batches
+MEDIUM_TEXT = ("Each stage of the generator first upsamples its input with "
+               "a transposed convolution, then runs a multi receptive field "
+               "block.")
+# the slice phase's batch: the server's largest batch of sentences
+SLICE_BATCH_ROWS = 32
 
 
 def snr_bar(dtype) -> float:
@@ -747,11 +754,55 @@ def phase_k2(synth, card: str):
                 else "bytes")
 
 
+def _vocoder_shapes(synth):
+    """Wrap ``synth._vocode_folded`` to list the (rows, frames) of each
+    call; returns the list and the function that unwraps it."""
+    seen, real = [], synth._vocode_folded
+
+    def spy(mel, mel_len):
+        seen.append(tuple(mel.shape[:2]))
+        return real(mel, mel_len)
+
+    synth._vocode_folded = spy
+    return seen, lambda: delattr(synth, "_vocode_folded")
+
+
+def _routes_agree(synth, run, tag: str, bar: float, card: str):
+    """``run()`` (a list of waveforms) on the kernel route, then on the
+    plain folded route: the same lengths and every waveform at >= ``bar``
+    dB of the plain route's; returns the frames the vocoder ran at."""
+    seen, unwrap = _vocoder_shapes(synth)
+    try:
+        got = run()
+        synth.vocoder_mode = "folded"
+        want = run()
+    finally:
+        synth.vocoder_mode = "folded_kernel"
+        unwrap()
+    if len(seen) != 2 or seen[0] != seen[1]:
+        fail(f"{tag}: vocoder shapes {seen}; expected one call a route at "
+             "the same shape")
+    if [len(w) for w in got] != [len(w) for w in want]:
+        fail(f"{tag}: kernel route lengths {[len(w) for w in got]} != "
+             f"plain route {[len(w) for w in want]}")
+    snr = min(snr_db(torch.from_numpy(w), torch.from_numpy(g))
+              for w, g in zip(want, got))
+    print(f"[{tag}] {seen[0][0]} x {seen[0][1]} frames, kernel route vs "
+          f"plain route: worst SNR {snr:.1f} dB (tol >= {bar}) | {card}")
+    if snr < bar:
+        fail(f"{tag}: end-to-end SNR {snr:.1f} dB < {bar} dB")
+    return seen[0][1]
+
+
 def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     """The serving main path: ``texts`` (the long request first) through
     ``synth.tts``, launch counts of the serving dtype's kernel variants
-    from 0 just before and read just after (no other variant may run);
-    then the long request against the plain vocoder route."""
+    from 0 just before and read just after (no other variant may run; K1
+    5 and K2 4 every request, the short ones below 2,048 frames, where
+    only the card's rule sends them to the kernels); then the kernel
+    route against the plain folded route on the long request, the first
+    short one (512 frames) and a ``SLICE_BATCH_ROWS``-row ``tts_batch``
+    at 1,024 frames on the int16 wire (K1 5 and K2 4 a row)."""
     from efficientspeech_tpu_torch import infer
     from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
     from efficientspeech_tpu_torch.ops.kernels import mrf_block
@@ -760,11 +811,6 @@ def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     tag0 = "slice" + f32_suffix(dt)
     e2e_bar = E2E_SNR_DB if dt == torch.bfloat16 else F32_E2E_SNR_DB
     seqs = [synth.phonemize(t) for t in texts]
-    long_frames = synth._spec_frames(len(seqs[0]),
-                                     synth._pad_to_bucket(seqs[0])[2])
-    if long_frames < infer.KERNEL_MIN_FRAMES:
-        fail(f"long request sizes {long_frames} frames < "
-             f"{infer.KERNEL_MIN_FRAMES}: the kernels would not engage")
     for seq in seqs:  # warm-up: first-call set-up stays out of the timings
         synth.synthesize_ids(seq)
     synth._obs_ratio = None
@@ -774,13 +820,17 @@ def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     for d in (fm.launches, mrf_block.launches):
         d.update(dict.fromkeys(d, 0))
     results = []
-    for text in texts:
-        torch.cuda.synchronize()
-        before = (fm.launches[dt], mrf_block.launches[dt])
-        wav, info = synth.tts(text)
-        after = (fm.launches[dt], mrf_block.launches[dt])
-        results.append((wav, info, after[0] - before[0],
-                        after[1] - before[1]))
+    seen, unwrap = _vocoder_shapes(synth)
+    try:
+        for text in texts:
+            torch.cuda.synchronize()
+            before = (fm.launches[dt], mrf_block.launches[dt], len(seen))
+            wav, info = synth.tts(text)
+            after = (fm.launches[dt], mrf_block.launches[dt])
+            results.append((wav, info, after[0] - before[0],
+                            after[1] - before[1], seen[before[2]:]))
+    finally:
+        unwrap()
     launches = {"folded_matmul" + f32_suffix(dt, "_"): fm.launches[dt],
                 "mrf_fused" + f32_suffix(dt, "_"): mrf_block.launches[dt]}
     other = sum(n for d in (fm.launches, mrf_block.launches)
@@ -788,33 +838,53 @@ def phase_slice(synth, card: str, texts=(LONG_TEXT,) + SHORT_TEXTS):
     if other:
         fail(f"{tag0}: {other} launches of another dtype's kernel variant")
 
-    for i, (wav, info, k1, k2) in enumerate(results):
+    for i, (wav, info, k1, k2, shapes) in enumerate(results):
         tag = "long" if i == 0 else f"short{i}"
+        frames = [f for _, f in shapes]
         print(f"[{tag0}] {tag}: phonemes {info['phoneme_len']} mel_len "
               f"{info['mel_len']} | {info['total_secs'] * 1e3:.1f} ms RTF "
-              f"{info['rtf']:.1f} | launches K1 {k1} K2 {k2} | {card}")
+              f"{info['rtf']:.1f} | frames {frames} | launches K1 {k1} "
+              f"K2 {k2} | {card}")
         if info["mel_len"] <= 0:
             fail(f"{tag}: mel_len {info['mel_len']}")
         if wav.shape != (info["mel_len"] * synth.hifigan_cfg.total_upsample,):
             fail(f"{tag}: wav shape {wav.shape}")
         if not np.isfinite(wav).all() or np.abs(wav).max() < 1e-4:
             fail(f"{tag}: waveform not finite or silent")
-    if (results[0][2], results[0][3]) != (5, 4):
-        fail(f"long request launched K1 {results[0][2]} and K2 "
-             f"{results[0][3]} times; expected 5 and 4")
+        if (k1, k2) != (5, 4) or len(frames) != 1:
+            fail(f"{tag}: {len(frames)} vocoder calls launched K1 {k1} and "
+                 f"K2 {k2} times; expected one call, 5 and 4")
+        if i and not frames[0] < infer.KERNEL_MIN_FRAMES:
+            fail(f"{tag}: {frames[0]} frames, not below the "
+                 f"{infer.KERNEL_MIN_FRAMES} from which the kernel route "
+                 "would run off the card")
 
-    # the kernel route against the plain route on the long request
-    wav_k, mel_k, _ = synth.synthesize_ids(seqs[0])
-    synth.vocoder_mode = "folded"
-    wav_p, mel_p, _ = synth.synthesize_ids(seqs[0])
-    synth.vocoder_mode = "folded_kernel"
-    if mel_k != mel_p:
-        fail(f"kernel route mel_len {mel_k} != plain route {mel_p}")
-    snr = snr_db(torch.from_numpy(wav_p), torch.from_numpy(wav_k))
-    print(f"[{tag0}] long request, kernel route vs plain route: SNR "
-          f"{snr:.1f} dB (tol >= {e2e_bar}) | {card}")
-    if snr < e2e_bar:
-        fail(f"{tag0}: end-to-end SNR {snr:.1f} dB < {e2e_bar} dB")
+    # the kernel route against the plain route on the same inputs
+    for name, seq in (("long request", seqs[0]), ("short1", seqs[1])):
+        frames = _routes_agree(
+            synth, lambda: [synth.synthesize_ids(seq)[0]],
+            f"{tag0} {name}", e2e_bar, card)
+        if name == "short1" and frames != synth.spec_min_frames:
+            fail(f"{tag0} short1: {frames} frames, not "
+                 f"{synth.spec_min_frames}")
+    batch = ([MEDIUM_TEXT, *SHORT_TEXTS] * SLICE_BATCH_ROWS)[
+        :SLICE_BATCH_ROWS]
+    transfer, synth.transfer = synth.transfer, "int16"
+    try:
+        synth.tts_batch(batch)  # warm-up, and the ratio observed
+        _reset_counts(fm, mrf_block)
+        synth.tts_batch(batch)
+        k1, k2 = fm.launches[dt], mrf_block.launches[dt]
+        if (k1, k2) != (5 * SLICE_BATCH_ROWS, 4 * SLICE_BATCH_ROWS):
+            fail(f"{tag0} batch: launches K1 {k1} K2 {k2}; expected "
+                 f"{5 * SLICE_BATCH_ROWS} and {4 * SLICE_BATCH_ROWS}")
+        frames = _routes_agree(
+            synth, lambda: [w for w, _ in synth.tts_batch(batch)],
+            f"{tag0} batch of {SLICE_BATCH_ROWS}, int16 wire", e2e_bar, card)
+    finally:
+        synth.transfer = transfer
+    if frames != 1024:
+        fail(f"{tag0} batch: {frames} frames, not the server's 1,024")
     return launches
 
 
@@ -3176,7 +3246,7 @@ def phase_export(card: str, root: str):
                                      timings.items()) + f" | {card}")
 
     # the serving kernel route on the same padded phonemes: the mel buffer
-    # at the export's EXPORT_INSIZE x 16 frames, where K1 and K2 engage
+    # at the export's EXPORT_INSIZE x 16 frames
     ref.spec_min_frames = EXPORT_INSIZE * 16
     ref.synthesize_ids(seq)
     _reset_counts(fm, mrf_block)

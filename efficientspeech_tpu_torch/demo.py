@@ -66,9 +66,9 @@ def get_args(argv=None):
                              "block-ADPCM encoded by a CUDA kernel)")
     parser.add_argument("--vocoder", default="folded_kernel",
                         choices=list(VOCODER_MODES),
-                        help="folded_kernel: the CUDA kernels from 2,048 "
-                             "speculative frames on; folded: plain "
-                             "matmuls; chunked: the conv generator over "
+                        help="folded_kernel: the CUDA kernels on the "
+                             "card (on the CPU from 2,048 speculative "
+                             "frames on); folded: plain matmuls; chunked: the conv generator over "
                              "128-frame chunks (split pipeline)")
     parser.add_argument("--play", action="store_true",
                         help="play audio instead of saving (needs "

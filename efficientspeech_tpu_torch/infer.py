@@ -27,9 +27,10 @@ synthesizer's id (``synth``): ``tts_batch`` (a call, id ``call``) with
 inside any of them ``synth.upload``, ``synth.acoustic``,
 ``synth.vocoder`` (``synth.vocoder.row`` per row of the kernel route),
 ``synth.encode``, ``synth.fetch.wait`` (the host blocked on the card) and
-``synth.fetch.copy``; counters ``synth.rows``, ``synth.pad_rows`` and
-``synth.reruns``.  The timings in each call's info are read from these
-spans' stamps.
+``synth.fetch.copy``; counters ``synth.rows``, ``synth.pad_rows``,
+``synth.reruns`` and the vocoder's rows by route,
+``synth.vocoder.kernel_rows`` and ``synth.vocoder.plain_rows``.  The
+timings in each call's info are read from these spans' stamps.
 """
 
 import collections
@@ -71,9 +72,15 @@ MEL_EXPANSION = 16
 # undershoot re-runs at the then-known length
 SPEC_EXPANSION = 8
 SPEC_MIN_FRAMES = 512
-# the kernel path engages at this many speculative frames.  The JAX
-# package measured this threshold on a TPU v5e; it has not been
-# re-measured on the card yet.
+# the "folded_kernel" vocoder takes the kernel route (K1 and K2, row by
+# row) on the card at every frame count: on an H100 it is 4.4-33x faster
+# than the plain route at every shape measured, 1-32 rows at 128-8,192
+# frames, bf16 and float32, fused and split callers
+# (``probes/vocoder_route.py``; the table is in PERF.md §5, "The vocoder's
+# two routes").  Off the card, where the kernel route runs the kernels'
+# plain versions row by row, it starts at this many speculative frames:
+# the JAX package's TPU v5e threshold, kept for the CPU only and not
+# measured there
 KERNEL_MIN_FRAMES = 2048
 VOCODER_MODES = ("folded", "folded_kernel", "chunked")
 # precompile's rows: this text's phonemes, repeated to fill each bucket
@@ -123,12 +130,13 @@ class Synthesizer:
                  device=None):
         """``vocoder_mode``: "folded" runs every vocoder op as a plain
         matmul; "folded_kernel" runs the 128-wide ops and each stage's MRF
-        in the CUDA kernels from ``KERNEL_MIN_FRAMES`` speculative frames
-        on; "chunked" runs the conv generator over time-folded chunks in
-        the split pipeline, which ``fused_pipeline=False`` selects for the
-        folded modes too.  ``transfer``: the PCM wire format of the fused
-        route (one of ``FORMATS``).  ``dtype``: the acoustic model's
-        compute dtype and the vocoder's matmul operand precision."""
+        in the CUDA kernels (on the card at every frame count, elsewhere
+        from ``KERNEL_MIN_FRAMES`` speculative frames on); "chunked" runs
+        the conv generator over time-folded chunks in the split pipeline,
+        which ``fused_pipeline=False`` selects for the folded modes too.
+        ``transfer``: the PCM wire format of the fused route (one of
+        ``FORMATS``).  ``dtype``: the acoustic model's compute dtype and
+        the vocoder's matmul operand precision."""
         if vocoder_mode not in VOCODER_MODES:
             raise ValueError(f"vocoder_mode {vocoder_mode!r} not in "
                              f"{VOCODER_MODES}")
@@ -330,10 +338,16 @@ class Synthesizer:
     def _vocode_folded(self, mel: torch.Tensor,
                        mel_len: torch.Tensor) -> torch.Tensor:
         """The folded vocoder (B, T, M) → (B, T·hop) float32, through the
-        kernels from ``KERNEL_MIN_FRAMES`` frames on in "folded_kernel"
-        mode (row by row at B > 1); ``mel_len`` (B,) stays on the card."""
+        kernels in "folded_kernel" mode (row by row at B > 1; off the card
+        from ``KERNEL_MIN_FRAMES`` frames on); ``mel_len`` (B,) stays on
+        the card.  The B rows count under ``synth.vocoder.kernel_rows`` or
+        ``.plain_rows``."""
         use_kernel = (self.vocoder_mode == "folded_kernel"
-                      and mel.shape[1] >= KERNEL_MIN_FRAMES)
+                      and (self.device.type == "cuda"
+                           or mel.shape[1] >= KERNEL_MIN_FRAMES))
+        spans.count("synth.vocoder.kernel_rows" if use_kernel
+                    else "synth.vocoder.plain_rows", mel.shape[0],
+                    synth=self.span_id)
         with self._span("synth.vocoder"):
             return folded_plan_apply(
                 self.folded, self.fold_meta, self.hifigan_cfg, mel,

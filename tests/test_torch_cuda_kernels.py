@@ -314,6 +314,56 @@ def test_mrf_kernel(card, request, stage, dtype):
     assert np.isfinite(got.cpu().numpy()).all()
 
 
+@pytest.mark.parametrize("rows,frames", [(32, 1024), (1, 512)])
+def test_serving_shapes_take_the_kernel_route(card, rows, frames,
+                                              record_property):
+    """At the short-sentence server's batches (32 rows at 1,024 frames,
+    bf16, the int16 wire) and a single row at 512 frames, the folded
+    vocoder takes the kernel route: K1 5 and K2 4 launches a row, every
+    row counted under ``synth.vocoder.kernel_rows``; its wire matches the
+    plain route's at the bf16 kernels' bar over the valid samples and is
+    zero beyond them."""
+    from efficientspeech_tpu_torch.audio.transfer import encode_device
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.utils import spans
+
+    synth = build_synthesizer(preset="tiny", dtype=torch.bfloat16,
+                              bench_duration_bias=6.0, transfer="int16",
+                              device=card)
+    g = torch.Generator().manual_seed(rows)
+    mel = (torch.randn(rows, frames, synth.cfg.n_mel_channels, generator=g)
+           * 2.0 - 5.0).to(card)
+    mel_len = (frames - torch.randint(0, frames // 4, (rows,),
+                                      generator=g)).to(card)
+
+    def wire(mode):
+        synth.vocoder_mode = mode
+        with torch.no_grad():
+            return encode_device(synth._vocode_folded(mel, mel_len),
+                                 "int16").float() / 32768.0
+
+    before = (dict(fm.launches), dict(mrf_block.launches),
+              spans.counters(synth.span_id))
+    got = wire("folded_kernel")
+    torch.cuda.synchronize()
+    after = spans.counters(synth.span_id)
+    assert (fm.launches[torch.bfloat16] - before[0][torch.bfloat16],
+            mrf_block.launches[torch.bfloat16] - before[1][torch.bfloat16]
+            ) == (5 * rows, 4 * rows)
+    assert after.get("synth.vocoder.kernel_rows", 0) - before[2].get(
+        "synth.vocoder.kernel_rows", 0) == rows
+    assert after.get("synth.vocoder.plain_rows", 0) == before[2].get(
+        "synth.vocoder.plain_rows", 0)
+    want = wire("folded")
+    up = synth.hifigan_cfg.total_upsample
+    worst = float("inf")
+    for i, n in enumerate(mel_len.tolist()):
+        assert not got[i, n * up:].any() and not want[i, n * up:].any()
+        worst = min(worst, snr_db(want[i, :n * up], got[i, :n * up]))
+    record_property("snr_db", worst)
+    assert worst >= SNR_BAR[torch.bfloat16], worst
+
+
 @pytest.mark.parametrize("rows,c,dtype", [
     (1001, 128, torch.bfloat16), (517, 256, torch.bfloat16),
     (300, 128, torch.float32)])

@@ -190,7 +190,8 @@ def test_tts_batch_spans_cover_each_phase(synth, monkeypatch, kernel_route):
     """One ``tts_batch`` span a call; its phases carry its call id, lie
     inside it one after another, and their number is fixed (a run of the
     program each, plus one ``synth.vocoder.row`` a padded row on the
-    kernel route)."""
+    kernel route); every padded row of every run counts under the
+    vocoder's counter of the route taken and none under the other."""
     if kernel_route:
         monkeypatch.setattr(infer, "KERNEL_MIN_FRAMES", 0)
         monkeypatch.setattr(synth, "vocoder_mode", "folded_kernel")
@@ -198,8 +199,15 @@ def test_tts_batch_spans_cover_each_phase(synth, monkeypatch, kernel_route):
     synth.tts_batch(TEXTS)
     counts = spans.counters(synth.span_id)
     delta = {k: counts.get(k, 0) - before.get(k, 0)
-             for k in ("synth.rows", "synth.pad_rows", "synth.reruns")}
+             for k in ("synth.rows", "synth.pad_rows", "synth.reruns",
+                       "synth.vocoder.kernel_rows",
+                       "synth.vocoder.plain_rows")}
     assert delta["synth.rows"] == 3 and delta["synth.pad_rows"] == 1
+    rows = ((delta["synth.rows"] + delta["synth.pad_rows"])
+            * (1 + delta["synth.reruns"]))
+    assert ((delta["synth.vocoder.kernel_rows"],
+             delta["synth.vocoder.plain_rows"])
+            == ((rows, 0) if kernel_route else (0, rows)))
     call = _last_call(synth)
     recs = _call_records(synth, call.ids["call"])
     assert [r for r in recs if r.name == "tts_batch"] == [call]
@@ -228,6 +236,45 @@ def test_tts_batch_spans_cover_each_phase(synth, monkeypatch, kernel_route):
                  key=lambda r: r.start_ns)
     for a, b in zip(top, top[1:]):
         assert a.end_ns <= b.start_ns
+
+
+# the vocoder's route: on the card at every frame count (the route table
+# of PERF.md §5), off it from KERNEL_MIN_FRAMES = 2,048 frames on, and
+# never in "folded" mode; one shape on each side of each branch
+@pytest.mark.parametrize("mode,device,rows,frames,kernel", [
+    ("folded_kernel", "cuda", 1, 512, True),
+    ("folded_kernel", "cuda", 32, 1024, True),
+    ("folded_kernel", "cpu", 32, 2047, False),
+    ("folded_kernel", "cpu", 1, 2048, True),
+    ("folded", "cuda", 32, 1024, False),
+    ("folded", "cpu", 1, 4096, False)])
+def test_vocoder_route_by_device_rows_and_frames(synth, monkeypatch, mode,
+                                                 device, rows, frames,
+                                                 kernel):
+    """``_vocode_folded`` hands ``folded_plan_apply`` the route of the
+    rule (K1 and K2 together) and counts its rows under that route's
+    counter."""
+    seen = []
+
+    def spy(arrays, meta, cfg, mel, **kwargs):
+        seen.append((mel.shape[:2], kwargs["use_kernel"],
+                     kwargs["fuse_mrf"]))
+        return torch.zeros(mel.shape[0], mel.shape[1] * cfg.total_upsample)
+
+    monkeypatch.setattr(infer, "folded_plan_apply", spy)
+    monkeypatch.setattr(synth, "device", torch.device(device))
+    monkeypatch.setattr(synth, "vocoder_mode", mode)
+    before = spans.counters(synth.span_id)
+    mel = torch.zeros(1, 1, 80).expand(rows, frames, 80)
+    wav = synth._vocode_folded(mel, torch.full((rows,), frames))
+    counts = spans.counters(synth.span_id)
+    assert wav.shape == (rows, frames * synth.hifigan_cfg.total_upsample)
+    assert seen == [((rows, frames), kernel, kernel)]
+    delta = {k: counts.get(k, 0) - before.get(k, 0)
+             for k in ("synth.vocoder.kernel_rows",
+                       "synth.vocoder.plain_rows")}
+    assert delta == {"synth.vocoder.kernel_rows": rows if kernel else 0,
+                     "synth.vocoder.plain_rows": 0 if kernel else rows}
 
 
 def test_batch_secs_is_read_from_the_spans(synth):
