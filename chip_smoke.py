@@ -21,6 +21,13 @@ Phases (each prints its lines; any failure exits non-zero):
   4. K2      - mrf_fused for the four vocoder stages at 2,048 frames, the
                same way, each with its tile plan (bf16: the tile, the
                weight ring's slots and each conv's wgmma N);
+     V1      - EfficientSpeech base with HiFi-GAN V1 in bf16: K1 at V1's
+               first upsampler (D_in 512) and padded post conv, K2's wide
+               kernel at its 256-wide stage 0 (which has to beat the
+               plain version's time), each at one row of 4,096 frames
+               against its plain version; a tts_batch of 8 long texts on
+               the kernel route (launches, wide rows), two of its rows
+               held to the plain route;
   5. slice   - the synthesizer (tiny acoustic model, LJ_V2-width vocoder,
                random weights from seed 0, bf16, vocoder_mode
                "folded_kernel"): one long request (>= 2,048 speculative
@@ -139,10 +146,12 @@ Phases (each prints its lines; any failure exits non-zero):
                then --metric rtf --iter 2 --profile DIR, whose profile
                line (the device's busy ms and idle share over the timed
                runs) is checked and whose profiled numbers are not kept.
-The kernel table goes on a JSON line before the last, 23 rows, each with
+The kernel table goes on a JSON line before the last, 25 rows, each with
 its dtype (the rows of kernels redesigned for Hopper also name the
 design; float32 product bounds at the faster of FFMA's 67 TFLOP/s and
-3xTF32 on the tensor cores, the FFMA-route bound printed beside; K1/K2 times per utterance at 2,048 frames, K3/K4 times per
+3xTF32 on the tensor cores, the FFMA-route bound printed beside; K1/K2 times per utterance at 2,048 frames, K1 at V1's up0 and
+K2 wide per launch at 4,096 frames, K2 wide's bound from the MRF's useful
+products, its fold's zero taps left out, K3/K4 times per
 train step: the per-launch time × the launches of a step, tiny preset for
 C = 128 and small for C = 256; K5 per call at the probe's shape; the
 ADPCM encoder per call at the batch's shape, adpcm3); the last
@@ -373,6 +382,14 @@ DESIGNS = {
                  "across ops; B the bf16 activation buffer K-major; "
                  "stmatrix epilogue; v float32 in shared memory; tile plan "
                  "in Python",
+    "mrf_fused_wide": "a variant at D = 256 (HiFi-GAN V1's first stage): "
+                      "two warpgroups of 128 output channels (two wgmma a "
+                      "k-step), quarter-tap ring slices loaded by thread 0 "
+                      "after uniform empty-barrier waits, v float32 in "
+                      "device memory, read and written by the residual "
+                      "convs' epilogues, persistent blocks",
+    "folded_matmul_v1": "as folded_matmul; at D_in 512 no x stage fits, "
+                        "and the converter reads x from device memory",
     "mrf_fused_f32": "Hopper redesign: 3xTF32 split products on wgmma, "
                      "transposed (W^T from L2 through registers as A, the "
                      "split activation buffer as K-major B, 16-row output "
@@ -752,6 +769,169 @@ def phase_k2(synth, card: str):
     return dict(totals, max_abs_err=worst_err, library_ms=None,
                 bound_by="operations" if "operations" in bound_by
                 else "bytes")
+
+
+# HiFi-GAN V1 (jik876/hifi-gan config_v1.json) with EfficientSpeech base:
+# its ops that LJ_V2 lacks, at V1_FRAMES frames of one row
+V1_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "hifigan_v1.json")
+V1_FRAMES = 4096
+# floors about 6 dB under the card's readings (NVIDIA H100 80GB HBM3,
+# 700 W): K2 wide 68 dB, K1 at up0 and post 55.7 / 54.4 dB
+K2_WIDE_FLOOR_DB = 62.0
+K1_V1_FLOOR_DB = {"up0": 49.0, "post": 48.0}
+V1_BATCH_ROWS = 8
+
+
+def phase_v1(card: str):
+    """EfficientSpeech base with HiFi-GAN V1 in bf16: K1 at V1's first
+    upsampler (D_in 512, x read from device memory) and post conv (4
+    samples a row, padded to 16), K2's wide kernel at stage 0 (256 wide),
+    each at one row of V1_FRAMES frames against its plain version (the
+    wide kernel also has to beat the plain version's time); then a
+    tts_batch of V1_BATCH_ROWS long texts on the kernel route, its
+    launches counted (K1 5, K2 4 a row, one of them wide; every row
+    under ``synth.vocoder.wide_rows``) and its first two rows held to a
+    batch of two on the plain route.  Returns (K1 up0's row, K2 wide's
+    row, their launches)."""
+    from efficientspeech_tpu_torch.config import HifiGanConfig
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.models.hifigan_folded import (
+        kernel_op_shapes)
+    from efficientspeech_tpu_torch.ops.kernels import folded_matmul as fm
+    from efficientspeech_tpu_torch.ops.kernels import mrf_block
+    from efficientspeech_tpu_torch.utils import spans
+
+    t0 = time.perf_counter()
+    synth = build_synthesizer(preset="base", seed=0,
+                              hifigan_cfg=HifiGanConfig.from_json(V1_CONFIG),
+                              bench_duration_bias=6.0, dtype=torch.bfloat16,
+                              vocoder_mode="folded_kernel")
+    print(f"[setup] base + V1 synthesizer in {time.perf_counter() - t0:.1f}"
+          f" s | {card}")
+    dev, dt = synth.device, torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    ops, stages = kernel_op_shapes(synth.hifigan_cfg, V1_FRAMES)
+    rows = {}
+    for key, t, d_in, _, w in ops:
+        if key not in K1_V1_FLOOR_DB:
+            continue
+        W, b = synth.folded[key]
+        d_out = W.shape[1]
+        x = torch.randn(t, d_in, generator=gen).to(dev)
+        valid_rows = t - t // 16
+        valid = torch.tensor([valid_rows], dtype=torch.int32, device=dev)
+        kw = dict(pre_lrelu=True, lrelu_slope=0.01 if key == "post" else 0.1)
+        got = fm.folded_matmul(x, W, b, w, valid, **kw)
+        want = fm.folded_matmul_plain(x, W, b, w, valid, **kw)
+        torch.cuda.synchronize()
+        snr = snr_db(want[:valid_rows], got[:valid_rows])
+        need = max(KERNEL_SNR_DB, K1_V1_FLOOR_DB[key])
+        if snr < need or got[valid_rows:].any():
+            fail(f"K1 V1 {key}: SNR {snr:.1f} dB < {need} dB, or rows "
+                 f"beyond valid not zero")
+        ms, _ = time_ms(lambda: fm.folded_matmul(x, W, b, w, valid, **kw),
+                        20)
+        plain_ms, _ = time_ms(
+            lambda: fm.folded_matmul_plain(x, W, b, w, valid, **kw), 5)
+        win = fm.window(fm.leaky(x, kw["lrelu_slope"]), w).to(dt)
+        lib_ms, _ = time_ms(lambda: torch.matmul(win, W), 20)
+        del win
+        flops = 2.0 * valid_rows * (2 * w + 1) * d_in * d_out
+        nbytes = x.numel() * 4 + W.numel() * 2 + t * d_out * 4
+        b_ms, by, _ = product_bound(flops, nbytes, dt)
+        pl = fm.plan(t, d_in, d_out, w)
+        print(f"[K1 V1] {key}: T {t} x {d_in} -> {d_out}, w {w}, x staged "
+              f"{pl.x_bytes > 0}, W {'resident' if pl.resident else 'streamed'}"
+              f", {pl.n_wg} warpgroup(s) | SNR {snr:.1f} dB (tol >= {need}) "
+              f"| kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"{lib_ms:.4f} bound_ms {b_ms:.4f} ({by}) | {card}")
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, library_ms=lib_ms,
+                         max_abs_err=float((got - want).abs().max()))
+    stage, t = stages[0]
+    chains, W_all, b_all, H = synth.mrf[stage]
+    d = W_all.shape[1]
+    nk = len(synth.hifigan_cfg.resblock_kernel_sizes)
+    x = torch.randn(t, d, generator=gen).to(dev)
+    valid_rows = t - t // 16
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=dev)
+    got = mrf_block.mrf_fused(x, chains, W_all, b_all, H, valid, nk)
+    want = mrf_block.mrf_fused_plain(x, chains, W_all, b_all, H, valid, nk)
+    torch.cuda.synchronize()
+    snr = snr_db(want[:valid_rows], got[:valid_rows])
+    need = max(KERNEL_SNR_DB, K2_WIDE_FLOOR_DB)
+    if d != mrf_block.WIDE_D or snr < need or got[valid_rows:].any():
+        fail(f"K2 wide: width {d}, SNR {snr:.1f} dB < {need} dB, or rows "
+             f"beyond valid not zero")
+    ms, _ = time_ms(lambda: mrf_block.mrf_fused(
+        x, chains, W_all, b_all, H, valid, nk), 10)
+    plain_ms, _ = time_ms(lambda: mrf_block.mrf_fused_plain(
+        x, chains, W_all, b_all, H, valid, nk), 3)
+    # the bound counts the MRF's useful work, 2·C²·k a conv of kernel k
+    # per sample (C channels, d // C samples a row); the kernel also
+    # multiplies the fold's zero taps, every window of 2·w + 1 rows
+    cfg = synth.hifigan_cfg
+    ch = cfg.upsample_initial_channel // 2 ** (stage + 1)
+    taps = 2 * sum(k * len(dil) for k, dil in zip(
+        cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
+    flops = 2.0 * valid_rows * (d // ch) * ch * ch * taps
+    folded = sum(2.0 * valid_rows * n_win * d * d
+                 for chain in chains for _, n_win, _, _ in chain)
+    nbytes = 2 * t * d * 4 + W_all.numel() * 2 + b_all.numel() * 4
+    b_ms, by, _ = product_bound(flops, nbytes, dt)
+    pl = mrf_block.bf16_plan(mrf_block.chain_widths(chains), t, d=d)
+    print(f"[K2 wide] stage {stage}: T {t} x {d}, halo {H}, tile {pl.tm}, "
+          f"slots {pl.slots} | {flops / 1e9:.1f} GFLOP useful, "
+          f"{folded / 1e9:.1f} with the fold's zero taps | SNR {snr:.1f} dB "
+          f"(tol >= {need}) | kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {b_ms:.4f} ({by}) | achieved "
+          f"{folded / ms / 1e9:.1f} TFLOP/s of the fold's products | {card}")
+    if ms >= plain_ms:
+        fail(f"K2 wide: {ms:.3f} ms, not faster than the plain version's "
+             f"{plain_ms:.3f} ms")
+    rows["wide"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=by, library_ms=None,
+                        max_abs_err=float((got - want).abs().max()))
+
+    texts = [LONG_TEXT] * V1_BATCH_ROWS
+    synth.tts_batch(texts)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(fm, mrf_block)
+    before = (spans.counters(synth.span_id),
+              spans.counters().get("k2.wide_launches", 0))
+    t0 = time.perf_counter()
+    got = synth.tts_batch(texts)
+    wall = time.perf_counter() - t0
+    c = spans.counters(synth.span_id)
+    n = {k: c.get(k, 0) - before[0].get(k, 0) for k in (
+        "synth.vocoder.kernel_rows", "synth.vocoder.wide_rows")}
+    wide = spans.counters().get("k2.wide_launches", 0) - before[1]
+    k1, k2 = fm.launches[dt], mrf_block.launches[dt]
+    b_pad = n["synth.vocoder.kernel_rows"]
+    print(f"[V1 batch] {len(texts)} rows (padded to {b_pad}) | wall "
+          f"{wall * 1e3:.1f} ms, voice "
+          f"{sum(i['voice_secs'] for _, i in got):.2f} s | launches K1 {k1} "
+          f"K2 {k2} (wide {wide}) | wide rows "
+          f"{n['synth.vocoder.wide_rows']} of {b_pad} | {card}")
+    if (k1, k2, wide, n["synth.vocoder.wide_rows"]) != (
+            5 * b_pad, 4 * b_pad, b_pad, b_pad) or b_pad < len(texts):
+        fail(f"V1 batch: launches K1 {k1} K2 {k2} wide {wide}, wide rows "
+             f"{n['synth.vocoder.wide_rows']} of {b_pad}")
+    # the plain route's window tensors of 8 rows exceed the card's memory
+    # at these frames (PERF.md §5): two rows of the batch suffice
+    synth.vocoder_mode = "folded"
+    want = synth.tts_batch(texts[:2])
+    worst = min(snr_db(torch.from_numpy(w), torch.from_numpy(g))
+                for (w, _), (g, _) in zip(want, got))
+    print(f"[V1 batch] kernel route against the plain route (2 rows): "
+          f"worst SNR {worst:.1f} dB (tol >= {KERNEL_SNR_DB}) | {card}")
+    if worst < KERNEL_SNR_DB:
+        fail(f"V1 batch: a row at {worst:.1f} dB of the plain route")
+    del synth
+    torch.cuda.empty_cache()
+    return rows["up0"], rows["wide"], {"folded_matmul_v1": k1,
+                                       "mrf_fused_wide": wide}
 
 
 def _vocoder_shapes(synth):
@@ -3290,7 +3470,9 @@ def main():
 
     k1 = {"bf16": phase_k1(synth, card)}
     k2 = {"bf16": phase_k2(synth, card)}
+    k1_v1, k2_wide, v1_launches = phase_v1(card)
     launches = phase_slice(synth, card)
+    launches.update(v1_launches)
     batch_launches, batch_frames = phase_batch(synth, card)
     launches["adpcm_encode"] = batch_launches["adpcm_encode"]
     phase_stream_chunked(synth, card)
@@ -3385,6 +3567,12 @@ def main():
                                  stats[c, dn][i]))
         if dn == "bf16":
             rows += [
+                ("folded_matmul up0 V1", "folded_matmul_v1", dn,
+                 csrc + "folded_matmul.cu", pallas + "folded_matmul.py:231",
+                 k1_v1),
+                ("mrf_fused wide (D = 256)", "mrf_fused_wide", dn,
+                 csrc + "mrf_block.cu", pallas + "mrf_block.py:176",
+                 k2_wide),
                 ("int8_window_matmul bf16-in", "k5_bf16", "bf16",
                  csrc + "int8_window.cu", probe, k5["bf16"]),
                 ("int8_window_matmul int8-in", "k5_int8", "int8",

@@ -39,7 +39,11 @@
 //   the panel's 16-byte chunks sat 6 KB apart on the same banks, and the
 //   load and the products ran 1.3x slower.  Where the panel does not fit
 //   (the w = 13 resblock op: 864 KB), W streams one tap at a time through
-//   one slot a warpgroup; that path is correct, not fast.
+//   one slot a warpgroup; that path is correct, not fast.  Where even one
+//   warpgroup's x stage does not fit beside the slot and its A tile
+//   (HiFi-GAN V1's first upsampler: D_in 512, a 135 KB stage), the plan
+//   gives it no stage (x_bytes 0) and the converter reads x from device
+//   memory.
 // - x arrives by bulk asynchronous copies (the TMA unit's non-tensor mode,
 //   completing on an mbarrier): a tile's rows and its 2w halo rows are
 //   contiguous in device memory, so one copy fills a stage and no tensor
@@ -323,13 +327,15 @@ __global__ void __launch_bounds__(2 * NT, 1)
   };
 
   uint64_t* w_ready = full + p.n_wg;  // the resident panel has landed
+  // no x stage (x_bytes 0): the converter reads x from device memory
+  const bool staged = p.x_bytes > 0;
   if (tid == 0) {
     for (int g = 0; g < p.n_wg; ++g) sm90::mbar_init(&full[g], 1);
     sm90::mbar_init(w_ready, p.n_wg * NT);
     sm90::fence_mbar_init();
   }
   __syncthreads();
-  if (wtid == 0 && wg < live) load_x(wg);
+  if (staged && wtid == 0 && wg < live) load_x(wg);
   if (p.resident && live > 0) {  // the whole panel, once, in flight
     load_w(0, tid, p.n_wg * NT);  // during the first tile's conversion
     sm90::cp_async_arrive_noinc(w_ready);
@@ -363,15 +369,17 @@ __global__ void __launch_bounds__(2 * NT, 1)
     }
 
     // converter: the tile and its halo -> bf16, activation applied once
-    sm90::mbar_wait(&full[wg], (i / p.n_wg) & 1);
+    if (staged) sm90::mbar_wait(&full[wg], (i / p.n_wg) & 1);
     const float4* xs = reinterpret_cast<const float4*>(xs_bytes);
+    const float4* xg = reinterpret_cast<const float4*>(p.x) +
+                       (ptrdiff_t)(row0 - w) * (d_in / 4);
     const int q = d_in / 4;
 #pragma unroll 4
     for (int e = wtid; e < rows * q; e += NT) {
       const int r = e / q, c4 = e - r * q;
       const int g = row0 - w + r;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (g >= 0 && g < T) v = xs[e];
+      if (g >= 0 && g < T) v = staged ? xs[e] : __ldg(xg + e);
       if (p.pre_lrelu) {
         v.x = v.x >= 0.f ? v.x : v.x * p.slope;
         v.y = v.y >= 0.f ? v.y : v.y * p.slope;
@@ -384,7 +392,7 @@ __global__ void __launch_bounds__(2 * NT, 1)
           *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
     }
     wg_sync(wg);  // A tile complete, the stage free
-    if (wtid == 0 && i + p.n_wg < live) load_x(i + p.n_wg);
+    if (staged && wtid == 0 && i + p.n_wg < live) load_x(i + p.n_wg);
 
     if (!w_in) {
       sm90::mbar_wait(w_ready, 0);

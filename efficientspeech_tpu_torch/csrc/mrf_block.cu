@@ -69,6 +69,11 @@
 // memory; a tile whose rows all lie at or beyond it (the speculative
 // buffer's tail) only writes zeros.
 //
+// At D = 256 (a stage of 256 channels, one sample a row) the bf16 variant
+// has a kernel of its own, mrf_kernel_wide (namespace widev below): 128
+// output channels a warpgroup, quarter-tap ring slices, v in device
+// memory.
+//
 // Numerics: bf16 x bf16 products with f32 accumulation (the TPU's MXU
 // arithmetic), f32 residual stream.  Held to the plain float32 version at
 // SNR >= 35 dB.
@@ -122,7 +127,7 @@
 
 namespace {
 
-constexpr int D = 128;          // folded width of every stage
+constexpr int D = 128;          // folded width (widev: 256)
 constexpr int MAX_CHAINS = 4;
 constexpr int MAX_OPS = 8;
 
@@ -516,6 +521,380 @@ mrf_kernel(const __grid_constant__ CUtensorMap tmap,
 
 }  // namespace bf16v
 
+// The bf16 variant at twice the width (D = 256: a stage of 256 channels
+// at one sample a row, HiFi-GAN V1's first).  Its W slice a tap is 128
+// KB and a 64-row tile's float32 v with its halo 188 KB, so the D = 128
+// layout cannot hold it; this one keeps the same products (conv^T = W^T
+// act^T on wgmma, A = W from a TMA ring, B = the bf16 activation buffer)
+// with these changes:
+//   * each of the two warpgroups takes 128 output channels as two halves
+//     of 64 (two wgmma a k-step into two accumulator arrays), and K runs
+//     over 16 k-steps a tap;
+//   * a ring slice is a quarter of a tap (64 k rows x 256 columns, the
+//     same 32 KB), loaded as four boxes of 64 x 64, one a half;
+//   * v, the float32 residual stream, lives in device memory (one region
+//     a block, L2-resident) instead of shared memory: a residual conv's
+//     epilogue adds v (x itself for a chain's first pair) from there and
+//     stores the new v back;
+//   * no producer warp: a ninth warp would put three warps on one of the
+//     SM's four register files and cut every thread to 168 registers,
+//     below the accumulators of N = 176 rows x 128 channels; thread 0
+//     loads the ring instead, slots - 1 slices ahead: after each slice's
+//     products are issued and the slice before is released, every thread
+//     waits (uniformly, outside any divergent path, which ptxas would
+//     serialise the wgmmas for) until all eight warps have released it,
+//     and thread 0 loads that slot's next slice, while the products run.
+// The blocks are persistent (one an SM, walking tiles blockIdx.x,
+// + gridDim.x, ...) so that the v regions are as many as the SMs and the
+// ring runs on into a block's next tile.  The tile height follows from
+// the halo, MAX_N and shared memory (mrf_block.py::bf16_plan at d = 256).
+namespace widev {
+
+constexpr int DW = 256;             // folded width
+constexpr int NT = 256;             // two warpgroups
+constexpr int MAX_TM = 80;
+constexpr int MAX_N = 176;          // at 192 ptxas spills (255 registers)
+constexpr int KS = 64;              // k rows of W a ring slice
+constexpr int SLICE = KS * DW * 2;  // 32 KB
+constexpr int SPT = DW / KS;        // slices a tap
+constexpr int MAX_SLOTS = 4;
+
+// the plan (mrf_block.py::bf16_plan at d = 256): tile rows, the halo,
+// ring slots, rows of a channel chunk of the activation buffer, byte
+// offsets of the buffer and of the slots' barriers (the ring at 0)
+struct Plan {
+  int tm, H, slots, r_alloc, buf_off, bar_off;
+};
+
+// descriptor of A (64 output channels from 64 qt x 16 k rows from k0) in
+// a slot at shared address `slot`: the slot holds four boxes of 64 k rows
+// x 64 columns, 8 KB apart, each in the 128-byte swizzle; 8-row groups
+// 1 KB apart
+__device__ __forceinline__ uint64_t slice_desc(uint32_t slot, int qt,
+                                               int k0) {
+  const uint32_t addr = slot + qt * (KS * 128) + k0 * 128;
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((KS * 128) >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// the ring of bf16v::Ring with quarter-tap slices: the block's slice q
+// is W_all's k rows [64 p, 64 p + 64), p = q % per_tile (each of the
+// block's live tiles streams all of W_all again), in slot q % slots;
+// `total` slices in all
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  const CUtensorMap* tmap;
+  int slots, total, per_tile;
+
+  // thread 0: slice q into its slot (its slot free: see refill)
+  __device__ __forceinline__ void load(int q) const {
+    const int s = q % slots;
+    sm90::mbar_expect_tx(&full[s], SLICE);
+    unsigned char* slot = base + (size_t)s * SLICE;
+    for (int h = 0; h < DW / 64; ++h)
+      sm90::tma_load_2d(slot + h * (KS * 128), tmap, 64 * h,
+                        (q % per_tile) * KS, &full[s]);
+  }
+
+  // every thread, after its warp released slice q: once all have, slice
+  // q + slots goes into the slot
+  __device__ __forceinline__ void refill(int q) const {
+    const int n = q + slots;
+    if (n >= total) return;
+    sm90::mbar_wait(&empty[q % slots], (q / slots) & 1);
+    if (threadIdx.x == 0) load(n);
+  }
+
+  __device__ __forceinline__ uint32_t wait(int q) const {
+    sm90::mbar_wait(&full[q % slots], (q / slots) & 1);
+    return sm90::smem_u32(base) + (q % slots) * SLICE;
+  }
+
+  __device__ __forceinline__ void release(int q) const {
+    sm90::mbar_arrive(&empty[q % slots]);
+  }
+};
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(NT) : "memory");
+}
+
+// Where a residual conv's v comes from: element (r, c) of buffer row r
+// is src[(src_row0 + r) * DW + c] for src_row0 + r in [lo, hi), else 0
+// (x over its valid rows for a chain's first pair, the block's v region
+// after it).
+struct Residual {
+  const float* src;
+  int src_row0, lo, hi;
+};
+
+// One folded conv of N padded output rows over the activation rows
+// [a, b), writing rows [a + w, b - w), as bf16v::conv_op; `residual`:
+// the output is v's residual update (v read from `res`), stored to the
+// block's region `vs`.
+template <int N>
+__device__ __forceinline__ void conv_op(unsigned char* smem, const Plan& pl,
+                                        const Ring& ring, int& q,
+                                        const float* __restrict__ bias,
+                                        bool residual, Residual res,
+                                        float* __restrict__ vs, int w, int a,
+                                        int b, int base, int valid,
+                                        float slope) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int o0 = a + w, end = b - w;
+  const uint32_t chunk = pl.r_alloc * 16;
+  // this lane's output channels: c0 + 64 hf and c0 + 64 hf + 8
+  const int c0 = 128 * wg + 16 * warp + g;
+
+  // acc[hf][4 j + 2 h + e] is output channel c0 + 64 hf + 8 h of output
+  // row 8 j + 2 t + e; it starts at the bias (v, loaded into it here,
+  // made ptxas serialise the wgmmas)
+  float acc[2][N / 2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float bv = bias[c0 + 64 * hf + 8 * h];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[hf][4 * j + 2 * h + e] = bv;
+    }
+  // defined before the first wgmma's fence
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) sm90::reg_fence(acc[hf][i]);
+
+  const uint64_t db =
+      tf32x3::desc(sm90::smem_u32(smem + pl.buf_off) + a * 16, chunk);
+  for (int j = 0; j <= 2 * w; ++j) {
+    for (int s = 0; s < SPT; ++s, ++q) {
+      const uint32_t slot = ring.wait(q);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KS / 16; ++k) {
+        const uint64_t bk = db + j + (s * (KS / 16) + k) * 2 * (chunk >> 4);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          bf16v::wgmma_ss(acc[hf], slice_desc(slot, 2 * wg + hf, 16 * k), bk,
+                          1);
+      }
+      sm90::wgmma_commit();
+      tf32x3::wait_group<1>();  // this warp is done with slice q - 1
+      if (q > 0) {
+        if (lane == 0) ring.release(q - 1);
+        ring.refill(q - 1);
+      }
+    }
+  }
+  sm90::wgmma_wait_all();
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) sm90::reg_fence(acc[hf][i]);
+  consumers_sync();  // both warpgroups are done reading the buffer
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    unsigned char* st =
+        smem + pl.buf_off +
+        (16 * wg + 8 * hf + 2 * warp + ((lane >> 3) & 1)) * chunk +
+        (o0 + 8 * (lane >> 4) + (lane & 7)) * 16;
+#pragma unroll
+    for (int j = 0; j < N / 8; j += 2) {
+      uint32_t packed[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r0 = o0 + 8 * (j + i) + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool in = r0 + e < end;
+            const bool keep =
+                in && (unsigned)(base + r0 + e) < (unsigned)valid;
+            const int c = c0 + 64 * hf + 8 * h, sr = res.src_row0 + r0 + e;
+            float v = acc[hf][4 * (j + i) + 2 * h + e];
+            if (residual && in && sr >= res.lo && sr < res.hi)
+              v += res.src[(size_t)sr * DW + c];
+            v = keep ? v : 0.f;
+            if (residual && in) vs[(size_t)(r0 + e) * DW + c] = v;
+            y[e] = lrelu(v, slope);
+          }
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(y[0], y[1]);
+          packed[2 * i + h] = *reinterpret_cast<const uint32_t*>(&p2);
+        }
+      }
+      sm90::stmatrix_x4_trans(st + 8 * j * 16, packed);
+    }
+  }
+  sm90::fence_proxy_async();  // the new buffer, before wgmma reads it
+  consumers_sync();           // and v's stores, before they are read
+}
+
+__device__ __forceinline__ void conv(unsigned char* smem, const Plan& pl,
+                                     const Ring& ring, int& q,
+                                     const float* __restrict__ bias,
+                                     bool residual, Residual res,
+                                     float* vs, int w,
+                                     int a, int b, int base, int valid,
+                                     float slope) {
+#define MRF_CONV(N)                                                      \
+  case N / 16:                                                           \
+    conv_op<N>(smem, pl, ring, q, bias, residual, res, vs, w, a, b, base, \
+               valid, slope);                                             \
+    break;
+  switch ((b - a - 2 * w + 15) / 16) {
+    MRF_CONV(16) MRF_CONV(32) MRF_CONV(48) MRF_CONV(64) MRF_CONV(80)
+    MRF_CONV(96) MRF_CONV(112) MRF_CONV(128) MRF_CONV(144) MRF_CONV(160)
+    MRF_CONV(176)
+  }
+#undef MRF_CONV
+}
+
+constexpr int PASS = 8;  // float4s a thread moves at once (loads first)
+
+__global__ void __launch_bounds__(NT, 1)
+mrf_kernel_wide(const __grid_constant__ CUtensorMap tmap,
+                const float* __restrict__ x, const float* __restrict__ b_all,
+                float* __restrict__ out, float* __restrict__ v_all,
+                const int* __restrict__ valid_ptr, int T, const Plan pl,
+                MrfOps ops, int n_slices, float inv_nk, float slope) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int tm = pl.tm, H = pl.H;
+  const int n_tiles = (T + tm - 1) / tm;
+  const int valid = min(max(*valid_ptr, 0), T);
+  unsigned char* act = smem + pl.buf_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + pl.bar_off);
+  uint64_t* empty = full + pl.slots;
+  float* vs = v_all + (size_t)blockIdx.x * (tm + 2 * H) * DW;
+  // this block's tiles with a row below valid, each n_slices slices
+  const int live_tiles = (valid + tm - 1) / tm;
+  const int mine = blockIdx.x < live_tiles
+                       ? (live_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                       : 0;
+
+  const Ring ring{smem, full, empty, &tmap, pl.slots, mine * n_slices,
+                  n_slices};
+  if (tid == 0) {
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], NT / 32);
+    }
+    sm90::fence_mbar_init();
+    for (int s = 0; s < pl.slots && s < ring.total; ++s) ring.load(s);
+  }
+  __syncthreads();
+  // rows past a conv's extent are read (never kept): start the buffer at
+  // zero so they stay finite
+  for (int i = tid; i < (DW / 8) * pl.r_alloc; i += NT)
+    reinterpret_cast<float4*>(act)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  consumers_sync();
+
+  const uint32_t chunk = pl.r_alloc * 16;
+  int q = 0;  // the ring's next slice
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * tm;
+    const int base = row0 - H;  // global row of buffer row 0
+    if (row0 >= valid) {  // every row masked: zeros only
+      for (int i = tid; i < tm * DW; i += NT)
+        if (row0 + i / DW < T) out[(size_t)row0 * DW + i] = 0.f;
+      continue;
+    }
+    for (int j = 0; j < ops.n_chains; ++j) {
+      int M = 0;
+      for (int m = 0; m < ops.n_ops[j]; ++m) M += ops.w[j][m];
+      int a = H - M, b = H + tm + M;
+
+      // the buffer := the activation of x (masked) over the chain's extent
+      const int n_in = (b - a) * (DW / 4);
+      for (int i0 = tid; i0 < n_in; i0 += PASS * NT) {
+        float4 xv[PASS];
+#pragma unroll
+        for (int u = 0; u < PASS; ++u) {
+          const int i = i0 + u * NT, gr = base + a + i / (DW / 4);
+          xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < n_in && gr >= 0 && gr < valid)
+            xv[u] = __ldg(reinterpret_cast<const float4*>(
+                              x + (size_t)gr * DW) + i % (DW / 4));
+        }
+#pragma unroll
+        for (int u = 0; u < PASS; ++u) {
+          const int i = i0 + u * NT, r = a + i / (DW / 4), c4 = i % (DW / 4);
+          if (i >= n_in) break;
+          const float4 v = xv[u];
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(lrelu(v.x, slope),
+                                                          lrelu(v.y, slope));
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(lrelu(v.z, slope),
+                                                          lrelu(v.w, slope));
+          *reinterpret_cast<uint2*>(act + (c4 >> 1) * chunk + r * 16 +
+                                    (c4 & 1) * 8) =
+              make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                         *reinterpret_cast<const uint32_t*>(&hi));
+        }
+      }
+      sm90::fence_proxy_async();
+      consumers_sync();
+
+      const Residual from_x{x, base, 0, valid};
+      const Residual from_v{vs, 0, 0, tm + 2 * H};
+      for (int m = 0; m + 1 < ops.n_ops[j]; m += 2) {
+        const int w1 = ops.w[j][m], w2 = ops.w[j][m + 1];
+        conv(smem, pl, ring, q, b_all + (size_t)ops.bidx[j][m] * DW, false,
+             from_v, vs, w1, a, b, base, valid, slope);
+        a += w1;
+        b -= w1;
+        conv(smem, pl, ring, q, b_all + (size_t)ops.bidx[j][m + 1] * DW,
+             true, m == 0 ? from_x : from_v, vs, w2, a, b, base, valid, slope);
+        a += w2;
+        b -= w2;
+      }
+
+      // a == H and b == H + tm: fold the chain's centre rows into the sum
+      const bool first = j == 0, last = j == ops.n_chains - 1;
+      const int n_out = min(tm, T - row0) * (DW / 4);
+      for (int i0 = tid; i0 < n_out; i0 += PASS * NT) {
+        float4 sum[PASS], cur[PASS];
+#pragma unroll
+        for (int u = 0; u < PASS; ++u) {
+          const int i = i0 + u * NT;
+          sum[u] = cur[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < n_out) {
+            cur[u] = reinterpret_cast<const float4*>(vs + (size_t)H * DW)[i];
+            if (!first)
+              sum[u] = reinterpret_cast<const float4*>(
+                  out + (size_t)row0 * DW)[i];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PASS; ++u) {
+          const int i = i0 + u * NT, r = i / (DW / 4);
+          if (i >= n_out) break;
+          float4 s = cur[u];
+          s.x += sum[u].x; s.y += sum[u].y; s.z += sum[u].z; s.w += sum[u].w;
+          if (last) {
+            const float k = row0 + r < valid ? inv_nk : 0.f;
+            s.x *= k; s.y *= k; s.z *= k; s.w *= k;
+          }
+          reinterpret_cast<float4*>(out + (size_t)row0 * DW)[i] = s;
+        }
+      }
+      consumers_sync();
+    }
+  }
+}
+
+}  // namespace widev
+
 namespace f32v {
 
 constexpr int NT = 256;       // two warpgroups, 64 output channels each
@@ -760,26 +1139,29 @@ bool parse_spec(const int* spec, MrfOps& ops) {
   return true;
 }
 
-// The maps of the last few W_all encoded, by pointer and rows: a map holds
-// nothing else, so a hit is the map the encoder would give, and a batch,
-// which launches each stage once a row, encodes each stage's map once.
+// The maps of the last few W_all encoded, by pointer, rows and width: a
+// map holds nothing else, so a hit is the map the encoder would give, and
+// a batch, which launches each stage once a row, encodes each stage's map
+// once.
 struct MapEntry {
   CUtensorMap map;
   const void* W;
-  int rows;
+  int rows, d;
 };
 constexpr int MAP_CACHE = 8;
 MapEntry map_cache[MAP_CACHE] = {};
 int map_next = 0;
 
-// The tensor map of the bf16 W_all (rows x 128, row-major) in boxes of 128
-// k rows x 64 columns with the 128-byte swizzle: a box is half a tap
-// slice (one warpgroup's output channels), laid out as
-// bf16v::slice_offset lays it.  The driver's encoder is found through the
-// runtime, so nothing links against the driver library.
-cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
+// The tensor map of the bf16 W_all (rows x d, row-major) in boxes of
+// box_rows k rows x 64 columns with the 128-byte swizzle: a box is one
+// warpgroup's output channels of a ring slice, laid out as
+// bf16v::slice_offset (d = 128, boxes of 128 rows) or widev::slice_desc
+// (d = 256, boxes of 64 rows) read it.  The driver's encoder is found
+// through the runtime, so nothing links against the driver library.
+cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows, int d,
+                         int box_rows) {
   for (const MapEntry& m : map_cache) {
-    if (m.W == W && m.rows == rows) {
+    if (m.W == W && m.rows == rows && m.d == d) {
       *map = m.map;
       return cudaSuccess;
     }
@@ -805,9 +1187,10 @@ cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {D, static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {D * 2};
-  const cuuint32_t box[2] = {64, D};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(W), dims,
@@ -815,7 +1198,7 @@ cudaError_t w_tensor_map(CUtensorMap* map, const void* W, int rows) {
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  map_cache[map_next] = {*map, W, rows};
+  map_cache[map_next] = {*map, W, rows, d};
   map_next = (map_next + 1) % MAP_CACHE;
   return cudaSuccess;
 }
@@ -863,7 +1246,7 @@ int mrf_launch(const void* x, const void* W, const void* b_all, void* out,
       smem < bar_off + 16 * slots + 1024)
     return cudaErrorInvalidValue;
   CUtensorMap map;
-  cudaError_t e = w_tensor_map(&map, W, rows);
+  cudaError_t e = w_tensor_map(&map, W, rows, D, D);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(mrf_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -873,6 +1256,54 @@ int mrf_launch(const void* x, const void* W, const void* b_all, void* out,
       map, static_cast<const float*>(x), static_cast<const float*>(b_all),
       static_cast<float*>(out), static_cast<const int*>(valid), T, pl, ops,
       rows / D, 1.0f / num_kernels, slope);
+  return cudaGetLastError();
+}
+
+// bf16 W_all of a stage 256 wide; x, b_all and out float32; v_all grid
+// regions of (tm + 2 H) x 256 floats, the blocks' v.  The plan (tile rows
+// tm, ring slots, rows of a channel chunk, the buffer's and the barriers'
+// byte offsets, shared memory, blocks) comes from mrf_block.py::bf16_plan
+// at d = 256.
+int mrf_wide_launch(const void* x, const void* W, const void* b_all,
+                    void* out, void* v_all, const void* valid, int T, int H,
+                    int tm, int slots, int r_alloc, int buf_off, int bar_off,
+                    int smem, int grid, const int* spec, int num_kernels,
+                    float slope, void* stream) {
+  using namespace widev;
+  MrfOps ops;
+  if (!parse_spec(spec, ops)) return cudaErrorInvalidValue;
+  int rows = 0;
+  for (int j = 0; j < ops.n_chains; ++j) {
+    int M = 0;
+    for (int m = 0; m < ops.n_ops[j]; ++m) M += ops.w[j][m];
+    if (M > H) return cudaErrorInvalidValue;
+    int extent = tm + 2 * M;
+    for (int m = 0; m < ops.n_ops[j]; ++m) {
+      const int w = ops.w[j][m];
+      if (w < 0 || ops.woff[j][m] != rows) return cudaErrorInvalidValue;
+      rows += (2 * w + 1) * DW;
+      extent -= 2 * w;
+      if (extent > MAX_N) return cudaErrorInvalidValue;
+    }
+  }
+  const Plan pl{tm, H, slots, r_alloc, buf_off, bar_off};
+  if (tm <= 0 || tm % 16 || tm > MAX_TM || slots < 2 || slots > MAX_SLOTS ||
+      buf_off < slots * SLICE || buf_off % 16 ||
+      r_alloc < tm + 2 * H + 15 ||
+      bar_off < buf_off + (DW / 8) * r_alloc * 16 || bar_off % 8 ||
+      smem < bar_off + 16 * slots + 1024 || grid < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = w_tensor_map(&map, W, rows, DW, KS);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mrf_kernel_wide,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  mrf_kernel_wide<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<const float*>(x), static_cast<const float*>(b_all),
+      static_cast<float*>(out), static_cast<float*>(v_all),
+      static_cast<const int*>(valid), T, pl, ops, rows / KS,
+      1.0f / num_kernels, slope);
   return cudaGetLastError();
 }
 

@@ -29,8 +29,10 @@ inside any of them ``synth.upload``, ``synth.acoustic``,
 ``synth.encode``, ``synth.fetch.wait`` (the host blocked on the card) and
 ``synth.fetch.copy``; counters ``synth.rows``, ``synth.pad_rows``,
 ``synth.reruns`` and the vocoder's rows by route,
-``synth.vocoder.kernel_rows`` and ``synth.vocoder.plain_rows``.  The
-timings in each call's info are read from these spans' stamps.
+``synth.vocoder.kernel_rows`` and ``synth.vocoder.plain_rows``, with
+``synth.vocoder.wide_rows`` (kernel-route rows whose 256-wide stage ran
+in ``mrf_fused``) and K2's ``k2.wide_launches``.  The timings in each
+call's info are read from these spans' stamps.
 """
 
 import collections

@@ -8,10 +8,11 @@ per row), a conv (or a transposed conv with k − 2·pad = stride) becomes
 
 with W_folded built exactly by scattering the original weights.  Masking
 is row-level: validity boundaries are frame-aligned, so the valid region
-equals the conv generator's.  With ``use_kernel`` the 128-wide ops run in
-the CUDA kernels (``ops/kernels``): the upsamplers and the post conv in
-``folded_matmul``, and with ``fuse_mrf`` each stage's MRF block in
-``mrf_fused``.
+equals the conv generator's.  With ``use_kernel`` the ops whose input is
+a multiple of 128 wide run in the CUDA kernels (``ops/kernels``): the
+upsamplers and the post conv in ``folded_matmul``, and with ``fuse_mrf``
+each stage's MRF block in ``mrf_fused`` (on the card at the widths its
+variants are built for: 128, and 256 in bf16).
 """
 
 from typing import Dict, Optional
@@ -22,6 +23,7 @@ from efficientspeech_tpu_torch.config import HifiGanConfig
 from efficientspeech_tpu_torch.models.hifigan import HifiGanGenerator
 from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
     folded_matmul, leaky, mask_rows, window)
+from efficientspeech_tpu_torch.ops.kernels import mrf_block
 from efficientspeech_tpu_torch.ops.kernels.mrf_block import (
     build_mrf_spec, mrf_fused)
 from efficientspeech_tpu_torch.utils import spans
@@ -174,12 +176,24 @@ def fold_hifigan(generator: HifiGanGenerator, dtype=torch.bfloat16,
     return arrays, meta
 
 
+# folded_matmul takes D_out in multiples of this
+KERNEL_COLS = 16
+
+
 def prepare_for_kernels(arrays: Dict, meta, cfg: HifiGanConfig):
     """The weights in the layout the kernels take, made once: W
     contiguous, b as float32 (its values stay those of the fold's dtype),
-    and each stage's stacked MRF spec (resblock "1" only)."""
+    the post conv's W and b padded with zero columns to a multiple of
+    KERNEL_COLS (V1's and V3's 4 samples a row; ``folded_plan_apply``
+    drops them), and each stage's stacked MRF spec (resblock "1" only)."""
     kernel_arrays = {k: (W.contiguous(), b.float().contiguous())
                      for k, (W, b) in arrays.items()}
+    W, b = kernel_arrays["post"]
+    pad = -W.shape[1] % KERNEL_COLS
+    if pad:
+        kernel_arrays["post"] = (
+            torch.nn.functional.pad(W, (0, pad)).contiguous(),
+            torch.nn.functional.pad(b, (0, pad)).contiguous())
     mrf = {}
     if cfg.resblock == "1":
         for i in range(len(cfg.upsample_rates)):
@@ -254,9 +268,12 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
         return vrows_cache[mult]
 
     def apply_op(inp, key, pre_lrelu, slope=LRELU_SLOPE, residual=None,
-                 accum=None, out_scale=None):
+                 accum=None, out_scale=None, cols=None):
         W, bb = arrays[key]
         w = widths[key]
+        if cols is not None and inp.device.type != "cuda":
+            # the plain versions need no padded columns
+            W, bb = W[:, :cols], bb[:cols]
         vrows = vrows_for(valid_mult[key])
         d_in = W.shape[0] // (2 * w + 1)
         # the mel input op (d_in = 80) stays a plain matmul, as in the
@@ -279,6 +296,8 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
             if out_scale is not None:
                 out = out * out_scale
             out = torch.stack([mask_rows(o, v) for o, v in zip(out, vrows)])
+        if cols is not None:
+            out = out[..., :cols]
         split = reshape.get(key, 1)
         if split > 1:
             bb_, t_, d_ = out.shape
@@ -289,8 +308,13 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
     x = apply_op(x, "pre", pre_lrelu=False)
     for i in range(len(cfg.upsample_rates)):
         x = apply_op(x, f"up{i}", pre_lrelu=True)
+        width = x.shape[2]
         if (fuse_mrf and use_kernel and cfg.resblock == "1"
-                and x.shape[2] % 128 == 0):
+                and width % 128 == 0
+                and (x.device.type != "cuda"
+                     or mrf_block.supports(width, dtype))):
+            if width == mrf_block.WIDE_D:
+                spans.count("synth.vocoder.wide_rows", x.shape[0])
             if mrf is None:
                 chains, W_all, b_all, H = build_mrf_spec(
                     arrays, widths, i, cfg.resblock_dilation_sizes)
@@ -318,8 +342,11 @@ def folded_plan_apply(arrays: Dict, meta, cfg: HifiGanConfig,
                                  residual=v, accum=acc, out_scale=scale)
             xs = v if (xs is None or fuse_sum) else xs + v
         x = xs if fuse_sum else xs / num_kernels
-    # the final activation uses torch's default slope 0.01
-    x = apply_op(x, "post", pre_lrelu=True, slope=0.01)
+    # the final activation uses torch's default slope 0.01; the post conv
+    # gives one sample a channel of the last stage's row
+    x = apply_op(x, "post", pre_lrelu=True, slope=0.01,
+                 cols=x.shape[2] // (cfg.upsample_initial_channel
+                                     >> len(cfg.upsample_rates)))
     x = torch.tanh(x.float())
     b_, t_, d_ = x.shape
     return x.reshape(b_, t_ * d_)

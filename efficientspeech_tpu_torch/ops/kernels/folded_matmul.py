@@ -93,9 +93,11 @@ class Plan(NamedTuple):
     tile.  W's panel is ``resident`` (all 2w+1 taps, loaded once per
     block) or streamed a tap at a time through one ``w_slot``-byte slot a
     warpgroup.  Shared memory, from a 1024-byte aligned base: W at 0, the
-    x stages at ``x_off`` (``x_bytes`` each), the bf16 A tiles at
-    ``a_off`` (``a_bytes`` each), the mbarriers at ``bar_off``; ``smem``
-    bytes in all, the alignment slack included."""
+    x stages at ``x_off`` (``x_bytes`` each; 0 where even one stage does
+    not fit beside W and the A tile, and the converter then reads x from
+    device memory), the bf16 A tiles at ``a_off`` (``a_bytes`` each), the
+    mbarriers at ``bar_off``; ``smem`` bytes in all, the alignment slack
+    included."""
     tm: int
     tn: int
     n_wg: int
@@ -119,7 +121,8 @@ def plan(t: int, d_in: int, d_out: int, w: int, sms: int = SMS_H100) -> Plan:
     kernel does not take.  Panels of 128 columns where there are tiles
     enough for two warpgroups a block, else 64; W resident before
     streamed, two warpgroups before one: the first that fits a block's
-    shared memory."""
+    shared memory, with x staged in it before x read from device memory
+    (the only way HiFi-GAN V1's first upsampler, D_in 512, fits)."""
     if d_in <= 0 or d_in % 64:
         raise ValueError(f"folded_matmul: D_in {d_in} must be a positive "
                          "multiple of 64")
@@ -138,7 +141,9 @@ def plan(t: int, d_in: int, d_out: int, w: int, sms: int = SMS_H100) -> Plan:
     x_bytes = _align(rows * d_in * 4, 128)
     a_bytes = _align(rows * (d_in + APAD) * 2, 128)
     w_slot = _align(d_in * tn * 2, 1024)
-    for resident, n_wg in ((True, 2), (True, 1), (False, 2), (False, 1)):
+    for x_bytes, resident, n_wg in ((x_bytes, True, 2), (x_bytes, True, 1),
+                                    (x_bytes, False, 2), (x_bytes, False, 1),
+                                    (0, False, 1)):
         w_bytes = (_align((2 * w + 1) * d_in * tn * 2, 1024) if resident
                    else n_wg * w_slot)
         bar_off = w_bytes + n_wg * (x_bytes + a_bytes)

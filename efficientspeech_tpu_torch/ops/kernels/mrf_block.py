@@ -12,7 +12,9 @@ plain version; a CUDA tensor launches the kernel or raises.  The kernel
 has two variants, chosen by W_all's dtype: bf16 (bf16 products, float32
 sums; its tiling is decided here, by ``bf16_plan``) and float32 (3xTF32
 split products on the tensor cores, held to float32; tiled by
-``f32_plan``).
+``f32_plan``).  Stages are 128 wide, and the bf16 variant also takes 256
+(``mrf_kernel_wide``, HiFi-GAN V1's first stage); ``WIDTHS`` lists the
+widths each variant is built for.
 """
 
 import ctypes
@@ -25,12 +27,21 @@ import torch
 from efficientspeech_tpu_torch.ops.kernels import build
 from efficientspeech_tpu_torch.ops.kernels.folded_matmul import (
     ALIGN_SLACK, leaky, mask_rows, window)
+from efficientspeech_tpu_torch.utils import spans
 
 LRELU_SLOPE = 0.1
 D = 128
+WIDE_D = 256
 
-# the weight dtypes the kernel is built for
+# the weight dtypes the kernel is built for, and the stage widths of each
 DTYPES = (torch.bfloat16, torch.float32)
+WIDTHS = {torch.bfloat16: (D, WIDE_D), torch.float32: (D,)}
+
+
+def supports(d: int, dtype: torch.dtype) -> bool:
+    """Whether a kernel variant takes a stage ``d`` wide with W_all in
+    ``dtype``."""
+    return d in WIDTHS.get(dtype, ())
 
 # kernel launches by W_all's dtype since the counts were last set to 0
 launches = dict.fromkeys(DTYPES, 0)
@@ -97,6 +108,8 @@ _SIGNATURES = {
                    _I),
     "mrf_f32_launch": ([_P] * 5 + [_I] * 7 + [ctypes.POINTER(_I), _I, _F,
                                               _P], _I),
+    "mrf_wide_launch": ([_P] * 6 + [_I] * 9 + [ctypes.POINTER(_I), _I, _F,
+                                               _P], _I),
 }
 
 
@@ -189,18 +202,26 @@ MAX_SLOTS = 4             # csrc: bf16v::MAX_SLOTS
 BF16_TAP_ROWS = 64
 
 
+# the wide kernel (d = WIDE_D; csrc: widev): a ring slice is a quarter of
+# a tap, the same SLICE_BYTES; v lies in device memory
+WIDE_MAX_N = 176          # csrc: widev::MAX_N
+WIDE_MAX_TM = 80          # csrc: widev::MAX_TM
+
+
 class BF16Plan(NamedTuple):
-    """How the bf16 kernel tiles one stage: ``tm`` rows a block (one block
-    per tile).  Shared memory, from a 1024-byte aligned base: the weight
-    ring's ``slots`` slots of SLICE_BYTES at 0; the bf16 activation
-    buffer at ``buf_off``, in chunks of 8 channels of ``r_alloc`` rows (16
-    bytes a row; r_alloc = 1 mod 8); v, float32, (tm + 2H) rows of 128
-    floats at ``v_off``; the slots' full and empty mbarriers at
-    ``bar_off``; ``smem`` bytes in all, the alignment slack included.
-    ``chunks``: each conv's wgmma N (its output rows rounded up to 16),
-    per chain in execution order.  ``cost``: a tile's taps weighted by
-    their N plus BF16_TAP_ROWS, times the waves of tiles over the SMs
-    (one block a SM: a wave that is partly filled costs a whole one)."""
+    """How the bf16 kernel tiles one stage: ``tm`` rows a tile (one block
+    per tile; at d = 256 one block a SM walks every SMs-th tile).  Shared
+    memory, from a 1024-byte aligned base: the weight ring's ``slots``
+    slots of SLICE_BYTES at 0; the bf16 activation buffer at ``buf_off``,
+    in chunks of 8 channels of ``r_alloc`` rows (16 bytes a row; r_alloc
+    = 1 mod 8); v, float32, (tm + 2H) rows of 128 floats at ``v_off`` (at
+    d = 256 v lies in device memory, and ``v_off`` = ``bar_off``); the
+    slots' full and empty mbarriers at ``bar_off``; ``smem`` bytes in
+    all, the alignment slack included.  ``chunks``: each conv's wgmma N
+    (its output rows rounded up to 16), per chain in execution order.
+    ``cost``: a tile's taps weighted by their N plus BF16_TAP_ROWS, times
+    the waves of tiles over the SMs (one block a SM: a wave that is partly
+    filled costs a whole one)."""
     tm: int
     slots: int
     r_alloc: int
@@ -226,39 +247,46 @@ def bf16_chunks(widths: Tuple[Tuple[int, ...], ...],
     return tuple(out)
 
 
-def _bf16_layout(tm: int, H: int, slots: int) -> Tuple[int, ...]:
+def _bf16_layout(tm: int, H: int, slots: int,
+                 d: int = D) -> Tuple[int, ...]:
     r_alloc = tm + 2 * H + 15
     r_alloc += (1 - r_alloc) % 8
     buf_off = slots * SLICE_BYTES
-    v_off = buf_off + D // 8 * r_alloc * 16
-    bar_off = v_off + (tm + 2 * H) * D * 4
+    v_off = buf_off + d // 8 * r_alloc * 16
+    bar_off = v_off + (tm + 2 * H) * D * 4 if d == D else v_off
     return (r_alloc, buf_off, v_off, bar_off,
             bar_off + 16 * slots + ALIGN_SLACK)
 
 
 @functools.lru_cache(maxsize=64)
 def bf16_plan(widths: Tuple[Tuple[int, ...], ...], t: int,
-              tm: Optional[int] = None, sms: int = SMS_H100) -> BF16Plan:
-    """The bf16 kernel's plan for a stage of T = ``t`` rows whose chains
-    have the window half-widths ``widths`` (one tuple per chain, in
-    execution order).  Without ``tm``, the tile height (a multiple of 16,
-    at most BF16_MAX_TM) whose convs fit one wgmma and whose buffers leave
-    a block's shared memory room for two ring slots or more, at the least
-    ``cost``: a tall tile reads each weight slice for more rows and
-    recomputes less halo, a short one spreads a stage over the SMs in
-    fewer or fuller waves; of equal costs, the one with more slots.  The
-    ring takes as many slots as fit, up to MAX_SLOTS.  Raises ValueError
-    where none fits."""
+              tm: Optional[int] = None, sms: int = SMS_H100,
+              d: int = D) -> BF16Plan:
+    """The bf16 kernel's plan for a stage ``d`` wide (128, or 256 for the
+    wide kernel) of T = ``t`` rows whose chains have the window
+    half-widths ``widths`` (one tuple per chain, in execution order).
+    Without ``tm``, the tile height (a multiple of 16, at most
+    BF16_MAX_TM, or WIDE_MAX_TM at d = 256) whose convs fit one wgmma and
+    whose buffers leave a block's shared memory room for two ring slots or
+    more, at the least ``cost``: a tall tile reads each weight slice for
+    more rows and recomputes less halo, a short one spreads a stage over
+    the SMs in fewer or fuller waves; of equal costs, the one with more
+    slots.  The ring takes as many slots as fit, up to MAX_SLOTS.  Raises
+    ValueError where none fits."""
+    if not supports(d, torch.bfloat16):
+        raise ValueError(f"mrf_fused: no bf16 kernel at width {d}")
+    max_tm, max_n = ((BF16_MAX_TM, BF16_MAX_N) if d == D
+                     else (WIDE_MAX_TM, WIDE_MAX_N))
     H = max(sum(c) for c in widths)
     best = None
-    for cand in (tm,) if tm is not None else range(16, BF16_MAX_TM + 1, 16):
-        if cand % 16 or not 0 < cand <= BF16_MAX_TM:
+    for cand in (tm,) if tm is not None else range(16, max_tm + 1, 16):
+        if cand % 16 or not 0 < cand <= max_tm:
             continue
         chunks = bf16_chunks(widths, cand)
-        if max(max(c) for c in chunks) > BF16_MAX_N:
+        if max(max(c) for c in chunks) > max_n:
             continue
         fits = [s for s in range(MAX_SLOTS, 1, -1)
-                if _bf16_layout(cand, H, s)[-1] <= SMEM_LIMIT]
+                if _bf16_layout(cand, H, s, d)[-1] <= SMEM_LIMIT]
         if not fits:
             continue
         rows = sum((2 * w + 1) * (n + BF16_TAP_ROWS)
@@ -266,11 +294,12 @@ def bf16_plan(widths: Tuple[Tuple[int, ...], ...], t: int,
                    for w, n in zip(chain, ns))
         cost = rows * -(-t // (cand * sms))
         if best is None or (cost, -fits[0]) < (best.cost, -best.slots):
-            best = BF16Plan(cand, fits[0], *_bf16_layout(cand, H, fits[0]),
-                            chunks, cost)
+            best = BF16Plan(cand, fits[0],
+                            *_bf16_layout(cand, H, fits[0], d), chunks, cost)
     if best is None:
         raise ValueError(f"mrf_fused: no bf16 tile fits halo {H}"
-                         + ("" if tm is None else f" at tm {tm}"))
+                         + ("" if tm is None else f" at tm {tm}")
+                         + ("" if d == D else f" at width {d}"))
     return best
 
 
@@ -278,46 +307,60 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
               b_all: torch.Tensor, H: int, valid: Union[int, torch.Tensor],
               num_kernels: int, tm: Optional[int] = None,
               lrelu_slope: float = LRELU_SLOPE) -> torch.Tensor:
-    """x (T, 128) stage activations → (T, 128) MRF output.  ``chains``,
-    ``W_all``, ``b_all`` and ``H`` from ``build_mrf_spec``; ``valid`` in
-    rows of this stage's grid, at most T (on CUDA a one-element int32
-    tensor on the card).
+    """x (T, d) stage activations → (T, d) MRF output, d = 128 or 256
+    (``WIDTHS``).  ``chains``, ``W_all``, ``b_all`` and ``H`` from
+    ``build_mrf_spec``; ``valid`` in rows of this stage's grid, at most T
+    (on CUDA a one-element int32 tensor on the card).
 
     On CUDA: x float32, W_all bf16 or float32 (the kernel's variant),
     b_all float32; ``tm`` defaults to the choice of the variant's plan
-    (``bf16_plan`` or ``f32_plan``)."""
+    (``bf16_plan`` or ``f32_plan``).  A width or dtype no variant is built
+    for raises ValueError before any launch."""
     if x.device.type == "cpu":
         return mrf_fused_plain(x, chains, W_all, b_all, H, valid,
                                num_kernels, tm, lrelu_slope)
+    t, d = x.shape
+    if not supports(d, W_all.dtype):
+        raise ValueError(
+            f"mrf_fused: no kernel for a stage {d} wide with {W_all.dtype} "
+            f"weights (built for: " + "; ".join(
+                f"{dt} at {', '.join(map(str, ws))}"
+                for dt, ws in WIDTHS.items()) + ")")
     if x.device.type != "cuda":
         raise ValueError(f"mrf_fused: unsupported device {x.device}")
-    t = x.shape[0]
     dev = x.device
     n_ops = sum(len(c) for c in chains)
-    rows = chains[-1][-1][2] + chains[-1][-1][1] * D
-    if W_all.dtype not in DTYPES:
-        raise ValueError(f"mrf_fused: W_all is {W_all.dtype}, not one of "
-                         f"{DTYPES}")
+    rows = chains[-1][-1][2] + chains[-1][-1][1] * d
     f32 = W_all.dtype == torch.float32
-    build.check_tensor("x", x, torch.float32, (t, D), dev)
-    build.check_tensor("W_all", W_all, W_all.dtype, (rows, D), dev)
-    build.check_tensor("b_all", b_all, torch.float32, (n_ops, D), dev)
+    build.check_tensor("x", x, torch.float32, (t, d), dev)
+    build.check_tensor("W_all", W_all, W_all.dtype, (rows, d), dev)
+    build.check_tensor("b_all", b_all, torch.float32, (n_ops, d), dev)
     build.check_valid("mrf_fused", valid, dev)
     lib = _lib()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = (f32_plan if f32 else bf16_plan)(chain_widths(chains), t, tm, sms)
+    pl = (f32_plan(chain_widths(chains), t, tm, sms) if f32 else
+          bf16_plan(chain_widths(chains), t, tm, sms, d))
     spec = [len(chains)]
     for chain in chains:
         spec.append(len(chain))
         for w, _, off, bi in chain:
             spec += [w, off, bi]
     spec_arr = (_I * len(spec))(*spec)
-    out = torch.empty((t, D), dtype=torch.float32, device=dev)
+    out = torch.empty((t, d), dtype=torch.float32, device=dev)
     args = (x.data_ptr(), W_all.data_ptr(), b_all.data_ptr(),
             out.data_ptr(), valid.data_ptr(), t, H)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if f32:
+        if d == WIDE_D:
+            # one block an SM, each with its v region in device memory
+            grid = min(-(-t // pl.tm), sms)
+            v_all = torch.empty((grid, pl.tm + 2 * H, d),
+                                dtype=torch.float32, device=dev)
+            err = lib.mrf_wide_launch(
+                *args[:4], v_all.data_ptr(), *args[4:], pl.tm, pl.slots,
+                pl.r_alloc, pl.buf_off, pl.bar_off, pl.smem, grid, spec_arr,
+                num_kernels, float(lrelu_slope), stream)
+        elif f32:
             err = lib.mrf_f32_launch(*args, pl.tm, pl.r_alloc, pl.lo_off,
                                      pl.v_off, pl.smem, spec_arr,
                                      num_kernels, float(lrelu_slope), stream)
@@ -328,4 +371,6 @@ def mrf_fused(x: torch.Tensor, chains: Chains, W_all: torch.Tensor,
                                  stream)
     build.check(lib, err, "mrf_fused")
     launches[W_all.dtype] += 1
+    if d == WIDE_D:
+        spans.count("k2.wide_launches")
     return out

@@ -1,10 +1,13 @@
 """Probe of the folded vocoder's two routes on the card:
 
     python -m efficientspeech_tpu_torch.probes.vocoder_route [--reps 5]
-        [--out FILE.jsonl]
+        [--out FILE.jsonl] [--preset base --hifigan-config
+        configs/hifigan_v1.json --dtypes bf16]
 
-For bf16 and float32 serving (the tiny preset with the LJ_V2 vocoder,
-random weights from seed 0, the int16 wire), a synthesizer is built and
+For bf16 and float32 serving (by default the tiny preset with the LJ_V2
+vocoder; ``--preset`` and ``--hifigan-config``, a HiFi-GAN config.json,
+choose others, and ``--dtypes`` one of the two; random weights from
+seed 0, the int16 wire), a synthesizer is built and
 warmed as the server warms it (``precompile`` of buckets 128 and 512 at
 batch 1 and 32), and runs a ``tts_batch``.  Then, at frame counts that
 warm-up did not run (512 and 1,536 frames, 1 and 32 rows), it times a
@@ -143,6 +146,10 @@ def main():
                         help="timed calls a shape and route after a warm one")
     parser.add_argument("--out", default=None,
                         help="append each line as JSON to this file")
+    parser.add_argument("--preset", default="tiny")
+    parser.add_argument("--hifigan-config", default=None,
+                        help="a HiFi-GAN config.json (default LJ_V2)")
+    parser.add_argument("--dtypes", default="bf16,f32")
     args = parser.parse_args()
     name = card()
     out = open(args.out, "a") if args.out else None
@@ -154,8 +161,10 @@ def main():
             out.write(json.dumps(rec) + "\n")
             out.flush()
 
-    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        synth = build_synthesizer(preset="tiny", dtype=dtype,
+    for dname in args.dtypes.split(","):
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+        synth = build_synthesizer(preset=args.preset, dtype=dtype,
+                                  hifigan_config=args.hifigan_config,
                                   bench_duration_bias=6.0, transfer="int16",
                                   device="cuda")
         t0 = time.perf_counter()

@@ -5,6 +5,8 @@ with a card run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -905,3 +907,124 @@ def test_gather_batch_on_card(card):
         for k, v in want.items():
             assert got[k].dtype == v.dtype, k
             assert torch.equal(got[k].cpu(), v), k
+
+
+# HiFi-GAN V1 (config_v1.json): its 256-wide stage 0 on K2's wide kernel,
+# its first upsampler (D_in 512) and its post conv (4 samples a row,
+# padded to 16) on K1; regression floors about 6 dB under the least the
+# card gave over these cases (NVIDIA H100 80GB HBM3, 700 W)
+V1 = HifiGanConfig.from_json(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "hifigan_v1.json"))
+K2_WIDE_FLOOR_DB = 62.0
+K1_V1_FLOOR_DB = {"up0": 49.0, "post": 48.0}
+
+
+@pytest.fixture(scope="module")
+def folded_v1(card):
+    """The V1 vocoder folded in bf16, with its per-stage MRF specs."""
+    gen = HifiGanGenerator(V1)
+    reset_parameters(gen, 0)
+    arrays, meta = fold_hifigan(gen.to(card), torch.bfloat16)
+    return prepare_for_kernels(arrays, meta, V1)
+
+
+@pytest.mark.parametrize("t,valid_rows,tm", [
+    pytest.param(32768, 32768 - 4096, None, id="4096-frames"),
+    pytest.param(1000, 771, None, id="ragged"),
+    pytest.param(3000, 0, None, id="valid-0"),
+    pytest.param(3000, 3000, None, id="valid-T"),
+    pytest.param(1000, 771, 16, id="tm16"),
+    pytest.param(1000, 771, 64, id="tm64")])
+def test_mrf_wide_kernel(card, folded_v1, t, valid_rows, tm,
+                         record_property):
+    """K2's wide kernel (stage 0 of V1: 256 wide, halo 60) against the
+    plain version: one launch counted (and one ``k2.wide_launches``),
+    SNR >= 35 dB and >= K2_WIDE_FLOOR_DB over the valid rows, rows at or
+    beyond valid exactly zero, every output finite."""
+    from efficientspeech_tpu_torch.utils import spans
+
+    chains, W_all, b_all, H = folded_v1[1][0]
+    assert W_all.shape[1] == 256 and H == 60
+    x = torch.randn(t, 256, generator=torch.Generator().manual_seed(t)
+                    ).to(card)
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
+    before = (mrf_block.launches[torch.bfloat16],
+              spans.counters().get("k2.wide_launches", 0))
+    got = mrf_block.mrf_fused(x, chains, W_all, b_all, H, valid, 3, tm=tm)
+    want = mrf_block.mrf_fused_plain(x, chains, W_all, b_all, H, valid, 3)
+    torch.cuda.synchronize()
+    assert (mrf_block.launches[torch.bfloat16],
+            spans.counters()["k2.wide_launches"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.isfinite(got).all()
+    assert not got[valid_rows:].any()
+    if valid_rows > 0:
+        snr = snr_db(want[:valid_rows], got[:valid_rows])
+        record_property("snr_db", snr)
+        assert snr >= max(SNR_BAR[torch.bfloat16], K2_WIDE_FLOOR_DB), snr
+
+
+@pytest.mark.parametrize("key", ["up0", "post"])
+def test_folded_matmul_v1_ops(card, folded_v1, key, record_property):
+    """K1 at V1's first upsampler (4,096 frames, D_in 512: a plan with no
+    x stage) and post conv (its 16 padded columns) against the plain
+    version on the folded weights."""
+    ops, _ = kernel_op_shapes(V1, 4096)
+    _, t, d_in, _, w = next(op for op in ops if op[0] == key)
+    W, b = folded_v1[0][key]
+    assert W.shape[1] % 16 == 0
+    assert (fm.plan(t, d_in, W.shape[1], w).x_bytes == 0) == (key == "up0")
+    g = torch.Generator().manual_seed(len(key))
+    x = torch.randn(t, d_in, generator=g).to(card)
+    valid_rows = t - t // 8
+    valid = torch.tensor([valid_rows], dtype=torch.int32, device=card)
+    slope = 0.01 if key == "post" else 0.1
+    before = fm.launches[torch.bfloat16]
+    got = fm.folded_matmul(x, W, b, w, valid, pre_lrelu=True,
+                           lrelu_slope=slope)
+    want = fm.folded_matmul_plain(x, W, b, w, valid, pre_lrelu=True,
+                                  lrelu_slope=slope)
+    torch.cuda.synchronize()
+    assert fm.launches[torch.bfloat16] == before + 1
+    assert not got[valid_rows:].any()
+    snr = snr_db(want[:valid_rows], got[:valid_rows])
+    record_property("snr_db", snr)
+    assert snr >= max(SNR_BAR[torch.bfloat16], K1_V1_FLOOR_DB[key]), snr
+
+
+def test_v1_tts_batch_takes_the_kernel_route(card, record_property):
+    """EfficientSpeech base with V1 in bf16: a tts_batch on the kernel
+    route runs K1 5 and K2 4 launches a row (one of them wide), counts
+    every row under ``synth.vocoder.wide_rows``, and matches the plain
+    route's waveform at the bf16 kernels' bar."""
+    from efficientspeech_tpu_torch.infer import build_synthesizer
+    from efficientspeech_tpu_torch.utils import spans
+
+    synth = build_synthesizer(preset="base", hifigan_cfg=V1,
+                              dtype=torch.bfloat16, bench_duration_bias=6.0,
+                              transfer="int16", device=card)
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "A second sentence, somewhat shorter.",
+             "And a third one, to make the batch uneven in its lengths."]
+    before = (dict(fm.launches), dict(mrf_block.launches),
+              spans.counters(synth.span_id),
+              spans.counters().get("k2.wide_launches", 0))
+    got = synth.tts_batch(texts)
+    torch.cuda.synchronize()
+    c = spans.counters(synth.span_id)
+    rows = c["synth.vocoder.kernel_rows"] - before[2].get(
+        "synth.vocoder.kernel_rows", 0)
+    assert rows >= len(texts)
+    assert c["synth.vocoder.wide_rows"] - before[2].get(
+        "synth.vocoder.wide_rows", 0) == rows
+    assert spans.counters()["k2.wide_launches"] - before[3] == rows
+    assert (fm.launches[torch.bfloat16] - before[0][torch.bfloat16],
+            mrf_block.launches[torch.bfloat16] - before[1][torch.bfloat16]
+            ) == (5 * rows, 4 * rows)
+    synth.vocoder_mode = "folded"
+    want = synth.tts_batch(texts)
+    worst = min(snr_db(torch.from_numpy(w), torch.from_numpy(g))
+                for (w, _), (g, _) in zip(want, got))
+    record_property("snr_db", worst)
+    assert worst >= SNR_BAR[torch.bfloat16], worst

@@ -100,12 +100,26 @@ def test_bf16_plan_fits_and_covers_every_tile(t, d_in, d_out, w, resident,
 
 @pytest.mark.parametrize("d_in,d_out,w,match", [
     (96, 128, 1, "multiple of 64"), (128, 24, 1, "multiple of 16"),
-    (128, 128, 120, "shared memory"), (1024, 128, 1, "shared memory")])
+    (128, 128, 400, "shared memory"), (1024, 128, 1, "shared memory")])
 def test_bf16_plan_refuses(d_in, d_out, w, match):
     """A shape the bf16 kernel does not take raises in the plan, which the
-    wrapper makes before it launches anything."""
+    wrapper makes before it launches anything: even with x read from
+    device memory, the A tile of a 801-tap window, or W's slot and the A
+    tile at D_in 1024, exceed a block's shared memory."""
     with pytest.raises(ValueError, match=match):
         fm.plan(4096, d_in, d_out, w)
+
+
+@pytest.mark.parametrize("t,d_in,d_out,w", [
+    (4096, 128, 128, 120), (4096, 512, 2048, 1), (16, 512, 2048, 1)])
+def test_bf16_plan_without_an_x_stage(t, d_in, d_out, w):
+    """Where no x stage fits beside W's slot and the A tile (a 241-tap
+    window; HiFi-GAN V1's first upsampler, D_in 512), the plan takes one
+    warpgroup streaming W with no stage, the converter reading x from
+    device memory."""
+    p = fm.plan(t, d_in, d_out, w)
+    assert (p.x_bytes, p.resident, p.n_wg) == (0, False, 1)
+    assert p.a_off == p.x_off == p.w_slot and p.smem <= fm.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("t,d_in,d_out,w,tn,nc", [

@@ -1,6 +1,9 @@
 """The port's folded vocoder on its kernel path (plain versions on the
 CPU) against the JAX package's folded vocoder with its Pallas kernels in
-interpret mode, and against the JAX conv generator."""
+interpret mode, and against the JAX conv generator: LJ_V2's layout, V1's
+at every published width, and LJ_V3's."""
+
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from efficientspeech_tpu_torch.models.hifigan_folded import (
     fold_hifigan, folded_plan_apply, kernel_op_shapes, make_grid_plan,
     prepare_for_kernels)
 from efficientspeech_tpu_torch.ops.kernels import folded_matmul, mrf_block
+from efficientspeech_tpu_torch.utils import spans
 from efficientspeech_tpu_torch.weights import load_jax_params
 
 torch.set_num_threads(2)
@@ -168,3 +172,69 @@ def test_resblock2_matches_jax(vocoder_v3, path):
     want = ref if path == "conv" else folded
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+V1_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "hifigan_v1.json")
+
+
+@pytest.fixture(scope="module")
+def vocoder_v1():
+    """HiFi-GAN V1 (config_v1.json: 512 initial channels, stage 0 folded
+    256 wide) from seeded parameters, and the JAX folded path's waveform
+    (its Pallas kernels in interpret mode, fuse_mrf: K2 at width 256) and
+    the JAX conv generator's, at valid = 5 of 8 frames."""
+    cfg = JaxHifiGanConfig.from_json(V1_CONFIG)
+    shapes = jax.eval_shape(lambda: JaxGen(cfg).init(
+        jax.random.PRNGKey(3), jnp.zeros((1, 4, 80)))["params"])
+    rng = np.random.default_rng(25)
+
+    def leaf(path, s):
+        if path[-1].key == "bias":
+            return (rng.standard_normal(s.shape) * 0.1).astype(np.float32)
+        bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    gen = HifiGanGenerator(HifiGanConfig.from_json(V1_CONFIG))
+    load_jax_params(gen, params)
+    t, valid = 8, 5
+    mel = rng.normal(-3, 2, size=(1, t, 80)).astype(np.float32)
+    vl = jnp.asarray([valid])
+    j_arrays, j_meta = fold_hifigan_device(params, cfg, dtype=jnp.float32)
+    want = jax_folded_plan_apply(j_arrays, j_meta, cfg, jnp.asarray(mel), vl,
+                                 dtype=jnp.float32, use_pallas=True,
+                                 interpret=True, fuse_mrf=True)
+    ref = JaxGen(cfg).apply({"params": params}, jnp.asarray(mel),
+                            valid_len=vl)
+    return gen, mel, valid, np.asarray(want), np.asarray(ref)
+
+
+@pytest.mark.parametrize("prepared", [False, True])
+def test_v1_kernel_path_matches_jax(vocoder_v1, prepared):
+    """V1 on the port's kernel path (plain versions on the CPU: stage 0
+    through mrf_fused at width 256, counted under
+    ``synth.vocoder.wide_rows``; from prepare_for_kernels, the post conv
+    from its arrays padded to 16 columns) against JAX's folded path and
+    conv generator.  Tolerance: rtol and atol 2e-5 (float32 sums in
+    another order and over folded weights lie ~5e-8 apart); a tenth of
+    the other folded tests' 2e-4, since V1's waveform from these weights
+    peaks at ~0.09, and a stage 0 with a leaky slope of 0.2 in place of
+    0.1 moves it by less than 2e-4 but fails this bar."""
+    gen, mel, valid, want, ref = vocoder_v1
+    arrays, meta = fold_hifigan(gen, torch.float32)
+    mrf = None
+    if prepared:
+        arrays, mrf = prepare_for_kernels(arrays, meta, gen.cfg)
+        assert arrays["post"][0].shape[1] == 16
+    before = (dict(folded_matmul.launches), dict(mrf_block.launches))
+    wide = spans.counters().get("synth.vocoder.wide_rows", 0)
+    with torch.no_grad():
+        got = folded_plan_apply(arrays, meta, gen.cfg, torch.from_numpy(mel),
+                                torch.tensor([valid]), dtype=torch.float32,
+                                use_kernel=True, fuse_mrf=True, mrf=mrf)
+    assert (folded_matmul.launches, mrf_block.launches) == before
+    assert spans.counters()["synth.vocoder.wide_rows"] == wide + 1
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
